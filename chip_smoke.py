@@ -6,17 +6,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure:
   1. device: CUDA must be available (there is no CPU path); prints the
      ``nvidia-smi`` name and power limit.
-  2. build: both kernels from the sources in the checkout (the decode kernel
-     with nvcc, the normalize kernel with Triton).
-  3. kernel vs plain PyTorch version on the card, at the product shapes.
-  4. main path: a ResNet-50 heatmap model (256 px, 17 keypoints, df 2, bf16)
-     with seeded weights loaded through the flax bridge predicts 4 batches
-     of 96 frames; both kernels must launch once per batch.
+  2. build: every kernel from the sources in the checkout, the CUDA sources
+     (decode, CLAHE) by one nvcc each, started together, then the Triton
+     kernels (normalize, warp) by their first calls.
+  3. kernel vs plain PyTorch version on the card, at the product shapes;
+     then the augmentation engine on the card against the same call on the
+     CPU (plain versions), with the same draws.
+  4. inference path: a ResNet-50 heatmap model (256 px, 17 keypoints, df 2,
+     bf16) with seeded weights loaded through the flax bridge predicts 4
+     batches of 96 frames; normalize and decode launch once per batch.
   5. the same model at fp32 on the card and on the CPU (plain versions).
   6. file path: Model.from_dir(dir).predict_on_video_file(video) on a
      written config, checkpoint and synthetic mp4.
   7. times of each kernel and its plain version, and the predict step's
      frames/s at batch 96.
+  8. training path: train(cfg, dir) of the default model (ResNet-50, 256 px,
+     batch 16, dlc augmentation, Adam with the multistep and unfreeze
+     schedules) for 20 steps on a synthetic labeled set; the warp kernel
+     launches once per step and CLAHE at least once; then
+     Model.from_dir(dir).predict_on_video_file(video) from what it wrote.
+  9. times of the train step (and of its augmentation) at batch 16, and the
+     training path's peak device memory.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -47,6 +57,20 @@ DECODE_KP_TOL_PX = 0.05
 DECODE_CONF_TOL = 1e-3
 DECODE_MAX_WINDOW_FLIPS = 2  # maps (of 1632) whose keypoint floors across a pixel edge
 CARD_VS_CPU_TOL_PX = 0.05
+# warp and CLAHE kernels vs their plain versions: fp32 against fp32, the
+# same terms summed in another order, on 0-255 gray levels
+GRAY_TOL = 1e-3
+# the engine on the card vs the CPU, same draws: keypoints within 1e-3 px;
+# pixels within 0.01 gray but for those (at most 0.1%) whose value lies
+# within rounding of an integer and truncates into another histogram bin
+ENGINE_KP_TOL_PX = 1e-3
+ENGINE_GRAY_TOL = 0.01
+ENGINE_OFF_SHARE = 1e-3
+TRAIN_BATCH = 16  # training.train_batch_size
+TRAIN_STEPS = 20
+UNFREEZE_STEP = 5
+TRAIN_FRAMES = 64
+TRAIN_SEED = 3  # rng_seed_data_pt: its draws fire CLAHE in the 20 steps
 
 KERNELS = {
     "normalize": {
@@ -58,6 +82,16 @@ KERNELS = {
         "route": "cuda",
         "source": "lightning_pose_tpu_torch/csrc/decode.cu",
         "replaces": "lightning_pose_tpu/ops/pallas_decode.py:108",
+    },
+    "warp": {
+        "route": "triton",
+        "source": "lightning_pose_tpu_torch/ops/warp_kernel.py",
+        "replaces": "lightning_pose_tpu/ops/pallas_warp.py:126",
+    },
+    "clahe": {
+        "route": "cuda",
+        "source": "lightning_pose_tpu_torch/csrc/clahe.cu",
+        "replaces": "lightning_pose_tpu/ops/pallas_clahe.py:121",
     },
 }
 
@@ -162,6 +196,205 @@ def bf16_ulps(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
+def timed(fn) -> float:
+    """Seconds ``fn()`` takes, to the end of the device's work."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def forced_draws(engine, b: int, seed: int):
+    """dlc draws for ``b`` images (fields on the card) in which every
+    geometric op fires, and histeq, CLAHE and emboss fire on some images."""
+    import torch
+
+    draws = engine.sample(torch.Generator().manual_seed(seed), b, torch.Generator(device="cuda").manual_seed(seed))
+    for name in ("affine_u", "croppad_u", "elastic_u"):
+        getattr(draws, name).zero_()
+    draws.elastic_alpha.fill_(10.0)
+    draws.histeq_u[0:2] = 0.0
+    draws.clahe_u[2:5] = 0.0
+    draws.emboss_u[5:7] = 0.0
+    return draws
+
+
+def check_warp(engine, images, draws, label: str) -> float:
+    """The warp kernel against its plain version on the engine's sampling
+    coordinates for ``draws``, and on the clamped ones of the motion-blur
+    path; returns the largest error."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import warp_kernel
+
+    _, coords, _, _ = engine.sampling_grid(draws, images.shape[0], images.device)
+    h, w = images.shape[1:3]
+    clamped = torch.cat([coords[..., 0:1].clamp(0, w - 1), coords[..., 1:2].clamp(0, h - 1)], dim=-1)
+    err = 0.0
+    for name, c in (("dlc grid", coords.contiguous()), ("clamped", clamped.contiguous())):
+        out = warp_kernel.warp(images, c)
+        ref = warp_kernel.warp_plain(images, c)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        outside = float(((c[..., 0] < 0) | (c[..., 0] > w - 1) | (c[..., 1] < 0) | (c[..., 1] > h - 1)).float().mean())
+        log(f"phase 3 warp {label} {name} {tuple(images.shape)}: max abs err {e:.3e} gray (limit {GRAY_TOL}); "
+            f"{outside:.1%} of the taps' pixels outside the frame")
+        check(bool(torch.isfinite(out).all()), f"warp {label} {name}: non-finite output")
+        check(e <= GRAY_TOL, f"warp {label} {name} disagrees with its plain version")
+        err = max(err, e)
+    return err
+
+
+def check_clahe(images, clip, g: int) -> tuple[float, tuple]:
+    """The CLAHE kernel against its plain version on LUTs that the port's
+    ``_clahe_lut_grid`` builds from ``images (B, 3, H, W)``."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import clahe_kernel
+    from lightning_pose_tpu_torch.ops.augment import _clahe_lut_grid
+
+    b, c, h, w = images.shape
+    lut = _clahe_lut_grid(images.clamp(0, 255).to(torch.int64), clip, g).reshape(b * c, g, g, 256).contiguous()
+    x = images.reshape(b * c, h, w).contiguous()
+    out = clahe_kernel.clahe_apply(x, lut, g)
+    ref = clahe_kernel.clahe_apply_plain(x, lut, g)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f"phase 3 clahe {tuple(x.shape)} g={g}: max abs err {err:.3e} gray (limit {GRAY_TOL})")
+    check(bool(torch.isfinite(out).all()), "clahe: non-finite output")
+    check(err <= GRAY_TOL, f"clahe g={g} disagrees with its plain version")
+    return err, (x, lut)
+
+
+def train_config(data_dir: Path, keypoint_names: list[str]):
+    """The repo's default config (ResNet-50 heatmap, batch 16, dlc, Adam
+    1e-3 with the multistep and unfreeze schedules) at 256 px in step mode,
+    on the synthetic labeled set."""
+    from lightning_pose_tpu_torch.config import load_config
+
+    cfg = load_config()
+    cfg.data.data_dir = str(data_dir)
+    cfg.data.video_dir = "videos"
+    cfg.data.num_keypoints = KEYPOINTS
+    cfg.data.keypoint_names = keypoint_names
+    cfg.data.image_resize_dims.height = IMAGE
+    cfg.data.image_resize_dims.width = IMAGE
+    cfg.data.downsample_factor = DOWNSAMPLE
+    cfg.model.model_name = "smoke"
+    cfg.dali.base.predict.sequence_length = BATCH
+    tcfg = cfg.training
+    check(tcfg.train_batch_size == TRAIN_BATCH and tcfg.imgaug == "dlc", "the defaults changed")
+    tcfg.max_epochs = tcfg.min_epochs = tcfg.unfreezing_epoch = None
+    tcfg.max_steps = tcfg.min_steps = TRAIN_STEPS
+    tcfg.unfreezing_step = UNFREEZE_STEP
+    tcfg.lr_scheduler_params.multisteplr.milestones = None
+    tcfg.lr_scheduler_params.multisteplr.milestone_steps = [10, 15]
+    tcfg.check_val_every_n_epoch = 1
+    tcfg.log_every_n_steps = 1
+    tcfg.rng_seed_data_pt = TRAIN_SEED
+    return cfg
+
+
+def write_video(path: Path, rng, n_frames: int, height: int, width: int) -> Path:
+    import cv2
+
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (width, height))
+    for _ in range(n_frames):
+        writer.write(rng.integers(0, 256, (height, width, 3), dtype=np.uint8))
+    writer.release()
+    return path
+
+
+def train_phase(rng, card: str) -> dict[str, int]:
+    """Phases 8 and 9: train() of the default model on a synthetic labeled
+    set, prediction from the directory it wrote, then the train step's
+    times. Returns the warp and CLAHE launches of the train() run."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset
+
+    dev = torch.device("cuda", 0)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_labeled_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        cfg = train_config(data, names)
+        model_dir = Path(tmp) / "model"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, skip_evaluation=True, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        log(f"phase 8 train(): {TRAIN_STEPS} steps of {TRAIN_BATCH} (ResNet-50, {IMAGE} px, dlc, bf16) in "
+            f"{elapsed:.1f} s with set-up, {len(val_logs)} validations; launches {launches}; "
+            f"train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> {train_logs[-1]['train_heatmap_mse_loss']:.4f}, "
+            f"lr head {train_logs[-1]['lr-head']:.2e}, backbone {train_logs[-1]['lr-backbone']:.2e}; "
+            f"peak device memory {peak:.2f} GiB {card}")
+        check(launches["warp"] == TRAIN_STEPS, f"warp launched {launches['warp']} times in {TRAIN_STEPS} steps")
+        check(launches["clahe"] >= 1, "CLAHE never launched in training")
+        check(len(train_logs) == TRAIN_STEPS and val_logs, "train() logged too little")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        best = list(model_dir.glob("tb_logs/smoke/version_0/checkpoints/*-best.ckpt"))
+        check(len(best) == 1, f"best checkpoints: {best}")
+        check(json.loads((model_dir / "train_status.json").read_text())["status"] == "COMPLETED",
+              "train_status.json is not COMPLETED")
+
+        video = write_video(Path(tmp) / "synthetic.mp4", rng, 150, 240, 320)
+        normalize_kernel.launches = decode_kernel.launches = 0
+        df = Model.from_dir(model_dir).predict_on_video_file(video).predictions
+        torch.cuda.synchronize()
+        predict_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+        check((model_dir / "video_preds" / "synthetic.csv").is_file(), "the trained dir's CSV was not written")
+        check(df.shape == (150, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"the trained dir's CSV: shape {df.shape} or non-finite values")
+        check(all(n > 0 for n in predict_launches.values()), f"predict launches {predict_launches}")
+        log(f"phase 8 predict from the trained dir: {df.shape[0]} rows, finite, launches {predict_launches}")
+
+        # -- 9. the train step's times -------------------------------------------
+        spe = trainer.calculate_steps_per_epoch(result.data_module)
+        torch.manual_seed(SEED)
+        model = build_model("heatmap", "resnet50", KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+        state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+        engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+        step = trainer.make_step_fns({"model_type": "heatmap", "downsample_factor": DOWNSAMPLE},
+                                     get_loss_factories(cfg), engine, cfg, head_sched, bb_sched, spe)[2]
+        cache = trainer._device_cache(result.data_module.dataset, dev)
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+
+        def one_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            step(state, cache, idxs, valid, engine.sample(draw_gen, TRAIN_BATCH, field_gen))
+
+        for _ in range(3):
+            one_step()
+        n = 20
+        step_ms = timed(lambda: [one_step() for _ in range(n)]) * 1e3 / n
+        batch = {k: v[:TRAIN_BATCH] for k, v in cache.items()}
+        draws = engine.sample(draw_gen, TRAIN_BATCH, field_gen)
+        aug_ms = cuda_ms(lambda: engine.apply(batch["images"], batch["keypoints"], batch["visibility"], draws))
+        log(f"phase 9 train step (ResNet-50, {IMAGE} px, bf16, batch {TRAIN_BATCH}, dlc, backbone unfrozen): "
+            f"{step_ms:.3f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} frames/s, mean of {n} steps by the host clock "
+            f"with draws sampled in each; the augmentation's apply() alone {aug_ms:.3f} ms per call (CUDA "
+            f"events over back-to-back calls with one draw, which count the host's launch gaps) {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -181,23 +414,29 @@ def main() -> int:
 
     from lightning_pose_tpu_torch.api.model import Model, PredictStep
     from lightning_pose_tpu_torch.models.factory import build_model
-    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+    from lightning_pose_tpu_torch.ops import clahe_kernel, cuda_build, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
     from lightning_pose_tpu_torch.train.checkpoints import (
         load_flax_variables,
         save_checkpoint,
         state_dict_to_flax,
     )
 
-    # -- 2. build ----------------------------------------------------------------
+    # -- 2. build: one nvcc per CUDA source, started together; then the
+    # Triton kernels by their first calls
     t0 = time.perf_counter()
+    nvcc_s = cuda_build.build("decode.cu", "clahe.cu")
     decode_kernel._library()
-    t_decode = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    normalize_kernel.normalize(torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device=dev))
-    torch.cuda.synchronize()
-    t_normalize = time.perf_counter() - t0
-    log(f"phase 2 build: decode.cu (nvcc) {t_decode:.1f} s, normalize (Triton, first call) "
-        f"{t_normalize:.1f} s")
+    clahe_kernel._library()
+    triton_s = {
+        "normalize": timed(lambda: normalize_kernel.normalize(
+            torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device=dev))),
+        "warp": timed(lambda: warp_kernel.warp(
+            torch.zeros((1, 2, 2, 3), device=dev), torch.zeros((1, 2, 2, 2), device=dev))),
+    }
+    log(f"phase 2 build: nvcc started together, {', '.join(f'{k} done after {v:.1f} s' for k, v in nvcc_s.items())}; "
+        f"Triton first calls {', '.join(f'{k} {v:.1f} s' for k, v in triton_s.items())}; "
+        f"{time.perf_counter() - t0:.1f} s in all")
 
     # -- 3. kernel vs plain at product shapes ---------------------------------
     rng = np.random.default_rng(SEED)
@@ -248,6 +487,36 @@ def main() -> int:
         decode_err = max(decode_err, kp_err)
     errors["decode"] = decode_err
 
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    train_images = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    warp_draws = forced_draws(engine, TRAIN_BATCH, SEED)
+    errors["warp"] = check_warp(engine, train_images, warp_draws, "product")
+    ragged = AugmentationEngine("dlc", 200, 136)
+    ragged_images = torch.from_numpy(rng.uniform(0, 255, (3, 200, 136, 3)).astype(np.float32)).to(dev)
+    errors["warp"] = max(errors["warp"], check_warp(ragged, ragged_images, forced_draws(ragged, 3, SEED), "ragged"))
+    clip = torch.from_numpy(rng.uniform(1.0, 8.0, TRAIN_BATCH).astype(np.float32)).to(dev)
+    clahe_images = train_images.permute(0, 3, 1, 2).contiguous()
+    errors["clahe"], clahe_inputs = check_clahe(clahe_images, clip, 16)
+    errors["clahe"] = max(errors["clahe"], check_clahe(clahe_images[:2], clip[:2], 8)[0])
+
+    # the engine on the card vs the same call on the CPU, same draws
+    frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
+    kp_in = torch.from_numpy(rng.uniform(0, IMAGE, (TRAIN_BATCH, KEYPOINTS, 2)).astype(np.float32))
+    draws = forced_draws(engine, TRAIN_BATCH, SEED + 1)
+    img_card, kp_card = engine.apply(frames_u8.to(dev), kp_in.to(dev), None, draws)
+    cpu_draws = type(draws)(**{k: None if v is None else v.cpu() for k, v in vars(draws).items()})
+    img_cpu, kp_cpu = engine.apply(frames_u8, kp_in, None, cpu_draws)
+    diff = (img_card.cpu() - img_cpu).abs()
+    off = float((diff > ENGINE_GRAY_TOL).float().mean())
+    finite = ~torch.isnan(kp_cpu)
+    kp_err = float((kp_card.cpu()[finite] - kp_cpu[finite]).abs().max())
+    log(f"phase 3 engine card vs CPU, dlc, {TRAIN_BATCH} images (histeq on 2, CLAHE on 3, emboss on 2): "
+        f"keypoints max abs diff {kp_err:.3e} px (limit {ENGINE_KP_TOL_PX}), NaN masks equal "
+        f"{bool(torch.equal(torch.isnan(kp_card.cpu()), ~finite))}; pixels {diff.max():.3e} gray at most, "
+        f"{off:.2e} of them beyond {ENGINE_GRAY_TOL} (limit {ENGINE_OFF_SHARE})")
+    check(bool(torch.equal(torch.isnan(kp_card.cpu()), ~finite)), "engine: NaN keypoints differ")
+    check(kp_err <= ENGINE_KP_TOL_PX and off <= ENGINE_OFF_SHARE, "engine on the card disagrees with the CPU")
+
     # -- 4. main path ----------------------------------------------------------------
     model = build_model("heatmap", "resnet50", KEYPOINTS, DOWNSAMPLE)
     shapes_params, shapes_stats = state_dict_to_flax(model.state_dict())
@@ -266,7 +535,7 @@ def main() -> int:
     outputs = [step(video[i], bbox) for i in range(MAIN_PATH_BATCHES)]
     torch.cuda.synchronize()
     launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
-    log(f"phase 4 main path: {MAIN_PATH_BATCHES} batches of {BATCH}, launches {launches}")
+    log(f"phase 4 inference path: {MAIN_PATH_BATCHES} batches of {BATCH}, launches {launches}")
     for name, count in launches.items():
         check(count == MAIN_PATH_BATCHES, f"{name} launched {count} times")
     for kp, conf in outputs:
@@ -361,11 +630,28 @@ def main() -> int:
             cuda_ms(lambda: decode_kernel.decode_plain(hm, DOWNSAMPLE)),
         ),
     }
+    _, warp_coords, _, _ = engine.sampling_grid(warp_draws, TRAIN_BATCH, dev)
+    warp_coords = warp_coords.contiguous()
+    times["warp"] = (
+        cuda_ms(lambda: warp_kernel.warp(train_images, warp_coords)),
+        cuda_ms(lambda: warp_kernel.warp_plain(train_images, warp_coords)),
+    )
+    clahe_x, clahe_lut = clahe_inputs
+    times["clahe"] = (
+        cuda_ms(lambda: clahe_kernel.clahe_apply(clahe_x, clahe_lut, 16)),
+        cuda_ms(lambda: clahe_kernel.clahe_apply_plain(clahe_x, clahe_lut, 16)),
+    )
     for name, (ms, plain_ms) in times.items():
         log(f"phase 7 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at the product shape {card}")
+    log(f"phase 7 shapes: warp ({TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3) fp32 at a dlc grid; clahe "
+        f"{tuple(clahe_x.shape)} g=16")
     step_ms = cuda_ms(lambda: step(frames_bf16, bbox), iters=10)
     log(f"phase 7 predict step (ResNet-50, 256 px, bf16, batch {BATCH}): {step_ms:.3f} ms, "
         f"{BATCH / step_ms * 1e3:.1f} frames/s {card}")
+
+    launches.update(train_phase(rng, card))
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    check(not jax_modules, f"JAX was imported: {jax_modules[:5]}")
 
     summary = [
         {

@@ -114,7 +114,7 @@ class Model:
                 "data-parallel prediction is not ported yet (ROADMAP queue 1, item 14)"
             )
         from lightning_pose_tpu.api.model_config import ModelConfig
-        from lightning_pose_tpu.config import Config
+        from lightning_pose_tpu_torch.config import Config
 
         config_path = Path(model_dir) / "config.yaml"
         if not config_path.exists():

@@ -14,7 +14,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
-__all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "RESNET_CONFIGS", "max_pool_3x3_s2"]
+__all__ = [
+    "BasicBlock",
+    "BatchNorm2d",
+    "BottleneckBlock",
+    "RESNET_CONFIGS",
+    "ResNet",
+    "max_pool_3x3_s2",
+]
 
 # name: (blocks per stage, bottleneck, output features)
 RESNET_CONFIGS: dict[str, tuple[Sequence[int], bool, int]] = {
@@ -28,8 +35,33 @@ RESNET_CONFIGS: dict[str, tuple[Sequence[int], bool, int]] = {
 BN_EPS = 1e-5
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` uses the
+    biased batch variance, as flax's ``BatchNorm`` does; torch's uses the
+    unbiased one.
+
+    The forward pass is torch's own (cuDNN's fused kernel on the card). The
+    update is then corrected per channel, with no extra pass over the
+    activations: torch set ``rv = k*old + m*var*n/(n-1)`` with ``k = 1 - m``,
+    and ``lerp(k*old, rv, (n-1)/n)`` is ``k*old + m*var``, where ``n`` is
+    the number of values per channel. Two small ops per layer: the multiply
+    and the lerp.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        keep = self.running_var * (1.0 - self.momentum)
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # a new buffer, not an in-place update: autograd saved the old one
+        with torch.no_grad():
+            self.running_var = torch.lerp(keep, self.running_var, (n - 1) / n)
+        return y
+
+
+def _bn(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=BN_EPS, momentum=0.1)
 
 
 def _downsample(in_features: int, out_features: int, stride: int) -> nn.Sequential | None:

@@ -1,16 +1,27 @@
 """Model factory (counterpart of ``lightning_pose_tpu/models/factory.py``).
 
 Only the single-view ``heatmap`` model is ported; the other model types are
-recognised and raise ``NotImplementedError``.
+recognised and raise ``NotImplementedError``. Weights are initialised as the
+JAX package's flax modules initialise theirs (:func:`init_like_flax`).
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
 from torch import nn
 
 from lightning_pose_tpu_torch.models.heatmap_tracker import HeatmapTracker
 
-__all__ = ["ALLOWED_MODEL_TYPES", "build_model", "get_model", "normalize_model_type"]
+__all__ = [
+    "ALLOWED_MODEL_TYPES",
+    "build_model",
+    "check_if_semi_supervised",
+    "get_model",
+    "init_like_flax",
+    "normalize_model_type",
+]
 
 ALLOWED_MODEL_TYPES = [
     "regression",
@@ -34,6 +45,38 @@ def normalize_model_type(model_type: str) -> str:
     return _MODEL_TYPE_ALIASES.get(model_type, model_type)
 
 
+def check_if_semi_supervised(losses_to_use) -> bool:
+    """True when unsupervised losses are configured (the JAX package's
+    ``models/factory.check_if_semi_supervised``)."""
+    losses = list(losses_to_use or [])
+    return bool(losses) and losses != [""]
+
+
+# std of a standard normal truncated to [-2, 2]: flax's truncated-normal
+# variance scaling divides by it so the kept samples have variance 1/fan_in
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def init_like_flax(module: nn.Module) -> nn.Module:
+    """Re-initialise ``module`` in place as flax initialises the JAX
+    package's modules: every ``nn.Conv2d`` kernel from ``lecun_normal``
+    (a normal of variance ``1/fan_in``, ``fan_in = in_channels * kh * kw``,
+    truncated at two standard deviations) and bias zero; BatchNorm scale 1,
+    bias 0, statistics 0 and 1. Transposed convs (the heatmap head) keep
+    their Xavier-uniform init. Draws from torch's default generator."""
+    with torch.no_grad():
+        for layer in module.modules():
+            if isinstance(layer, nn.Conv2d):
+                fan_in = layer.in_channels // layer.groups * math.prod(layer.kernel_size)
+                std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STD
+                nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std)
+                if layer.bias is not None:
+                    nn.init.zeros_(layer.bias)
+            elif isinstance(layer, nn.BatchNorm2d):
+                layer.reset_parameters()
+    return module
+
+
 def build_model(
     model_type: str,
     backbone: str,
@@ -50,10 +93,12 @@ def build_model(
         raise NotImplementedError(
             f"model_type {model_type} is not ported yet ({_NOT_PORTED[model_type]})"
         )
-    return HeatmapTracker(
-        backbone_arch=backbone,
-        num_keypoints=num_keypoints,
-        downsample_factor=downsample_factor,
+    return init_like_flax(
+        HeatmapTracker(
+            backbone_arch=backbone,
+            num_keypoints=num_keypoints,
+            downsample_factor=downsample_factor,
+        )
     )
 
 

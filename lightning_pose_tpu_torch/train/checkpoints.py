@@ -1,6 +1,11 @@
 """Checkpoint files and the parameter bridge to the port's modules
 (counterpart of ``lightning_pose_tpu/train/checkpoints.py``).
 
+Checkpoints keep the JAX package's naming contract:
+``<model_dir>/tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
+(and ``-last.ckpt``, and ``epoch=E-step=S.ckpt`` every n epochs), found by
+``lightning_pose_tpu.utils.io.ckpt_path_from_base_path``.
+
 The reference writes checkpoints as flax-msgpack files
 (``flax.serialization.msgpack_serialize`` of ``{"params", "batch_stats",
 "step", "epoch", "extra"}``). They are read and written here with
@@ -18,8 +23,10 @@ flax module names to torchvision's (``layer1_0`` <-> ``layer1.0``,
 
 from __future__ import annotations
 
+import glob
 import os
 import re
+import shutil
 from typing import Any
 
 import numpy as np
@@ -27,11 +34,17 @@ import torch
 from torch import nn
 
 __all__ = [
+    "checkpoint_dir",
     "load_checkpoint",
     "load_flax_variables",
+    "next_version_dir",
+    "remove_checkpoint",
+    "resolve_checkpoint_path",
     "save_checkpoint",
+    "save_module",
     "state_dict_from_flax",
     "state_dict_to_flax",
+    "warm_start",
 ]
 
 _EXT_NDARRAY = 1
@@ -97,24 +110,106 @@ def load_checkpoint(path: str) -> dict:
 
 
 def save_checkpoint(
-    path: str, params: dict, batch_stats: dict, step: int = 0, epoch: int = 0
+    path: str,
+    params: dict,
+    batch_stats: dict,
+    step: int = 0,
+    epoch: int = 0,
+    extra: dict | None = None,
+    backend: str = "msgpack",
+    opt_state: Any = None,
 ) -> None:
     """Atomically write numpy trees as a flax-msgpack checkpoint file that
     the reference's ``load_checkpoint`` reads."""
     import msgpack
 
+    if backend == "orbax":
+        raise NotImplementedError(
+            "Orbax checkpoints are not ported yet (ROADMAP queue 1, item 9: resume)"
+        )
+    if backend != "msgpack":
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    if opt_state is not None:
+        raise NotImplementedError(
+            "optimizer state in checkpoints is not ported yet (ROADMAP queue 1, item 9: resume)"
+        )
     payload = {
         "params": params,
         "batch_stats": batch_stats,
         "step": int(step),
         "epoch": int(epoch),
-        "extra": {},
+        "extra": extra or {},
     }
     data = msgpack.packb(payload, default=_ext_default, strict_types=True)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+
+
+def next_version_dir(model_dir: str, model_name: str) -> str:
+    """A fresh ``tb_logs/<model_name>/version_N`` directory path."""
+    base = os.path.join(model_dir, "tb_logs", model_name)
+    versions = [
+        int(m.group(1))
+        for p in glob.glob(os.path.join(glob.escape(base), "version_*"))
+        if (m := re.search(r"version_(\d+)$", p))
+    ]
+    return os.path.join(base, f"version_{max(versions) + 1 if versions else 0}")
+
+
+def checkpoint_dir(version_dir: str) -> str:
+    """``<version_dir>/checkpoints``, created if missing."""
+    d = os.path.join(version_dir, "checkpoints")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def remove_checkpoint(path: str) -> None:
+    """Delete a checkpoint, a file or an Orbax directory."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def resolve_checkpoint_path(path: str) -> str:
+    """A ``cfg.model.checkpoint`` value -> a checkpoint file: the path itself,
+    or for a model directory the first ``**/*.ckpt`` under it."""
+    if not os.path.isdir(path) or path.endswith(".ckpt"):
+        return path
+    matches = sorted(glob.glob(os.path.join(path, "**", "*.ckpt"), recursive=True))
+    if not matches:
+        raise FileNotFoundError(f"no *.ckpt found under model directory {path}")
+    return matches[0]
+
+
+def save_module(path: str, module: nn.Module, step: int, epoch: int, extra: dict | None = None) -> None:
+    """Write ``module``'s weights and BatchNorm statistics as a checkpoint."""
+    params, batch_stats = state_dict_to_flax(module.state_dict())
+    save_checkpoint(path, params, batch_stats, step, epoch, extra=extra)
+
+
+def warm_start(module: nn.Module, path: str) -> bool:
+    """Load ``cfg.model.checkpoint`` (a checkpoint file or a model
+    directory) into ``module``: the whole model when it fits, else the
+    backbone alone (a head of another size, e.g. another keypoint count).
+    Returns True when the whole model was loaded."""
+    ckpt = load_checkpoint(resolve_checkpoint_path(path))
+    state = state_dict_from_flax(ckpt["params"], ckpt.get("batch_stats") or {})
+    own = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+    def fits(keys) -> bool:
+        return all(k in state and tuple(state[k].shape) == own[k] for k in keys)
+
+    if set(state) == set(own) and fits(own):
+        module.load_state_dict(state, strict=True)
+        return True
+    backbone = [k for k in own if k.startswith("backbone.")]
+    if not fits(backbone):
+        raise ValueError(f"{path} holds no backbone of this model")
+    module.load_state_dict({k: state[k] for k in backbone}, strict=False)
+    return False
 
 
 # -- parameter bridge ------------------------------------------------------------

@@ -1,0 +1,517 @@
+"""Supervised training of the single-view heatmap model (counterpart of
+``lightning_pose_tpu/train/trainer.py``).
+
+One process, one device. Each step gathers its batch from a device-resident
+copy of the labeled set, augments it on the device (``ops/augment.py``, with
+the warp and CLAHE kernels), builds the target heatmaps, runs the model in
+bf16 by autocast with fp32 parameters and BatchNorm statistics, and takes an
+Adam step on two parameter groups (backbone and head), each with its
+schedule read at the step count (``train/schedules.py``). Targets and losses
+are fp32; the logged pixel RMSE uses the plain decode, as the reference does.
+
+``train(cfg, model_dir)`` writes the reference's model directory:
+``config.yaml``, a copy of the label CSV, ``train_status.json``,
+``tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
+(flax-msgpack, read by both packages) and, when ``tensorboardX`` imports,
+its event files. ``Model.from_dir(model_dir)`` of either package predicts
+from it.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import shutil
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from lightning_pose_tpu_torch.api.model import resolve_device
+from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
+from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
+from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
+from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
+from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+from lightning_pose_tpu_torch.train import checkpoints as ckpt_utils
+from lightning_pose_tpu_torch.train.schedules import anneal_weight, backbone_lr, multistep_lr
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "TrainState",
+    "TrainedModel",
+    "calculate_steps_per_epoch",
+    "make_optimizer",
+    "make_step_fns",
+    "run_validation_epoch",
+    "train",
+]
+
+_CACHE_KEYS = ("images", "keypoints", "visibility", "bbox")
+
+
+def calculate_steps_per_epoch(data_module) -> int:
+    """``ceil(n_train / batch_size)``."""
+    return math.ceil(len(data_module.train_dataset) / data_module.train_batch_size)
+
+
+# ------------------------------------------------------------------------------
+# optimizer
+# ------------------------------------------------------------------------------
+
+
+def _resolve_schedule_cfg(cfg, steps_per_epoch: int) -> dict:
+    """Epoch-mode or step-mode training lengths and milestones."""
+    tcfg = cfg.training
+    multisteplr = tcfg.lr_scheduler_params.multisteplr
+    if tcfg.get("max_steps") is not None:
+        max_steps = int(tcfg.max_steps)
+        max_epochs = math.ceil(max_steps / steps_per_epoch)
+        milestones_steps = list(multisteplr.get("milestone_steps", []))
+        unfreeze_step = tcfg.get("unfreezing_step", 0)
+        unfreeze_epoch = None
+    else:
+        max_epochs = int(tcfg.max_epochs)
+        max_steps = max_epochs * steps_per_epoch
+        milestones_steps = [m * steps_per_epoch for m in multisteplr.get("milestones", [])]
+        unfreeze_epoch = tcfg.get("unfreezing_epoch", 20)
+        unfreeze_step = None
+    return dict(
+        max_steps=max_steps,
+        max_epochs=max_epochs,
+        milestones_steps=milestones_steps,
+        gamma=float(multisteplr.get("gamma", 0.5)),
+        unfreeze_epoch=unfreeze_epoch,
+        unfreeze_step=unfreeze_step,
+    )
+
+
+def make_optimizer(
+    cfg, steps_per_epoch: int, model: nn.Module
+) -> tuple[torch.optim.Optimizer, Callable[[int], float], Callable[[int], float]]:
+    """Adam (or AdamW with optax's default decay of 1e-4) over two parameter
+    groups, ``backbone.*`` and the rest; returns the optimizer and the head
+    and backbone schedules. Set each group's ``lr`` with
+    :func:`set_learning_rates` before every step."""
+    sched = _resolve_schedule_cfg(cfg, steps_per_epoch)
+    base_lr = float(cfg.training.optimizer_params.get("learning_rate", 1e-3))
+    milestones_epochs = [math.ceil(m / steps_per_epoch) for m in sched["milestones_steps"]]
+    head_sched = multistep_lr(base_lr, milestones_epochs, sched["gamma"], steps_per_epoch)
+    bb_sched = backbone_lr(
+        base_lr,
+        milestones_epochs,
+        sched["gamma"],
+        steps_per_epoch,
+        unfreezing_epoch=sched["unfreeze_epoch"],
+        unfreezing_step=sched["unfreeze_step"],
+    )
+    backbone = [p for n, p in model.named_parameters() if n.startswith("backbone.")]
+    head = [p for n, p in model.named_parameters() if not n.startswith("backbone.")]
+    groups = [{"params": backbone, "name": "backbone"}, {"params": head, "name": "head"}]
+    name = str(cfg.training.get("optimizer", "Adam")).lower()
+    if name == "adam":
+        optimizer = torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adamw":
+        optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    else:
+        raise NotImplementedError(f"optimizer {cfg.training.optimizer} not supported")
+    return optimizer, head_sched, bb_sched
+
+
+def set_learning_rates(optimizer: torch.optim.Optimizer, step: int, head_sched, bb_sched) -> None:
+    """Each group's ``lr`` at ``step``, the count of steps already taken."""
+    for group in optimizer.param_groups:
+        group["lr"] = bb_sched(step) if group["name"] == "backbone" else head_sched(step)
+
+
+# ------------------------------------------------------------------------------
+# step functions
+# ------------------------------------------------------------------------------
+
+
+@dataclass
+class TrainState:
+    """What a train step reads and updates: the model (parameters and
+    BatchNorm statistics), the optimizer, and the count of steps taken."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def _effective_visibility(kp: torch.Tensor, visibility: torch.Tensor) -> torch.Tensor:
+    """Keypoints that augmentation pushed out of the frame (NaN with
+    visibility 2) drop to 0; labels that were NaN keep the dataset's flag."""
+    return torch.where(torch.isnan(kp[..., 0]) & (visibility == 2), 0, visibility)
+
+
+def _to_nchw(images: torch.Tensor) -> torch.Tensor:
+    """Normalized ``(B, H, W, 3)`` -> ``(B, 3, H, W)``, channels-last."""
+    return normalize_images(images).permute(0, 3, 1, 2)
+
+
+def make_step_fns(
+    meta: dict,
+    loss_factories: dict,
+    augmenter: AugmentationEngine,
+    cfg,
+    head_sched,
+    bb_sched,
+    steps_per_epoch: int,
+    compute_dtype: torch.dtype = torch.bfloat16,
+):
+    """``(train_step, eval_step, train_step_cached)`` of the single-view
+    heatmap model.
+
+    - ``train_step(state, batch, draws) -> logs``: augment with ``draws``
+      (``augmenter.sample``; None for an identity pipeline), one optimizer
+      step; ``state.step`` advances.
+    - ``eval_step(state, batch, stage) -> (logs, preds, confidences)``.
+    - ``train_step_cached(state, cache, idxs, valid, draws) -> logs``: the
+      batch is gathered from a device-resident labeled cache by index; rows
+      with ``valid`` False are padding (visibility 0, NaN keypoints).
+
+    Batches hold ``images (B, H, W, 3)``, ``keypoints (B, K, 2)``,
+    ``visibility (B, K)`` and ``bbox (B, 4)`` on the model's device. Logs are
+    0-d tensors, read when the caller needs them.
+    """
+    height = int(cfg.data.image_resize_dims.height)
+    width = int(cfg.data.image_resize_dims.width)
+    df = meta["downsample_factor"]
+    out_shape = (height // 2**df, width // 2**df)
+    anneal_cfg = cfg.callbacks.anneal_weight
+    rmse_loss = RegressionRMSELoss()
+    supervised = loss_factories["supervised"]
+
+    def supervised_loss(model, images, keypoints, visibility, bbox, stage):
+        with torch.autocast(
+            images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16
+        ):
+            heatmaps = model(images)
+        targets = generate_heatmaps(
+            keypoints, height=height, width=width, output_shape=out_shape, visibility=visibility
+        )
+        loss, logs = supervised(
+            stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=heatmaps
+        )
+        with torch.no_grad():
+            preds, confidences = model.decode(heatmaps.detach())
+            preds = model_to_frame_batch(preds, bbox, width, height)
+            kp_frame = model_to_frame_batch(keypoints.reshape(keypoints.shape[0], -1), bbox, width, height)
+            rmse, _ = rmse_loss(keypoints_targ=kp_frame, keypoints_pred=preds)
+        logs = {k: v.detach() for k, v in logs.items()}
+        logs[f"{stage}_supervised_loss"] = loss.detach()
+        logs[f"{stage}_supervised_rmse"] = rmse
+        return loss, logs, preds, confidences
+
+    def train_step(state: TrainState, batch: dict, draws: Draws | None) -> dict:
+        images, keypoints, vis = augmenter.apply(
+            batch["images"], batch["keypoints"], batch["visibility"], draws
+        )
+        visibility = _effective_visibility(keypoints, vis)
+        state.model.train()
+        loss, logs, _, _ = supervised_loss(
+            state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train"
+        )
+        set_learning_rates(state.optimizer, state.step, head_sched, bb_sched)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        logs["total_loss"] = loss.detach()
+        logs["total_unsupervised_importance"] = torch.tensor(
+            anneal_weight(
+                state.step // steps_per_epoch,
+                init_val=float(anneal_cfg.init_val),
+                increase_factor=float(anneal_cfg.increase_factor),
+                final_val=float(anneal_cfg.final_val),
+                freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
+            )
+        )
+        state.step += 1
+        return logs
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict, stage: str):
+        state.model.eval()
+        visibility = _effective_visibility(batch["keypoints"], batch["visibility"])
+        _, logs, preds, confidences = supervised_loss(
+            state.model, _to_nchw(batch["images"]), batch["keypoints"], visibility,
+            batch["bbox"], stage,
+        )
+        return logs, preds, confidences
+
+    def train_step_cached(state, cache: dict, idxs: torch.Tensor, valid: torch.Tensor, draws):
+        batch = {k: v.index_select(0, idxs) for k, v in cache.items()}
+        batch["visibility"] = torch.where(valid[:, None], batch["visibility"], 0)
+        # NaN pad-row labels so the logged pixel RMSE ignores them
+        batch["keypoints"] = torch.where(valid[:, None, None], batch["keypoints"], float("nan"))
+        return train_step(state, batch, draws)
+
+    return train_step, eval_step, train_step_cached
+
+
+# ------------------------------------------------------------------------------
+# orchestration
+# ------------------------------------------------------------------------------
+
+
+@dataclass
+class TrainedModel:
+    """Handle on a trained model (the checkpoint is on disk). ``history``
+    holds what was logged: one dict per logging step and per validation,
+    with ``step`` and ``epoch``."""
+
+    cfg: object
+    model_dir: Path
+    model: nn.Module
+    data_module: object
+    history: list[dict]
+
+
+def run_validation_epoch(batches, eval_logs_fn) -> dict[str, float]:
+    """Validation logs averaged over samples: each batch's logs weigh by its
+    count of real (not padding) samples."""
+    sums: dict[str, float] = {}
+    n_total = 0
+    for batch in batches:
+        n_real = int(np.sum(batch["valid"])) if "valid" in batch else len(batch["images"])
+        for k, v in eval_logs_fn(batch).items():
+            sums[k] = sums.get(k, 0.0) + float(v) * n_real
+        n_total += n_real
+    return {k: v / max(n_total, 1) for k, v in sums.items()}
+
+
+def _check_ported(cfg, skip_evaluation: bool) -> None:
+    """Raise, before anything is trained, on options not ported yet."""
+    if not skip_evaluation:
+        raise NotImplementedError(
+            "post-training evaluation needs metrics.py, which is not ported yet "
+            "(ROADMAP queue 1, item 10); call train(..., skip_evaluation=True)"
+        )
+    if int(cfg.training.get("num_nodes", 1) or 1) > 1 or int(cfg.training.get("num_gpus", 1) or 1) > 1:
+        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP queue 1, item 14)")
+    for option in ("resume", "profiler"):
+        if cfg.training.get(option, False):
+            raise NotImplementedError(
+                f"training.{option} is not ported yet (ROADMAP queue 1, item 9)"
+            )
+    backend = str(cfg.training.get("checkpoint_backend", "msgpack"))
+    if backend != "msgpack":
+        raise NotImplementedError(
+            f"checkpoint_backend {backend} is not ported yet (ROADMAP queue 1, item 9)"
+        )
+    bb_ckpt = cfg.model.get("backbone_checkpoint")
+    if bb_ckpt and os.path.isfile(str(bb_ckpt)):
+        raise NotImplementedError(
+            "loading torchvision backbone weights is not ported yet (ROADMAP queue 1, item 9)"
+        )
+
+
+def _device_cache(dataset, device: torch.device) -> dict[str, torch.Tensor]:
+    """The whole labeled set on the device: uint8 images, keypoints,
+    visibility flags and bboxes, by dataset index."""
+    arrays: dict[str, list] = {k: [] for k in _CACHE_KEYS}
+    for i in range(len(dataset)):
+        sample = dataset[i]
+        for k in _CACHE_KEYS:
+            arrays[k].append(np.asarray(sample[k]))
+    return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in arrays.items()}
+
+
+def _on_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in _CACHE_KEYS}
+
+
+def train(
+    cfg,
+    model_dir: str | Path | None = None,
+    skip_evaluation: bool = False,
+    device: str | torch.device = "cuda",
+) -> TrainedModel:
+    """Train the configured model on ``device`` and write the model
+    directory. There is no fallback to the CPU: a CUDA device without CUDA
+    raises."""
+    from lightning_pose_tpu.utils.io import return_absolute_data_paths
+    from lightning_pose_tpu_torch.api.model_config import ModelConfig
+    from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
+    from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import get_model
+
+    _check_ported(cfg, skip_evaluation)
+    device = resolve_device(device)
+    model_dir = Path(model_dir or os.getcwd())
+    model_dir.mkdir(parents=True, exist_ok=True)
+    status_file = model_dir / "train_status.json"
+    t_start = time.time()
+
+    seed = int(cfg.training.get("rng_seed_model_pt", 0))
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    ModelConfig(cfg).validate()
+
+    # -- data
+    data_dir, video_dir = return_absolute_data_paths(cfg.data)
+    dataset = get_dataset(cfg, data_dir)
+    if cfg.data.get("keypoint_names", None) is None:
+        cfg.data.keypoint_names = list(dataset.keypoint_names)
+    if cfg.data.get("num_keypoints", None) is None:
+        cfg.data.num_keypoints = dataset.num_keypoints
+    data_module = get_data_module(cfg, dataset, video_dir)
+    steps_per_epoch = calculate_steps_per_epoch(data_module)
+    loss_factories = get_loss_factories(cfg, data_module)
+
+    # -- model, optimizer, augmentation
+    model = get_model(cfg, num_keypoints=dataset.num_keypoints)
+    if cfg.model.get("checkpoint"):
+        if ckpt_utils.warm_start(model, str(cfg.model.checkpoint)):
+            logger.info(f"warm-started from {cfg.model.checkpoint}")
+        else:
+            logger.warning(
+                f"checkpoint {cfg.model.checkpoint} does not match the model head; "
+                "warm-started the backbone only"
+            )
+    model = model.to(device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = make_optimizer(cfg, steps_per_epoch, model)
+    state = TrainState(model=model, optimizer=optimizer)
+    height = int(cfg.data.image_resize_dims.height)
+    width = int(cfg.data.image_resize_dims.width)
+    augmenter = AugmentationEngine(
+        pipeline=dataset.imgaug_pipeline,
+        image_height=height,
+        image_width=width,
+        hflip=bool(cfg.training.get("imgaug_hflip", False)),
+        hflip_swap_indices=dataset.hflip_swap_indices,
+    )
+    meta = {"model_type": "heatmap", "downsample_factor": int(cfg.data.get("downsample_factor", 2))}
+    _, eval_step, train_step_cached = make_step_fns(
+        meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch
+    )
+    cache = _device_cache(dataset, device)
+    logger.info(f"cached {len(dataset)} labeled samples on {device}")
+
+    # -- model directory
+    cfg.save(str(model_dir / "config.yaml"))
+    csv_files = cfg.data.csv_file
+    for csv_file in [csv_files] if isinstance(csv_files, str) else csv_files:
+        src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
+        if src.exists():
+            shutil.copy(src, model_dir / src.name)
+    version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
+    os.makedirs(version_dir, exist_ok=True)
+    ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
+    writer = None
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logger.info("tensorboardX is not installed; no event files are written")
+    else:
+        writer = SummaryWriter(version_dir)
+        writer.add_text("config", "```\n" + cfg.to_yaml() + "\n```")
+
+    sched = _resolve_schedule_cfg(cfg, steps_per_epoch)
+    max_epochs, max_steps = sched["max_epochs"], int(sched["max_steps"])
+    min_epochs = int(cfg.training.get("min_epochs") or 0)
+    check_val_every = int(cfg.training.get("check_val_every_n_epoch", 5) or 5)
+    log_every = int(cfg.training.get("log_every_n_steps", 10) or 10)
+    ckpt_every = cfg.training.get("ckpt_every_n_epochs", None)
+    early_stopping = bool(cfg.training.get("early_stopping", False))
+    patience = int(cfg.training.get("early_stop_patience", 3) or 3)
+
+    write_status(status_file, "TRAINING")
+    progress = JSONTrainingProgressTracker(status_file, total_epochs=max_epochs)
+    # per-image draws on the host, fields on the device, both seeded
+    data_seed = int(cfg.training.get("rng_seed_data_pt", 0))
+    draw_gen = torch.Generator().manual_seed(data_seed)
+    field_gen = torch.Generator(device).manual_seed(data_seed)
+    logger.info(
+        f"training heatmap/{cfg.model.backbone} for {max_epochs} epochs x "
+        f"{steps_per_epoch} steps on {device}"
+    )
+
+    history: list[dict] = []
+    best_val = float("inf")
+    best_ckpt_path = last_ckpt_path = None
+    bad_val_checks = 0
+    for epoch in range(max_epochs):
+        steps_this_epoch = min(steps_per_epoch, max_steps - state.step)
+        if steps_this_epoch <= 0:
+            break
+        for idxs, valid in data_module.train_index_batches(epoch, steps=steps_this_epoch):
+            draws = None if augmenter.identity else augmenter.sample(draw_gen, len(idxs), field_gen)
+            logs = train_step_cached(
+                state,
+                cache,
+                torch.from_numpy(idxs).to(device, non_blocking=True),
+                torch.from_numpy(valid).to(device, non_blocking=True),
+                draws,
+            )
+            if state.step % log_every == 0:
+                record = {
+                    **{k: float(v) for k, v in logs.items()},
+                    "lr-head": head_sched(state.step),
+                    "lr-backbone": bb_sched(state.step),
+                }
+                history.append({"step": state.step, "epoch": epoch, **record})
+                if writer is not None:
+                    for k, v in record.items():
+                        writer.add_scalar(k, v, state.step)
+                    writer.add_scalar("epoch", epoch, state.step)
+
+        progress.update(epoch)
+        run_val = (epoch + 1) % check_val_every == 0 or epoch == max_epochs - 1
+        if not (run_val and len(data_module.val_dataset) > 0):
+            continue
+        val_logs = run_validation_epoch(
+            data_module.val_batches(),
+            lambda b: eval_step(state, _on_device(b, device), stage="val")[0],
+        )
+        history.append({"step": state.step, "epoch": epoch, **val_logs})
+        if writer is not None:
+            for k, v in val_logs.items():
+                writer.add_scalar(k, v, state.step)
+        val_loss = val_logs.get("val_supervised_loss", float("inf"))
+        if val_loss < best_val:
+            best_val, bad_val_checks = val_loss, 0
+            if best_ckpt_path:
+                ckpt_utils.remove_checkpoint(best_ckpt_path)
+            best_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-best.ckpt")
+            ckpt_utils.save_module(best_ckpt_path, model, state.step, epoch)
+        else:
+            bad_val_checks += 1
+        if ckpt_every and (epoch + 1) % int(ckpt_every) == 0:
+            ckpt_utils.save_module(
+                os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
+            )
+        # the latest weights (no optimizer state: resume is not ported)
+        prev_last = last_ckpt_path
+        last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
+        ckpt_utils.save_module(
+            last_ckpt_path, model, state.step, epoch,
+            extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
+                   "best_ckpt_path": best_ckpt_path or ""},
+        )
+        if prev_last and prev_last != last_ckpt_path:
+            ckpt_utils.remove_checkpoint(prev_last)
+        if early_stopping and bad_val_checks >= patience and epoch + 1 >= min_epochs:
+            logger.info(f"early stopping at epoch {epoch}")
+            break
+
+    if best_ckpt_path is None:  # always leave a checkpoint
+        best_ckpt_path = os.path.join(
+            ckpt_dir, f"epoch={max_epochs - 1}-step={state.step}-best.ckpt"
+        )
+        ckpt_utils.save_module(best_ckpt_path, model, state.step, max_epochs - 1)
+    if writer is not None:
+        writer.close()
+    logger.info(f"training finished in {time.time() - t_start:.1f}s")
+    write_status(status_file, "COMPLETED")
+    return TrainedModel(
+        cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history
+    )

@@ -25,7 +25,7 @@ SLICE_SEQ_LEN = 8
 def _make_config(model_name: str = "porttest"):
     """A resnet18 heatmap config at 64 px, the JAX package's defaults
     otherwise."""
-    from lightning_pose_tpu.config import load_config
+    from lightning_pose_tpu_torch.config import load_config
 
     cfg = load_config()
     cfg.data.num_keypoints = SLICE_KEYPOINTS
@@ -101,6 +101,72 @@ def _write_video(path: Path, n_frames: int, height: int, width: int, seed: int =
         writer.write(frame.astype(np.uint8))
     writer.release()
     return path
+
+
+def _jax_draws(engine, rng, b: int):
+    """The draws the JAX engine's ``_augment`` makes from ``rng`` for ``b``
+    images, the same ``jax.random`` calls on the same keys, as the port's
+    ``Draws`` (CPU tensors)."""
+    import jax
+    import torch
+
+    from lightning_pose_tpu_torch.ops.augment import Draws, _coarse_size
+
+    spec, h, w = engine.spec, engine.h, engine.w
+    keys = jax.random.split(rng, 28)
+
+    def u(i, shape=(b,), lo=0.0, hi=1.0):
+        return torch.from_numpy(np.array(jax.random.uniform(keys[i], shape, minval=lo, maxval=hi)))
+
+    d = Draws()
+    if spec["rot90"] is not None:
+        d.rot90_u = u(27)
+        n = len(spec["rot90"]["k"])
+        d.rot90_choice = torch.from_numpy(np.array(jax.random.randint(keys[0], (b,), 0, n))).long()
+    if spec["affine"] is not None:
+        rot = spec["affine"]["rotate"]
+        d.affine_u, d.affine_deg = u(1), u(2, lo=-rot, hi=rot)
+    if spec["croppad"] is not None:
+        pct = spec["croppad"]["percent"]
+        d.croppad_u, d.croppad_percents = u(3), u(4, (b, 4), -pct, pct)
+    if engine.hflip or spec["fliplr"] is not None:
+        d.flip_u = u(5)
+    if spec["elastic"] is not None:
+        alo, ahi = spec["elastic"]["alpha"]
+        d.elastic_u, d.elastic_alpha = u(6), u(7, lo=alo, hi=ahi)
+        d.elastic_raw = u(8, (b, h, w, 2), -1.0, 1.0)
+    if spec["motion_blur"] is not None:
+        ang = spec["motion_blur"]["angle"]
+        d.blur_u, d.blur_deg = u(9), u(10, lo=-ang, hi=ang)
+    if spec["coarse_dropout"] is not None:
+        lh, lw = _coarse_size(h, w, spec["coarse_dropout"]["size"])
+        d.dropout_u, d.dropout_low, d.dropout_channel_u = u(11), u(12, (b, lh, lw, 1)), u(13)
+        d.dropout_low_rgb = torch.stack([u(14 + i, (b, lh, lw, 1)) for i in range(3)])
+    if spec["coarse_salt"] is not None:
+        lh, lw = _coarse_size(h, w, spec["coarse_salt"]["size"])
+        d.salt_u, d.salt_low = u(17), u(18, (b, lh, lw, 1))
+    if spec["coarse_pepper"] is not None:
+        lh, lw = _coarse_size(h, w, spec["coarse_pepper"]["size"])
+        d.pepper_u, d.pepper_low = u(19), u(20, (b, lh, lw, 1))
+    if spec["histeq"] is not None:
+        d.histeq_u = u(21)
+    if spec["clahe"] is not None:
+        clo, chi = spec["clahe"]["clip"]
+        d.clahe_u, d.clahe_clip = u(22), u(24, lo=clo, hi=chi)
+    if spec["emboss"] is not None:
+        em = spec["emboss"]
+        d.emboss_u = u(23)
+        d.emboss_alpha, d.emboss_strength = u(25, lo=em["alpha"][0], hi=em["alpha"][1]), u(
+            26, lo=em["strength"][0], hi=em["strength"][1]
+        )
+    return d
+
+
+@pytest.fixture()
+def jax_draws():
+    """``fn(jax engine, rng key, b) -> Draws``: the JAX engine's draws,
+    replayable into the port's ``AugmentationEngine.apply``."""
+    return _jax_draws
 
 
 @pytest.fixture(scope="session")

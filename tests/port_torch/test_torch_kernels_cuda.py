@@ -16,7 +16,8 @@ import torch
 
 from lightning_pose_tpu_torch.api.model import PredictStep
 from lightning_pose_tpu_torch.models.factory import build_model
-from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, _clahe_lut_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +28,9 @@ pytestmark = pytest.mark.cuda
 KP_TOL_PX = 0.05
 CONF_TOL = 1e-3
 MAX_WINDOW_FLIPS = 2
+# warp and CLAHE kernels against their plain versions, fp32 against fp32:
+# the same terms summed in another order, on 0-255 gray levels
+GRAY_TOL = 1e-3
 
 
 @pytest.fixture()
@@ -152,3 +156,127 @@ def test_banded_sums_equal_dense_ones(cuda_device):
         for band, saved in zip(operands[2:], banded):
             band.copy_(saved)
     assert torch.equal(kp, kp_dense) and torch.equal(conf, conf_dense)
+
+
+def _warp_inputs(b, h, w, seed=0):
+    """0-255 images and rotated, jittered pixel coords: taps fall outside
+    the frame too."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32))
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32), indexing="ij")
+    theta, cx, cy = 0.4, (w - 1) / 2.0, (h - 1) / 2.0
+    px = np.cos(theta) * (xs - cx) - np.sin(theta) * (ys - cy) + cx
+    py = np.sin(theta) * (xs - cx) + np.cos(theta) * (ys - cy) + cy
+    coords = np.stack([np.stack([px, py], -1)] * b) + rng.uniform(-8, 8, (b, h, w, 2))
+    return img, torch.from_numpy(coords.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 200, 136), (1, 7, 5)])
+def test_warp_kernel_matches_plain(cuda_device, shape):
+    img, coords = (t.to(cuda_device) for t in _warp_inputs(*shape, seed=shape[1]))
+    before = warp_kernel.launches
+    out = warp_kernel.warp(img, coords)
+    ref = warp_kernel.warp_plain(img, coords)
+    torch.cuda.synchronize()
+    assert warp_kernel.launches == before + 1
+    assert bool((ref == 0).any())
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+@pytest.mark.parametrize("n, h, w, g", [(48, 256, 256, 16), (6, 256, 256, 8), (5, 96, 160, 8), (3, 64, 64, 2)])
+def test_clahe_kernel_matches_plain(cuda_device, n, h, w, g):
+    rng = np.random.default_rng(n + g)
+    x = torch.from_numpy(rng.uniform(-3, 258, (n, h, w)).astype(np.float32)).to(cuda_device)
+    images = x.clamp(0, 255).to(torch.int64).reshape(1, n, h, w)
+    clip = torch.full((1,), 3.0, device=cuda_device)
+    lut = _clahe_lut_grid(images, clip, g).reshape(n, g, g, 256).contiguous()
+    before = clahe_kernel.launches
+    out = clahe_kernel.clahe_apply(x, lut, g)
+    ref = clahe_kernel.clahe_apply_plain(x, lut, g)
+    torch.cuda.synchronize()
+    assert clahe_kernel.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+def test_warp_and_clahe_reject_what_they_do_not_take(cuda_device):
+    img, coords = (t.to(cuda_device) for t in _warp_inputs(2, 16, 16))
+    with pytest.raises(TypeError):
+        warp_kernel.warp(img.double(), coords.double())
+    with pytest.raises(ValueError):
+        warp_kernel.warp(img.transpose(1, 2), coords.transpose(1, 2))
+    with pytest.raises(ValueError):
+        warp_kernel.warp(img, coords.cpu())
+    x = torch.zeros(3, 32, 32, device=cuda_device)
+    lut = torch.zeros(3, 4, 4, 256, device=cuda_device)
+    with pytest.raises(TypeError):
+        clahe_kernel.clahe_apply(x.half(), lut.half(), 4)
+    with pytest.raises(ValueError):
+        clahe_kernel.clahe_apply(x.transpose(1, 2), lut, 4)
+    with pytest.raises(ValueError):
+        clahe_kernel.clahe_apply(x[:, :30], lut, 4)
+
+
+def _forced_draws(engine, b):
+    """dlc draws where histeq, CLAHE and emboss fire on some images."""
+    draws = engine.sample(torch.Generator().manual_seed(11), b, torch.Generator(device="cuda").manual_seed(11))
+    draws.histeq_u[0], draws.clahe_u[1], draws.emboss_u[2] = 0.0, 0.0, 0.0
+    draws.clahe_u[3] = draws.emboss_u[3] = 0.0
+    return draws
+
+
+def test_engine_on_card_matches_cpu(cuda_device):
+    """The engine with the kernels on the card against the same call with
+    the plain versions on the CPU, same draws: keypoints within 1e-3 px;
+    images within 0.01 gray but for the few pixels whose value lies within
+    rounding of an integer and truncates into another histogram bin."""
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (6, 256, 256, 3), dtype=np.uint8))
+    keypoints = torch.from_numpy(rng.uniform(0, 256, (6, 17, 2)).astype(np.float32))
+    engine = AugmentationEngine("dlc", 256, 256)
+    draws = _forced_draws(engine, 6)
+    before = (warp_kernel.launches, clahe_kernel.launches)
+    out, kp = engine.apply(images.to(cuda_device), keypoints.to(cuda_device), None, draws)
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches, clahe_kernel.launches) == (before[0] + 1, before[1] + 1)
+    cpu_draws = type(draws)(**{k: (v.cpu() if v is not None else None) for k, v in vars(draws).items()})
+    ref, ref_kp = engine.apply(images, keypoints, None, cpu_draws)
+    assert torch.equal(torch.isnan(kp.cpu()), torch.isnan(ref_kp))
+    finite = ~torch.isnan(ref_kp)
+    torch.testing.assert_close(kp.cpu()[finite], ref_kp[finite], rtol=0, atol=1e-3)
+    assert float(((out.cpu() - ref).abs() > 0.01).float().mean()) < 1e-3
+
+
+def test_one_train_step_on_card_launches_the_kernels(cuda_device):
+    """A resnet18 train step on the card (bf16 autocast): warp once, CLAHE
+    once (forced to fire), a finite loss, and the parameters move."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.train import trainer
+
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.training.max_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    torch.manual_seed(0)
+    model = build_model("heatmap", "resnet18", 5).to(cuda_device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer)
+    engine = AugmentationEngine("dlc", 128, 128)
+    step = trainer.make_step_fns({"model_type": "heatmap", "downsample_factor": 2}, get_loss_factories(cfg),
+                                 engine, cfg, head_sched, bb_sched, 10)[2]
+    rng = np.random.default_rng(5)
+    cache = {
+        "images": torch.from_numpy(rng.integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)),
+        "keypoints": torch.from_numpy(rng.uniform(0, 128, (8, 5, 2)).astype(np.float32)),
+        "visibility": torch.full((8, 5), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, 128.0, 128.0]] * 8),
+    }
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    before = (warp_kernel.launches, clahe_kernel.launches)
+    weight = model.head.deconv0.weight.detach().clone()
+    logs = step(state, cache, torch.arange(4, device=cuda_device), torch.ones(4, dtype=torch.bool, device=cuda_device),
+                _forced_draws(engine, 4))
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches, clahe_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(logs["total_loss"])) and state.step == 1
+    assert not torch.equal(weight, model.head.deconv0.weight)

@@ -3,6 +3,7 @@ subprocess where importing jax, jaxlib or flax raises."""
 
 from __future__ import annotations
 
+import ast
 import json
 import subprocess
 import sys
@@ -29,6 +30,21 @@ def _run(code: str) -> str:
     )
     assert out.returncode == 0, out.stderr[-4000:]
     return out.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """``chip_smoke.py`` names no module of JAX or of the JAX package; the
+    port reaches the JAX package's JAX-free host modules on its own."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    tops = {name.split(".")[0] for name in names}
+    assert "lightning_pose_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "flax", "lightning_pose_tpu"}, sorted(names)
 
 
 def test_every_port_module_imports_without_jax():
@@ -62,3 +78,42 @@ print(json.dumps({{
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"shape": [20, 12], "finite": True, "frame": [4, 2], "jax": []}
     assert (tmp_path / "blobs.csv").is_file()
+
+
+def test_training_path_runs_without_jax(tmp_path):
+    """train() on a synthetic labeled set (dlc augmentation, step mode), then
+    prediction from the directory it wrote."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset
+
+names = ["a", "b", "c"]
+data = write_labeled_dataset({str(tmp_path / "data")!r}, 8, 130, 140, names, seed=1)
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.backbone = "resnet18"
+cfg.model.model_name = "nojax"
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+cfg.training.max_steps = cfg.training.min_steps = 2
+cfg.training.unfreezing_step = 1
+cfg.training.lr_scheduler_params.multisteplr.milestones = None
+cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+train(cfg, {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
+frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cpu").predict_frame(
+    np.zeros((130, 140, 3), dtype=np.uint8))
+print(json.dumps({{
+    "finite": bool(np.isfinite(frame["keypoints"]).all()),
+    "jax": [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"finite": True, "jax": []}
