@@ -7,8 +7,8 @@ Phases, each fatal on failure:
   1. device: CUDA must be available (there is no CPU path); prints the
      ``nvidia-smi`` name and power limit.
   2. build: every kernel from the sources in the checkout, the CUDA sources
-     (decode, CLAHE) by one nvcc each, started together, then the Triton
-     kernels (normalize, warp) by their first calls.
+     (decode, warp, CLAHE) by one nvcc each, started together, then the
+     Triton kernel (normalize) by its first call.
   3. kernel vs plain PyTorch version on the card, at the product shapes;
      then the augmentation engine on the card against the same call on the
      CPU (plain versions), with the same draws.
@@ -17,18 +17,27 @@ Phases, each fatal on failure:
      batches of 96 frames; normalize and decode launch once per batch.
   5. the same model at fp32 on the card and on the CPU (plain versions).
   6. file path: Model.from_dir(dir).predict_on_video_file(video) on a
-     written config, checkpoint and synthetic mp4.
-  7. times of each kernel and its plain version, and the predict step's
-     frames/s at batch 96.
+     written config, checkpoint and synthetic mp4; whether the native frame
+     ops loaded.
+  7. times of each kernel, its plain version and, for the warp, the one
+     PyTorch call that computes the same function (F.grid_sample), with the
+     least time the card could take (bound) and the share of it reached;
+     the predict step's frames/s at batch 96. The memory-bound kernels
+     (normalize, warp, CLAHE) are timed one launch at a time with the L2
+     flushed before each; the decode, bound by FP32 operations, back to
+     back. The warp kernel and F.grid_sample alternate over 5 rounds and
+     each reports its median round.
   8. training path: train(cfg, dir) of the default model (ResNet-50, 256 px,
      batch 16, dlc augmentation, Adam with the multistep and unfreeze
      schedules) for 20 steps on a synthetic labeled set; the warp kernel
-     launches once per step and CLAHE at least once; then
+     launches once per step, CLAHE at least once, and the decode once per
+     train step and once per validation batch; then
      Model.from_dir(dir).predict_on_video_file(video) from what it wrote.
   9. times of the train step (and of its augmentation) at batch 16, and the
      training path's peak device memory.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
+the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
 """
 
 from __future__ import annotations
@@ -51,6 +60,15 @@ MAIN_PATH_BATCHES = 4
 # Xavier gain of the last deconv: the reference's 0.01 gives near-uniform
 # maps whose decode lands at the centre whatever the backbone computed
 HEAD_GAIN = 3.0
+
+# published peaks of one H100 SXM (at its full 700 W power limit): device
+# memory and FP32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# reading this much between timed launches evicts the 50 MB L2 (with clean
+# lines: written ones would be written back during the timed launch) and
+# keeps the card busy while the host enqueues the next launch
+FLUSH_BYTES = 512 * 2**20
 
 NORMALIZE_MAX_ULP = 1  # bf16 ulps, kernel (one FMA) vs plain ((x/255 - mean)/std)
 DECODE_KP_TOL_PX = 0.05
@@ -84,8 +102,8 @@ KERNELS = {
         "replaces": "lightning_pose_tpu/ops/pallas_decode.py:108",
     },
     "warp": {
-        "route": "triton",
-        "source": "lightning_pose_tpu_torch/ops/warp_kernel.py",
+        "route": "cuda",
+        "source": "lightning_pose_tpu_torch/csrc/warp.cu",
         "replaces": "lightning_pose_tpu/ops/pallas_warp.py:126",
     },
     "clahe": {
@@ -119,6 +137,50 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def flushed_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device time of one ``fn()`` in ms, by CUDA events around each
+    call alone, with the L2 evicted before each (a sum over FLUSH_BYTES)."""
+    import torch
+
+    scratch = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    total = torch.empty((), dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        torch.sum(scratch, dim=0, out=total)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+
+def flushed_rounds(fns: dict, rounds: int = 5) -> dict[str, list[float]]:
+    """``flushed_ms`` of each of ``fns`` in each of ``rounds`` rounds, the
+    functions alternating within a round, after a round that is not kept:
+    the spread of two times that differ by about a percent."""
+    for fn in fns.values():
+        flushed_ms(fn)
+    out = {name: [] for name in fns}
+    for r in range(rounds):
+        names = list(fns)[r % len(fns):] + list(fns)[: r % len(fns)]
+        for name in names:
+            out[name].append(flushed_ms(fns[name]))
+    return out
+
+
+def decode_flops(n_maps: int, h: int, w: int, df: int) -> int:
+    """FP32 operations of the banded decode: 2 per FMA of T = hm @ Mw^T and
+    up = Mh @ T over the non-zeros of the upsample matrices."""
+    from lightning_pose_tpu_torch.ops.decode_kernel import upsample_matrix
+
+    m_h, m_w = upsample_matrix(h, df), upsample_matrix(w, df)
+    fmas = h * int((m_w != 0).sum()) + m_w.shape[0] * int((m_h != 0).sum())
+    return 2 * fmas * n_maps
 
 
 def peaked_heatmaps(rng, b: int, k: int, h: int, w: int, sigma: float = 1.25) -> np.ndarray:
@@ -311,6 +373,8 @@ def train_phase(rng, card: str) -> dict[str, int]:
     """Phases 8 and 9: train() of the default model on a synthetic labeled
     set, prediction from the directory it wrote, then the train step's
     times. Returns the warp and CLAHE launches of the train() run."""
+    import math
+
     import torch
 
     from lightning_pose_tpu_torch.api.model import Model
@@ -329,22 +393,28 @@ def train_phase(rng, card: str) -> dict[str, int]:
         model_dir = Path(tmp) / "model"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        warp_kernel.launches = clahe_kernel.launches = 0
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = 0
         t0 = time.perf_counter()
         result = trainer.train(cfg, model_dir, skip_evaluation=True, device="cuda")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches}
+        train_decodes = decode_kernel.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
         val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        dm = result.data_module
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
         log(f"phase 8 train(): {TRAIN_STEPS} steps of {TRAIN_BATCH} (ResNet-50, {IMAGE} px, dlc, bf16) in "
-            f"{elapsed:.1f} s with set-up, {len(val_logs)} validations; launches {launches}; "
+            f"{elapsed:.1f} s with set-up, {len(val_logs)} validations of {val_batches // max(len(val_logs), 1)} "
+            f"batch(es); launches {launches}, decode {train_decodes}; "
             f"train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> {train_logs[-1]['train_heatmap_mse_loss']:.4f}, "
             f"lr head {train_logs[-1]['lr-head']:.2e}, backbone {train_logs[-1]['lr-backbone']:.2e}; "
             f"peak device memory {peak:.2f} GiB {card}")
         check(launches["warp"] == TRAIN_STEPS, f"warp launched {launches['warp']} times in {TRAIN_STEPS} steps")
         check(launches["clahe"] >= 1, "CLAHE never launched in training")
+        check(train_decodes == TRAIN_STEPS + val_batches,
+              f"decode launched {train_decodes} times in {TRAIN_STEPS} steps and {val_batches} validation batches")
         check(len(train_logs) == TRAIN_STEPS and val_logs, "train() logged too little")
         check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
               "a logged loss is not finite")
@@ -423,16 +493,15 @@ def main() -> int:
     )
 
     # -- 2. build: one nvcc per CUDA source, started together; then the
-    # Triton kernels by their first calls
+    # Triton kernel by its first call
     t0 = time.perf_counter()
-    nvcc_s = cuda_build.build("decode.cu", "clahe.cu")
+    nvcc_s = cuda_build.build("decode.cu", "warp.cu", "clahe.cu")
     decode_kernel._library()
+    warp_kernel._library()
     clahe_kernel._library()
     triton_s = {
         "normalize": timed(lambda: normalize_kernel.normalize(
             torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device=dev))),
-        "warp": timed(lambda: warp_kernel.warp(
-            torch.zeros((1, 2, 2, 3), device=dev), torch.zeros((1, 2, 2, 2), device=dev))),
     }
     log(f"phase 2 build: nvcc started together, {', '.join(f'{k} done after {v:.1f} s' for k, v in nvcc_s.items())}; "
         f"Triton first calls {', '.join(f'{k} {v:.1f} s' for k, v in triton_s.items())}; "
@@ -563,6 +632,10 @@ def main() -> int:
     check(card_vs_cpu <= CARD_VS_CPU_TOL_PX, f"card vs CPU: {card_vs_cpu} px")
 
     # -- 6. file path ------------------------------------------------------------
+    from lightning_pose_tpu_torch import native
+
+    log(f"phase 6 native frame ops (g++ into build/native/): "
+        f"{'loaded' if native.available() else 'not loaded, the cv2 path decodes'}")
     try:
         import cv2
         import msgpack  # noqa: F401
@@ -618,40 +691,90 @@ def main() -> int:
                 f"model load and decode of a {n_frames}-frame mp4 {card}")
 
     # -- 7. times ----------------------------------------------------------------
+    import torch.nn.functional as F
+
     frames_bf16 = video[0]
     hm = torch.from_numpy(cases["peaked"]).to(dev)
-    times = {
-        "normalize": (
-            cuda_ms(lambda: normalize_kernel.normalize(frames_bf16, torch.bfloat16)),
-            cuda_ms(lambda: normalize_kernel.normalize_plain(frames_bf16, torch.bfloat16)),
-        ),
-        "decode": (
-            cuda_ms(lambda: decode_kernel.decode(hm, DOWNSAMPLE)),
-            cuda_ms(lambda: decode_kernel.decode_plain(hm, DOWNSAMPLE)),
-        ),
-    }
     _, warp_coords, _, _ = engine.sampling_grid(warp_draws, TRAIN_BATCH, dev)
     warp_coords = warp_coords.contiguous()
-    times["warp"] = (
-        cuda_ms(lambda: warp_kernel.warp(train_images, warp_coords)),
-        cuda_ms(lambda: warp_kernel.warp_plain(train_images, warp_coords)),
-    )
     clahe_x, clahe_lut = clahe_inputs
-    times["clahe"] = (
-        cuda_ms(lambda: clahe_kernel.clahe_apply(clahe_x, clahe_lut, 16)),
-        cuda_ms(lambda: clahe_kernel.clahe_apply_plain(clahe_x, clahe_lut, 16)),
-    )
-    for name, (ms, plain_ms) in times.items():
-        log(f"phase 7 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at the product shape {card}")
-    log(f"phase 7 shapes: warp ({TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3) fp32 at a dlc grid; clahe "
-        f"{tuple(clahe_x.shape)} g=16")
+    # F.grid_sample on the NHWC images viewed as NCHW (channels-last), at the
+    # same coordinates normalized outside the timed region
+    nchw = train_images.permute(0, 3, 1, 2)
+    grid = torch.stack([2 * warp_coords[..., 0] / (IMAGE - 1) - 1, 2 * warp_coords[..., 1] / (IMAGE - 1) - 1], dim=-1)
+
+    def grid_sample():
+        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    gs_err = float((grid_sample().permute(0, 2, 3, 1) - warp_kernel.warp(train_images, warp_coords)).abs().max())
+    # the practical floor of a memory-bound kernel: a device copy of as many
+    # bytes as the warp reads and writes, half in and half out
+    warp_bytes = (train_images.numel() * 2 + warp_coords.numel()) * 4
+    copy_src = torch.empty(warp_bytes // 8, dtype=torch.float32, device=dev)  # half the bytes, as floats
+    copy_dst = torch.empty_like(copy_src)
+    warp_rounds = flushed_rounds({
+        "kernel": lambda: warp_kernel.warp(train_images, warp_coords),
+        "grid_sample": grid_sample,
+    })
+    times = {
+        "normalize": (
+            flushed_ms(lambda: normalize_kernel.normalize(frames_bf16, torch.bfloat16)),
+            flushed_ms(lambda: normalize_kernel.normalize_plain(frames_bf16, torch.bfloat16)),
+            None,
+        ),
+        "decode": (
+            cuda_ms(lambda: decode_kernel.decode(hm, DOWNSAMPLE), iters=50),
+            cuda_ms(lambda: decode_kernel.decode_plain(hm, DOWNSAMPLE)),
+            None,
+        ),
+        "warp": (
+            float(np.median(warp_rounds["kernel"])),
+            flushed_ms(lambda: warp_kernel.warp_plain(train_images, warp_coords)),
+            float(np.median(warp_rounds["grid_sample"])),
+        ),
+        "clahe": (
+            flushed_ms(lambda: clahe_kernel.clahe_apply(clahe_x, clahe_lut, 16)),
+            flushed_ms(lambda: clahe_kernel.clahe_apply_plain(clahe_x, clahe_lut, 16)),
+            None,
+        ),
+    }
+    # the least time the card could take for each kernel's work at these
+    # shapes: each input read once and each output written once at the HBM
+    # rate, or the FP32 operations at the FP32 rate, whichever is larger
+    maps = BATCH * KEYPOINTS
+    bound_inputs = {
+        "normalize": (frames_bf16.numel() * (1 + 2), 0),
+        "decode": (hm.numel() * 4 + maps * 3 * 4, decode_flops(maps, hm_h, hm_h, DOWNSAMPLE)),
+        "warp": (warp_bytes, 0),
+        "clahe": ((clahe_x.numel() * 2 + clahe_lut.numel()) * 4, 0),
+    }
+    bounds = {}
+    for name, (n_bytes, flops) in bound_inputs.items():
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bounds[name] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    for name, (ms, plain_ms, library_ms) in times.items():
+        bound_ms, bound_by = bounds[name]
+        lib_text = f", library call {library_ms:.4f} ms" if library_ms is not None else ""
+        log(f"phase 7 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_text}; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of it reached {card}")
+    log(f"phase 7 shapes: normalize {tuple(frames_bf16.shape)} uint8 -> bf16; decode {tuple(hm.shape)} fp32 at df "
+        f"{DOWNSAMPLE} ({bound_inputs['decode'][1] / 1e9:.3f} GFLOP banded); warp ({TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3) "
+        f"fp32 at a dlc grid (F.grid_sample {gs_err:.2e} gray from the kernel); clahe {tuple(clahe_x.shape)} g=16; "
+        f"L2 flushed before each timed launch of normalize, warp and CLAHE")
+    copy_ms = flushed_ms(lambda: copy_dst.copy_(copy_src))
+    log(f"phase 7 warp kernel against F.grid_sample on the same inputs, medians of "
+        f"{len(warp_rounds['kernel'])} alternating rounds of 50 launches: "
+        f"{times['warp'][2] / times['warp'][0]:.3f}x; rounds kernel "
+        f"{' '.join(f'{x:.5f}' for x in warp_rounds['kernel'])}, grid_sample "
+        f"{' '.join(f'{x:.5f}' for x in warp_rounds['grid_sample'])} ms; "
+        f"a device copy of its {warp_bytes / 1e6:.1f} MB in and out takes {copy_ms:.4f} ms {card}")
     step_ms = cuda_ms(lambda: step(frames_bf16, bbox), iters=10)
     log(f"phase 7 predict step (ResNet-50, 256 px, bf16, batch {BATCH}): {step_ms:.3f} ms, "
         f"{BATCH / step_ms * 1e3:.1f} frames/s {card}")
 
     launches.update(train_phase(rng, card))
-    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-    check(not jax_modules, f"JAX was imported: {jax_modules[:5]}")
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "lightning_pose_tpu"))
+    check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")
 
     summary = [
         {
@@ -661,6 +784,10 @@ def main() -> int:
             "max_abs_err": errors[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "share": bounds[name][0] / times[name][0],
+            "library_ms": times[name][2],
         }
         for name in KERNELS
     ]

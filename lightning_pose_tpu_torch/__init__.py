@@ -1,8 +1,16 @@
-"""lightning_pose_tpu_torch: the PyTorch/CUDA port of lightning_pose_tpu.
+"""lightning_pose_tpu_torch: the PyTorch/CUDA port of the JAX package
+``lightning_pose_tpu``.
 
-The JAX package ``lightning_pose_tpu`` is the reference; this package mirrors
-its module paths and is held against it by tests that feed both the same
-inputs and weights. Its hand-written Hopper kernels (``csrc/`` and
-``ops/*_kernel.py``) each sit beside a plain PyTorch version, which runs on
-CPU tensors. JAX is never imported here.
+The JAX package is the reference; this package mirrors its module paths and
+is held against it by tests that feed both the same inputs and weights. It
+imports nothing of the JAX package: the host layer it needs (config, IO,
+datasets, video decode, CSV writing, the native frame ops) is its own copy.
+Its hand-written Hopper kernels (``csrc/`` and ``ops/*_kernel.py``) each sit
+beside a plain PyTorch version, which runs on CPU tensors.
 """
+
+import os
+
+# Absolute path to the repository root, for the ``${LP_ROOT_PATH:}`` config
+# resolver.
+LP_ROOT_PATH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

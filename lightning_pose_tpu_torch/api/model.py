@@ -77,7 +77,7 @@ class PredictStep:
         with torch.autocast(images_uint8.device.type, dtype=torch.bfloat16, enabled=bf16):
             images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
             heatmaps = self.model(images)
-        keypoints, confidences = self.model.decode(heatmaps, fast=True)
+        keypoints, confidences = self.model.decode(heatmaps)
         keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height)
         return keypoints, confidences
 
@@ -113,7 +113,7 @@ class Model:
             raise NotImplementedError(
                 "data-parallel prediction is not ported yet (ROADMAP queue 1, item 14)"
             )
-        from lightning_pose_tpu.api.model_config import ModelConfig
+        from lightning_pose_tpu_torch.api.model_config import ModelConfig
         from lightning_pose_tpu_torch.config import Config
 
         config_path = Path(model_dir) / "config.yaml"
@@ -124,7 +124,7 @@ class Model:
 
     @property
     def ckpt_path(self) -> str | None:
-        from lightning_pose_tpu.utils.io import ckpt_path_from_base_path
+        from lightning_pose_tpu_torch.utils.io import ckpt_path_from_base_path
 
         return ckpt_path_from_base_path(str(self.model_dir), self.cfg.model.model_name)
 

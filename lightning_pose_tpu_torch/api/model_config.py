@@ -1,23 +1,71 @@
-"""Config validation for the port (counterpart of
-``lightning_pose_tpu/api/model_config.py``).
+"""Config wrapper and validation (counterpart of
+``lightning_pose_tpu/api/model_config.py``, reference
+lightning_pose/api/model_config.py:22-320).
 
-:class:`ModelConfig` is the JAX package's, with ``validate`` restated: the
-JAX package's version looks the model type up in its model factory, which
-imports JAX. The checks are the same, against this package's registry of
-model types.
+The checks are the JAX package's, with the model types looked up in this
+package's registry.
 """
 
 from __future__ import annotations
 
-from lightning_pose_tpu.api.model_config import InvalidConfig
-from lightning_pose_tpu.api.model_config import ModelConfig as _ModelConfig
+import os
+from pathlib import Path
+
+from lightning_pose_tpu_torch.config import Config
 from lightning_pose_tpu_torch.models.factory import ALLOWED_MODEL_TYPES, normalize_model_type
 
 __all__ = ["InvalidConfig", "ModelConfig"]
 
 
-class ModelConfig(_ModelConfig):
-    """The JAX package's ``ModelConfig`` with a ``validate`` that imports no JAX."""
+class InvalidConfig(ValueError):
+    pass
+
+
+class ModelConfig:
+    """Wraps a config with convenience accessors and a ``validate()`` that
+    mirrors the reference's checks (reference model_config.py:127-320)."""
+
+    def __init__(self, cfg: Config) -> None:
+        self.cfg = cfg
+
+    @classmethod
+    def from_yaml_file(cls, path: str) -> "ModelConfig":
+        return cls(Config.from_yaml(path))
+
+    # -- view handling (reference model_config.py:77-91)
+
+    def is_multi_view(self) -> bool:
+        view_names = self.cfg.data.get("view_names", None)
+        if not view_names:
+            return False
+        if len(view_names) == 1:
+            raise ValueError(
+                "view_names with a single entry is not a valid multiview config"
+            )
+        return True
+
+    def is_single_view(self) -> bool:
+        return not self.is_multi_view()
+
+    def test_video_files_singleview(self) -> list[str]:
+        from lightning_pose_tpu_torch.utils.io import get_videos_in_dir
+
+        assert self.is_single_view(), "Use test_video_files_multiview for multi-view"
+        video_dir = self.cfg.eval.get("test_videos_directory")
+        if not video_dir or not os.path.isdir(str(video_dir)):
+            return []
+        return list(get_videos_in_dir(str(video_dir)))
+
+    def test_video_files_multiview(self) -> list[list[Path]]:
+        from lightning_pose_tpu_torch.utils.io import find_video_files_for_views
+
+        assert self.is_multi_view(), "Use test_video_files_singleview for single-view"
+        video_dir = self.cfg.eval.get("test_videos_directory")
+        if not video_dir:
+            return []
+        return find_video_files_for_views(
+            str(video_dir), list(self.cfg.data.view_names)
+        )
 
     def validate(self) -> None:
         cfg = self.cfg
@@ -149,3 +197,31 @@ class ModelConfig(_ModelConfig):
                         "training.imgaug_3d must be true when "
                         "losses.supervised_reprojection_heatmap_mse is active"
                     )
+
+    def validate_steps_vs_epochs(self) -> None:
+        """Strict steps-XOR-epochs mode (reference model_config.py:290-320)."""
+        cfg = self.cfg
+        epoch_fields = ["min_epochs", "max_epochs", "unfreezing_epoch"]
+        step_fields = ["min_steps", "max_steps", "unfreezing_step"]
+        has_epoch = any(cfg.training.get(f) is not None for f in epoch_fields)
+        has_step = any(cfg.training.get(f) is not None for f in step_fields)
+        milestones = cfg.training.lr_scheduler_params.multisteplr
+        if milestones.get("milestones") is not None and has_step:
+            raise InvalidConfig(
+                "cannot mix step-based fields with epoch-based lr milestones; "
+                "use milestone_steps"
+            )
+        if has_epoch and has_step:
+            raise InvalidConfig(
+                "cannot mix step-based and epoch-based training fields: "
+                f"found epoch fields and step fields simultaneously"
+            )
+        if not has_epoch and not has_step:
+            raise InvalidConfig(
+                "must provide either epoch-based (min/max_epochs) or step-based "
+                "(min/max_steps) training fields"
+            )
+        mins = cfg.training.get("min_epochs") or cfg.training.get("min_steps")
+        maxs = cfg.training.get("max_epochs") or cfg.training.get("max_steps")
+        if (mins is None) != (maxs is None):
+            raise InvalidConfig("min and max epochs/steps must both be set")

@@ -1,25 +1,36 @@
 """Dataset and data-module factories (counterpart of
 ``lightning_pose_tpu/data/factory.py``).
 
-The datasets and data modules are the JAX package's own: they are host code
-with no JAX in them. Its ``get_dataset`` and ``get_data_module`` look the
-model type up in the JAX model factory, which imports JAX, so the dispatch
-for the ported model is here. Model types and data layouts not ported yet
-raise ``NotImplementedError``.
+The dispatch on the config for the ported model, the single-view
+``heatmap``, over the port's copies of the datasets and the data module.
+Model types and data layouts not ported yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from lightning_pose_tpu.data.datamodules import BaseDataModule
-from lightning_pose_tpu.data.datasets import HeatmapDataset
-from lightning_pose_tpu.data.factory import get_imgaug_pipeline
+from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+from lightning_pose_tpu_torch.data.datasets import HeatmapDataset
 from lightning_pose_tpu_torch.models.factory import (
     _NOT_PORTED,
     check_if_semi_supervised,
     normalize_model_type,
 )
 
-__all__ = ["get_data_module", "get_dataset"]
+__all__ = ["get_data_module", "get_dataset", "get_imgaug_pipeline"]
+
+
+def get_imgaug_pipeline(cfg) -> str | dict:
+    """Resolve the augmentation spec: a preset string or a per-transform dict
+    (reference data/factory.py:47-100 + augmentations.py:109)."""
+    aug = cfg.training.get("imgaug", "default")
+    if isinstance(aug, str):
+        allowed = ["default", "none", "dlc", "dlc-lr", "dlc-top-down", "dlc-mv"]
+        if aug not in allowed:
+            raise NotImplementedError(
+                f"cfg.training.imgaug string {aug} must be in {allowed}"
+            )
+        return aug
+    return aug.to_dict(resolve=True) if hasattr(aug, "to_dict") else dict(aug)
 
 
 def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
@@ -45,7 +56,6 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
         uniform_heatmaps_for_nan_keypoints=bool(
             cfg.training.get("uniform_heatmaps_for_nan_keypoints", False)
         ),
-        do_context=False,
         downsample_factor=int(cfg.data.get("downsample_factor", 2)),
     )
 

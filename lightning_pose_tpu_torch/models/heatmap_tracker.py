@@ -36,14 +36,11 @@ class HeatmapTracker(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.head(self.backbone(images))
 
-    def decode(
-        self, heatmaps: torch.Tensor, fast: bool = False
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+    def decode(self, heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Soft-argmax decode to ``(B, 2K)`` keypoints and ``(B, K)``
-        confidences; ``fast`` takes the fused decode kernel."""
+        confidences (the decode kernel on a CUDA tensor)."""
         return run_subpixelmaxima(
             heatmaps,
             downsample_factor=self.downsample_factor,
             temperature=1000.0,
-            fast=fast,
         )

@@ -1,0 +1,96 @@
+// Native host frame ops of the video-ingest pipeline (the port's copy of
+// what it uses of lightning_pose_tpu/native/frame_ops.cpp).
+//
+// The reference offloads video preprocessing to NVIDIA DALI's C++/CUDA
+// pipeline (reference lightning_pose/data/dali.py:70-197). Here the host
+// stage runs on the CPU cores: BGR->RGB conversion fused with bilinear
+// resize, over a batch of frames, in a dependency-free C++ shared library
+// driven by a std::thread worker pool, called through ctypes.
+//
+// Build (native/__init__.py does it at first use, into build/native/):
+//   g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread frame_ops.cpp -o <lib>
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <thread>
+#include <vector>
+
+namespace {
+
+// Bilinear resize one uint8 HWC image, optionally swapping R/B channels
+// (cv2 decodes BGR; models want RGB). Half-pixel centers (align_corners
+// false), matching cv2.resize INTER_LINEAR.
+void resize_one(const uint8_t* src, int src_h, int src_w,
+                uint8_t* dst, int dst_h, int dst_w, bool swap_rb) {
+    const float scale_y = static_cast<float>(src_h) / dst_h;
+    const float scale_x = static_cast<float>(src_w) / dst_w;
+    for (int y = 0; y < dst_h; ++y) {
+        float fy = (y + 0.5f) * scale_y - 0.5f;
+        fy = std::max(0.0f, std::min(fy, static_cast<float>(src_h - 1)));
+        const int y0 = static_cast<int>(fy);
+        const int y1 = std::min(y0 + 1, src_h - 1);
+        const float wy = fy - y0;
+        const uint8_t* row0 = src + static_cast<size_t>(y0) * src_w * 3;
+        const uint8_t* row1 = src + static_cast<size_t>(y1) * src_w * 3;
+        uint8_t* out_row = dst + static_cast<size_t>(y) * dst_w * 3;
+        for (int x = 0; x < dst_w; ++x) {
+            float fx = (x + 0.5f) * scale_x - 0.5f;
+            fx = std::max(0.0f, std::min(fx, static_cast<float>(src_w - 1)));
+            const int x0 = static_cast<int>(fx);
+            const int x1 = std::min(x0 + 1, src_w - 1);
+            const float wx = fx - x0;
+            const float w00 = (1 - wy) * (1 - wx);
+            const float w01 = (1 - wy) * wx;
+            const float w10 = wy * (1 - wx);
+            const float w11 = wy * wx;
+            for (int c = 0; c < 3; ++c) {
+                const int sc = swap_rb ? 2 - c : c;
+                const float v = w00 * row0[x0 * 3 + sc] + w01 * row0[x1 * 3 + sc] +
+                                w10 * row1[x0 * 3 + sc] + w11 * row1[x1 * 3 + sc];
+                out_row[x * 3 + c] = static_cast<uint8_t>(v + 0.5f);
+            }
+        }
+    }
+}
+
+// Run `fn(i)` for i in [0, n) over a worker pool.
+template <typename Fn>
+void parallel_for(int n, int num_threads, Fn&& fn) {
+    if (num_threads <= 1 || n <= 1) {
+        for (int i = 0; i < n; ++i) fn(i);
+        return;
+    }
+    std::atomic<int> next{0};
+    auto worker = [&]() {
+        while (true) {
+            const int i = next.fetch_add(1);
+            if (i >= n) break;
+            fn(i);
+        }
+    };
+    std::vector<std::thread> threads;
+    const int k = std::min(num_threads, n);
+    threads.reserve(k);
+    for (int t = 0; t < k; ++t) threads.emplace_back(worker);
+    for (auto& th : threads) th.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Batched fused BGR->RGB + bilinear resize.
+// src: (n, src_h, src_w, 3) uint8 contiguous; dst: (n, dst_h, dst_w, 3).
+void batch_resize_rgb(const uint8_t* src, int n, int src_h, int src_w,
+                      uint8_t* dst, int dst_h, int dst_w,
+                      int swap_rb, int num_threads) {
+    const size_t src_stride = static_cast<size_t>(src_h) * src_w * 3;
+    const size_t dst_stride = static_cast<size_t>(dst_h) * dst_w * 3;
+    parallel_for(n, num_threads, [&](int i) {
+        resize_one(src + i * src_stride, src_h, src_w,
+                   dst + i * dst_stride, dst_h, dst_w, swap_rb != 0);
+    });
+}
+
+}  // extern "C"

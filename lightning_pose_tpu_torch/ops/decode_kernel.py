@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -43,6 +45,8 @@ launches = 0
 GRID_OFFSETS = {0: 0.0, 1: 0.5, 2: 1.5, 3: 2.5}
 # half-width of the confidence window: floor(sigma * num_stds) = floor(1.25 * 2)
 CONFIDENCE_WINDOW = 2
+# the kernel's logits are base 2: temperature * log2(e) * up
+_LOG2_E = 1.0 / math.log(2.0)
 
 
 def _keys_bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -70,7 +74,7 @@ def _keys_bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 def upsample_matrix(in_size: int, downsample_factor: int) -> np.ndarray:
     """``(in_size * 2**df, in_size)`` float32 operator of ``df`` rounds of
     (bicubic x2 + [1,4,6,4,1]/16 blur with zero boundary), built in numpy.
-    Equal to ``lightning_pose_tpu.ops.pallas_decode.upsample_matrix``."""
+    Equal to ``upsample_matrix`` of ``lightning_pose_tpu/ops/pallas_decode.py``."""
     m = np.eye(in_size, dtype=np.float64)
     size = in_size
     kernel1d = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
@@ -112,15 +116,15 @@ def decode_plain(
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = load_library("decode.cu")
-    lib.lp_decode_band_rows.argtypes = []
-    lib.lp_decode_band_rows.restype = ctypes.c_int
-    lib.lp_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    for name in ("lp_decode_band_rows", "lp_decode_band_cols", "lp_decode_cluster_blocks", "lp_decode_max_band"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.lp_decode_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.lp_decode_smem_bytes.restype = ctypes.c_size_t
     lib.lp_decode_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        *[ctypes.c_void_p] * 8,
+        *[ctypes.c_int] * 9,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p,
     ]
     lib.lp_decode_launch.restype = ctypes.c_int
@@ -140,14 +144,151 @@ def row_tile_bands(m: np.ndarray, rows_per_tile: int) -> np.ndarray:
     return bands
 
 
-@functools.lru_cache(maxsize=16)
-def _device_operands(h: int, w: int, df: int, rows_per_tile: int, device: torch.device):
-    """Mh ``(H, h)``, Mw^T ``(w, W)`` and the row-tile bands of Mh and Mw."""
-    m_h, m_w = upsample_matrix(h, df), upsample_matrix(w, df)
-    return tuple(
-        torch.from_numpy(np.array(a, order="C")).to(device)
-        for a in (m_h, m_w.T, row_tile_bands(m_h, rows_per_tile), row_tile_bands(m_w, rows_per_tile))
+@dataclass(frozen=True)
+class _Layout:
+    """How the kernel cuts an ``(h, w)`` map upsampled to ``(H, W)``: Mh
+    bands of ``band_rows`` rows, Mw bands of ``band_cols`` columns, and
+    ``cluster`` strips of ``strip_rows`` output rows, one per block. An Mw
+    band is at most ``max_band`` wide."""
+
+    band_rows: int
+    band_cols: int
+    cluster: int
+    max_band: int
+
+    def padded_width(self, big_w: int) -> int:
+        """``Wp``: ``W`` rounded up to two column bands, since an up tile
+        takes its columns from the two halves of ``Wp``."""
+        step = 2 * self.band_cols
+        return -(-big_w // step) * step
+
+    def strip_rows(self, big_h: int) -> int:
+        tiles = -(-big_h // self.band_rows)
+        return -(-tiles // self.cluster) * self.band_rows
+
+
+def _tile_packed_mh(m_h: np.ndarray, bands: np.ndarray, layout: _Layout) -> np.ndarray:
+    """``(row tiles, widest tile band, band_rows)``: for row tile ``t`` and
+    band step ``k``, ``Mh[t * band_rows + r, lo_t + k]`` at ``[t, k, r]``,
+    zero past the tile's band and past ``H``. A block copies its strip's
+    tiles into shared memory as they are."""
+    rows_per_tile = layout.band_rows
+    packed = np.zeros((len(bands), int((bands[:, 1] - bands[:, 0]).max()), rows_per_tile), np.float32)
+    for t, (lo, hi) in enumerate(bands):
+        rows = m_h[t * rows_per_tile:(t + 1) * rows_per_tile, lo:hi]
+        packed[t, : hi - lo, : rows.shape[0]] = rows.T
+    return packed
+
+
+def _band_packed_mw(m_w: np.ndarray, bands: np.ndarray, layout: _Layout) -> np.ndarray:
+    """``(max_band, tiles, band_cols)``: for band step ``k`` and column tile
+    ``t``, ``Mw^T[lo_t + k, t * band_cols + c]``, zero past the tile's band.
+    ``m_w`` is ``(Wp, w)``."""
+    packed = np.zeros((layout.max_band, len(bands), layout.band_cols), np.float32)
+    for t, (lo, hi) in enumerate(bands):
+        packed[: hi - lo, t] = m_w[t * layout.band_cols:(t + 1) * layout.band_cols, lo:hi].T
+    return packed
+
+
+@dataclass(frozen=True)
+class _Operands:
+    """What the kernel reads besides the maps, on the maps' device: the row
+    tiles' Mh bands and the column tiles' Mw bands, packed as the kernel
+    reads them, and the ``[lo, hi)`` bands of Mh's row tiles, of Mw's column
+    tiles and of each strip's Mh rows (``[0, 0)`` for a strip past ``H``);
+    ``wp`` columns (``W`` padded, zero past it), strips of ``strip_rows``
+    rows, the widest strip band ``band_rows`` and tile band ``tile_band``."""
+
+    mh_tiles: torch.Tensor
+    mw_packed: torch.Tensor
+    mh_band: torch.Tensor
+    mw_band: torch.Tensor
+    strip_band: torch.Tensor
+    wp: int
+    strip_rows: int
+    band_rows: int
+    tile_band: int
+
+
+def _operands_from_bands(
+    m_h: np.ndarray, m_w: np.ndarray, mh_bands: np.ndarray, mw_bands: np.ndarray,
+    layout: _Layout, device: torch.device,
+) -> _Operands:
+    """The operands for the bands given; ``m_w`` is padded to ``Wp`` rows."""
+    strip_rows = layout.strip_rows(m_h.shape[0])
+    strips = np.zeros((layout.cluster, 2), np.int32)
+    bands = row_tile_bands(m_h, strip_rows)
+    strips[: len(bands)] = bands
+    if int((mw_bands[:, 1] - mw_bands[:, 0]).max()) > layout.max_band:
+        raise ValueError(f"decode kernel: Mw bands wider than the kernel's {layout.max_band}")
+    tensors = [
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (
+            _tile_packed_mh(m_h, mh_bands, layout), _band_packed_mw(m_w, mw_bands, layout),
+            mh_bands, mw_bands, strips,
+        )
+    ]
+    return _Operands(
+        *tensors, wp=m_w.shape[0], strip_rows=strip_rows,
+        band_rows=int((strips[:, 1] - strips[:, 0]).max()),
+        tile_band=int((mh_bands[:, 1] - mh_bands[:, 0]).max()),
     )
+
+
+def _padded_matrices(h: int, w: int, df: int, layout: _Layout) -> tuple[np.ndarray, np.ndarray]:
+    """Mh ``(H, h)`` and Mw ``(Wp, w)``, zero rows past ``W``."""
+    m_h, m_w = upsample_matrix(h, df), upsample_matrix(w, df)
+    wp = layout.padded_width(m_w.shape[0])
+    return m_h, np.concatenate([m_w, np.zeros((wp - m_w.shape[0], w), np.float32)])
+
+
+@functools.lru_cache(maxsize=16)
+def _device_operands(h: int, w: int, df: int, layout: _Layout, device: torch.device) -> _Operands:
+    """The kernel's operands for ``(h, w)`` maps at ``df``."""
+    m_h, m_w = _padded_matrices(h, w, df, layout)
+    return _operands_from_bands(
+        m_h, m_w, row_tile_bands(m_h, layout.band_rows), row_tile_bands(m_w, layout.band_cols),
+        layout, device,
+    )
+
+
+def _layout() -> _Layout:
+    lib = _library()
+    return _Layout(
+        lib.lp_decode_band_rows(), lib.lp_decode_band_cols(),
+        lib.lp_decode_cluster_blocks(), lib.lp_decode_max_band(),
+    )
+
+
+def _launch(heatmaps: torch.Tensor, ops: _Operands, downsample_factor: int, temperature: float):
+    """Run the kernel on contiguous fp32 CUDA ``(B, K, h, w)`` heatmaps."""
+    global launches
+    b, k, h, w = heatmaps.shape
+    big_h, big_w = h * 2**downsample_factor, w * 2**downsample_factor
+    lib = _library()
+    smem = lib.lp_decode_smem_bytes(ops.band_rows, ops.tile_band, ops.strip_rows, w, ops.wp)
+    limit = torch.cuda.get_device_properties(heatmaps.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"decode kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w}) need "
+            f"{smem} bytes of shared memory per block; the card allows {limit}"
+        )
+    keypoints = torch.empty((b, 2 * k), dtype=torch.float32, device=heatmaps.device)
+    confidences = torch.empty((b, k), dtype=torch.float32, device=heatmaps.device)
+    if b * k:
+        err = lib.lp_decode_launch(
+            heatmaps.data_ptr(),
+            *(t.data_ptr() for t in (ops.mh_tiles, ops.mw_packed, ops.mh_band, ops.mw_band, ops.strip_band)),
+            keypoints.data_ptr(), confidences.data_ptr(),
+            b * k, h, w, big_h, big_w, ops.wp, ops.strip_rows, ops.band_rows, ops.tile_band,
+            float(temperature) * _LOG2_E, CONFIDENCE_WINDOW,
+            GRID_OFFSETS[downsample_factor], heatmaps.device.index,
+            torch.cuda.current_stream(heatmaps.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"decode kernel launch failed with CUDA error {err}")
+        launches += 1
+    return keypoints, confidences
 
 
 def decode(
@@ -161,7 +302,6 @@ def decode(
     A CUDA tensor runs the CUDA kernel; a CPU tensor runs
     :func:`decode_plain`. Anything else raises.
     """
-    global launches
     if heatmaps.ndim != 4:
         raise ValueError(f"decode takes (B, K, h, w) heatmaps, got {tuple(heatmaps.shape)}")
     if downsample_factor not in GRID_OFFSETS:
@@ -175,31 +315,10 @@ def decode(
     if not heatmaps.is_contiguous():
         raise ValueError("the decode kernel needs contiguous (B, K, h, w) heatmaps")
 
+    if not temperature > 0:
+        raise ValueError(f"the decode kernel takes a positive temperature, got {temperature}")
     b, k, h, w = heatmaps.shape
-    big_h, big_w = h * 2**downsample_factor, w * 2**downsample_factor
-    lib = _library()
-    smem = lib.lp_decode_smem_bytes(h, w, big_w)
-    limit = torch.cuda.get_device_properties(heatmaps.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"decode kernel: ({h}, {w}) maps upsampled to width {big_w} need "
-            f"{smem} bytes of shared memory per block; the card allows {limit}"
-        )
-    mh, mwt, mh_band, mw_band = _device_operands(
-        h, w, downsample_factor, lib.lp_decode_band_rows(), heatmaps.device
-    )
-    keypoints = torch.empty((b, 2 * k), dtype=torch.float32, device=heatmaps.device)
-    confidences = torch.empty((b, k), dtype=torch.float32, device=heatmaps.device)
-    if b * k:
-        err = lib.lp_decode_launch(
-            heatmaps.data_ptr(), mh.data_ptr(), mwt.data_ptr(),
-            mh_band.data_ptr(), mw_band.data_ptr(),
-            keypoints.data_ptr(), confidences.data_ptr(),
-            b * k, h, w, big_h, big_w, float(temperature), CONFIDENCE_WINDOW,
-            GRID_OFFSETS[downsample_factor], heatmaps.device.index,
-            torch.cuda.current_stream(heatmaps.device).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"decode kernel launch failed with CUDA error {err}")
-        launches += 1
-    return keypoints, confidences
+    if b * k * 4 >= 2**31:
+        raise ValueError(f"the decode kernel takes fewer than 2**29 maps a launch, got {b * k}")
+    ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
+    return _launch(heatmaps, ops, downsample_factor, temperature)

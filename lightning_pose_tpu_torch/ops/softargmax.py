@@ -36,16 +36,12 @@ def run_subpixelmaxima(
     heatmaps: torch.Tensor,
     downsample_factor: int = 2,
     temperature: float = 1000.0,
-    fast: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Soft-argmax decode of ``(B, K, h, w)`` heatmaps to ``(B, 2K)``
-    keypoints in full-image pixels and ``(B, K)`` confidences.
-
-    ``fast``: the fused decode (``ops/decode_kernel.decode``: the CUDA
-    kernel on a CUDA tensor, inference only). Otherwise the plain,
-    differentiable PyTorch path.
+    keypoints in full-image pixels and ``(B, K)`` confidences, through
+    ``ops/decode_kernel.decode``: the CUDA kernel on a CUDA tensor (not
+    differentiable), the plain PyTorch version on a CPU tensor.
     """
     from lightning_pose_tpu_torch.ops import decode_kernel
 
-    fn = decode_kernel.decode if fast else decode_kernel.decode_plain
-    return fn(heatmaps, downsample_factor, temperature)
+    return decode_kernel.decode(heatmaps, downsample_factor, temperature)

@@ -4,7 +4,7 @@
 Checkpoints keep the JAX package's naming contract:
 ``<model_dir>/tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
 (and ``-last.ckpt``, and ``epoch=E-step=S.ckpt`` every n epochs), found by
-``lightning_pose_tpu.utils.io.ckpt_path_from_base_path``.
+``utils/io.ckpt_path_from_base_path``.
 
 The reference writes checkpoints as flax-msgpack files
 (``flax.serialization.msgpack_serialize`` of ``{"params", "batch_stats",

@@ -7,7 +7,8 @@ the warp and CLAHE kernels), builds the target heatmaps, runs the model in
 bf16 by autocast with fp32 parameters and BatchNorm statistics, and takes an
 Adam step on two parameter groups (backbone and head), each with its
 schedule read at the step count (``train/schedules.py``). Targets and losses
-are fp32; the logged pixel RMSE uses the plain decode, as the reference does.
+are fp32; the logged pixel RMSE decodes the predicted maps with the decode
+kernel on the card (the plain decode on the CPU).
 
 ``train(cfg, model_dir)`` writes the reference's model directory:
 ``config.yaml``, a copy of the label CSV, ``train_status.json``,
@@ -337,12 +338,12 @@ def train(
     """Train the configured model on ``device`` and write the model
     directory. There is no fallback to the CPU: a CUDA device without CUDA
     raises."""
-    from lightning_pose_tpu.utils.io import return_absolute_data_paths
     from lightning_pose_tpu_torch.api.model_config import ModelConfig
     from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
     from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
     from lightning_pose_tpu_torch.losses.factory import get_loss_factories
     from lightning_pose_tpu_torch.models.factory import get_model
+    from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
     _check_ported(cfg, skip_evaluation)
     device = resolve_device(device)

@@ -1,11 +1,10 @@
 """Video inference: decode -> batched forward on the device -> DLC CSV
 (counterpart of ``lightning_pose_tpu/utils/video_predictions.py``).
 
-Frames are decoded on the host by the reference's ``PredictVideoLoader``
-into fixed-shape uint8 batches, copied to the device through pinned
-buffers on a side stream, and predicted without a host sync per batch; the
-results are fetched once at the end and written by the reference's
-``PredictionHandler``.
+Frames are decoded on the host by ``data/video.PredictVideoLoader`` into
+fixed-shape uint8 batches, copied to the device through pinned buffers on a
+side stream, and predicted without a host sync per batch; the results are
+fetched once at the end and written by ``utils/predictions.PredictionHandler``.
 """
 
 from __future__ import annotations
@@ -81,9 +80,9 @@ def predict_video(
         )
     import cv2
 
-    from lightning_pose_tpu.data.datatypes import PredictionResult
-    from lightning_pose_tpu.data.video import PredictVideoLoader
-    from lightning_pose_tpu.utils.predictions import PredictionHandler
+    from lightning_pose_tpu_torch.data.datatypes import PredictionResult
+    from lightning_pose_tpu_torch.data.video import PredictVideoLoader
+    from lightning_pose_tpu_torch.utils.predictions import PredictionHandler
 
     seq_len = int(cfg.dali.base.predict.sequence_length)
     loader = PredictVideoLoader(
@@ -91,7 +90,6 @@ def predict_video(
         sequence_length=seq_len,
         resize_height=int(cfg.data.image_resize_dims.height),
         resize_width=int(cfg.data.image_resize_dims.width),
-        transfer_format="rgb",
     )
     # keypoints go back to the original resolution through a full-frame bbox
     cap = cv2.VideoCapture(str(video_file))

@@ -81,12 +81,12 @@ def test_plain_decode_without_upsampling_matches_jax():
 
 
 def test_fast_and_plain_paths_agree_on_cpu():
-    """On a CPU tensor the fused wrapper runs the plain version, launching
-    nothing."""
+    """On a CPU tensor the decode (through the kernel's wrapper) runs the
+    plain version, launching nothing."""
     hm = _nchw(_maps(2, 3, 16, 16, seed=30))
     before = decode_kernel.launches
-    fast = run_subpixelmaxima(hm, 2, fast=True)
-    plain = run_subpixelmaxima(hm, 2, fast=False)
+    fast = run_subpixelmaxima(hm, 2)
+    plain = decode_kernel.decode_plain(hm, 2)
     assert decode_kernel.launches == before
     for a, b in zip(fast, plain):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -92,7 +92,17 @@ def test_normalize_kernel_matches_plain(cuda_device, shape):
 
 @pytest.mark.parametrize(
     "b, k, h, w, df",
-    [(96, 17, 64, 64, 2), (4, 17, 48, 64, 2), (3, 5, 16, 16, 1), (2, 3, 16, 12, 3), (2, 3, 20, 20, 0)],
+    [
+        (96, 17, 64, 64, 2),  # the product shape
+        (4, 17, 48, 64, 2),  # rectangular
+        (3, 5, 16, 16, 1),
+        (2, 3, 16, 12, 3),
+        (2, 3, 20, 20, 0),  # the strips own 12 and 8 rows
+        (1, 1, 64, 64, 2),  # a single map
+        (1, 3, 5, 7, 1),  # the second strip owns 2 rows of a 4-row tile; W not a multiple of 4
+        (2, 3, 4, 4, 0),  # one row tile: the second block of each cluster owns no rows
+        (1, 2, 2, 3, 1),  # the same, upsampled, with W not a multiple of 4
+    ],
 )
 def test_decode_kernel_matches_plain(cuda_device, b, k, h, w, df):
     hm = _peaked_maps(b, k, h, w, seed=b + h).to(cuda_device)
@@ -142,19 +152,23 @@ def test_predict_step_on_card_matches_cpu(cuda_device):
 
 def test_banded_sums_equal_dense_ones(cuda_device):
     """The kernel sums over the non-zero band of the upsample matrices; with
-    every row's band widened to the whole row the outputs are bitwise the
+    every Mh tile's band widened to its strip's staged rows and every Mw
+    tile's band to the widest the kernel takes, the outputs are bitwise the
     same, since the skipped terms are exact zeros."""
     hm = _peaked_maps(8, 17, 64, 64, seed=5).to(cuda_device)
     kp, conf = decode_kernel.decode(hm, 2)
-    operands = decode_kernel._device_operands(64, 64, 2, 4, cuda_device)
-    banded = [band.clone() for band in operands[2:]]
-    try:
-        for band in operands[2:]:
-            band[:, 0], band[:, 1] = 0, 64
-        kp_dense, conf_dense = decode_kernel.decode(hm, 2)
-    finally:
-        for band, saved in zip(operands[2:], banded):
-            band.copy_(saved)
+    layout = decode_kernel._layout()
+    banded = decode_kernel._device_operands(64, 64, 2, layout, cuda_device)
+    m_h, m_w = decode_kernel._padded_matrices(64, 64, 2, layout)
+    strips = banded.strip_band.cpu().numpy()
+    tiles_per_strip = banded.strip_rows // layout.band_rows
+    mh_wide = np.repeat(strips, tiles_per_strip, axis=0)[: len(banded.mh_band)]
+    mw = banded.mw_band.cpu().numpy()
+    lo = np.clip(mw[:, 1] - layout.max_band, 0, 64 - layout.max_band)
+    mw_wide = np.stack([lo, lo + layout.max_band], axis=1).astype(np.int32)
+    assert (mh_wide[:, 1] - mh_wide[:, 0]).min() > (banded.mh_band[:, 1] - banded.mh_band[:, 0]).max().item()
+    dense = decode_kernel._operands_from_bands(m_h, m_w, mh_wide, mw_wide, layout, cuda_device)
+    kp_dense, conf_dense = decode_kernel._launch(hm, dense, 2, 1000.0)
     assert torch.equal(kp, kp_dense) and torch.equal(conf, conf_dense)
 
 
@@ -171,7 +185,7 @@ def _warp_inputs(b, h, w, seed=0):
     return img, torch.from_numpy(coords.astype(np.float32))
 
 
-@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 200, 136), (1, 7, 5)])
+@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 200, 136), (1, 7, 5), (2, 33, 37), (2, 9, 6)])
 def test_warp_kernel_matches_plain(cuda_device, shape):
     img, coords = (t.to(cuda_device) for t in _warp_inputs(*shape, seed=shape[1]))
     before = warp_kernel.launches
@@ -198,6 +212,44 @@ def test_clahe_kernel_matches_plain(cuda_device, n, h, w, g):
     torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
 
 
+def test_warp_kernel_all_taps_outside(cuda_device):
+    img, coords = (t.to(cuda_device) for t in _warp_inputs(2, 24, 20, seed=7))
+    for shift in ((-50.0, 0.0), (0.0, 1e9), (30.0, -30.0), (-1.5, -1.5)):
+        far = (coords * 0 + torch.tensor(shift, device=cuda_device)).contiguous()
+        out = warp_kernel.warp(img, far)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_warp_kernel_on_offset_tensors(cuda_device, offset):
+    """Images that start ``offset`` floats into their buffer and coordinates
+    ``2 * offset`` floats into theirs (still 8-byte aligned) give what fresh
+    tensors give; coordinates that are not 8-byte aligned are refused."""
+    img, coords = _warp_inputs(2, 20, 24, seed=9)
+    img_buf = torch.zeros(img.numel() + offset, device=cuda_device)
+    coords_buf = torch.zeros(coords.numel() + 2 * offset, device=cuda_device)
+    img_u = img_buf[offset:].view(img.shape).copy_(img.to(cuda_device))
+    coords_u = coords_buf[2 * offset:].view(coords.shape).copy_(coords.to(cuda_device))
+    out = warp_kernel.warp(img_u, coords_u)
+    ref = warp_kernel.warp_plain(img_u, coords_u)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+    with pytest.raises(ValueError):
+        warp_kernel.warp(img_u, coords_buf[1 : 1 + coords.numel()].view(coords.shape))
+
+
+def test_warp_kernel_on_the_clamped_grid(cuda_device):
+    """The motion-blur path samples at coordinates clamped into the frame:
+    taps on the last row and column, weights 0 for the tap beyond."""
+    img, coords = (t.to(cuda_device) for t in _warp_inputs(3, 64, 52, seed=8))
+    clamped = torch.stack([coords[..., 0].clamp(0, 51), coords[..., 1].clamp(0, 63)], dim=-1).contiguous()
+    out = warp_kernel.warp(img, clamped)
+    ref = warp_kernel.warp_plain(img, clamped)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
 def test_warp_and_clahe_reject_what_they_do_not_take(cuda_device):
     img, coords = (t.to(cuda_device) for t in _warp_inputs(2, 16, 16))
     with pytest.raises(TypeError):
@@ -206,6 +258,8 @@ def test_warp_and_clahe_reject_what_they_do_not_take(cuda_device):
         warp_kernel.warp(img.transpose(1, 2), coords.transpose(1, 2))
     with pytest.raises(ValueError):
         warp_kernel.warp(img, coords.cpu())
+    with pytest.raises(ValueError):
+        warp_kernel.warp(img[..., :2].contiguous(), coords)
     x = torch.zeros(3, 32, 32, device=cuda_device)
     lut = torch.zeros(3, 4, 4, 256, device=cuda_device)
     with pytest.raises(TypeError):

@@ -1,6 +1,6 @@
 """The port's ``ModelConfig.validate`` against the JAX package's: on the same
-configs both accept, or both raise ``InvalidConfig`` with the same message,
-and both give the same warnings."""
+configs both accept, or both raise their package's ``InvalidConfig`` with
+the same message, and both give the same warnings."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import warnings
 
 import pytest
 
+from lightning_pose_tpu.api.model_config import InvalidConfig as JaxInvalidConfig
 from lightning_pose_tpu.api.model_config import ModelConfig as JaxModelConfig
 from lightning_pose_tpu_torch.api.model_config import InvalidConfig, ModelConfig
 from lightning_pose_tpu_torch.config import load_config
@@ -81,7 +82,7 @@ CASES = [
 ]
 
 
-def _outcome(config_cls, edit):
+def _outcome(config_cls, error_cls, edit):
     cfg = load_config()
     cfg.data.num_keypoints = 3
     cfg.data.keypoint_names = ["a", "b", "c"]
@@ -91,14 +92,14 @@ def _outcome(config_cls, edit):
         try:
             config_cls(cfg).validate()
             error = None
-        except InvalidConfig as e:
+        except error_cls as e:
             error = str(e)
     return error, [str(w.message) for w in caught]
 
 
 @pytest.mark.parametrize("edit,raises", [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_validate_matches_jax(edit, raises):
-    error, warned = _outcome(ModelConfig, edit)
-    ref_error, ref_warned = _outcome(JaxModelConfig, edit)
+    error, warned = _outcome(ModelConfig, InvalidConfig, edit)
+    ref_error, ref_warned = _outcome(JaxModelConfig, JaxInvalidConfig, edit)
     assert (error, warned) == (ref_error, ref_warned)
     assert (error is not None) == raises, error

@@ -136,7 +136,7 @@ def test_heatmap_tracker_and_decode_match_flax(df, peaked_jax_variables):
     load_flax_variables(model, params, stats)
     with torch.no_grad():
         heatmaps = model(_nchw(x))
-        kp, conf = model.decode(heatmaps, fast=True)
+        kp, conf = model.decode(heatmaps)
     assert heatmaps.shape == (2, 3, IMAGE // 2**df, IMAGE // 2**df)
     np.testing.assert_allclose(_nhwc(heatmaps), ref, rtol=0, atol=1e-5)
     assert float(conf.mean()) > 0.1  # peaked maps, not near-uniform ones

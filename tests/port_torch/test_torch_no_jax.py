@@ -1,5 +1,7 @@
-"""The port imports no JAX: its whole package and its predict path run in a
-subprocess where importing jax, jaxlib or flax raises."""
+"""The port imports no JAX and nothing of the JAX package: its whole
+package, its predict path and its training path run in a subprocess where
+importing jax, jaxlib, flax or ``lightning_pose_tpu`` raises, and no module
+of the port names one of them in an import."""
 
 from __future__ import annotations
 
@@ -10,17 +12,20 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
+BLOCKED = ("jax", "jaxlib", "flax", "lightning_pose_tpu")
 
 _BLOCK_JAX = """
 import sys
 
+BLOCKED = {BLOCKED!r}
+
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
-            raise ImportError(f"{name} is blocked in this test")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{{name}} is blocked in this test")
 
 sys.meta_path.insert(0, BlockJax())
-"""
+""".format(BLOCKED=BLOCKED)
 
 
 def _run(code: str) -> str:
@@ -32,19 +37,36 @@ def _run(code: str) -> str:
     return out.stdout
 
 
-def test_chip_smoke_imports_only_the_port():
-    """``chip_smoke.py`` names no module of JAX or of the JAX package; the
-    port reaches the JAX package's JAX-free host modules on its own."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def _imported_modules(path: Path) -> set[str]:
+    """Every module an ``import`` statement of ``path`` names, at any depth;
+    a relative import counts as the port's own."""
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names.update(alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
+            names.add("lightning_pose_tpu_torch" if node.level else node.module)
+    return names
+
+
+def test_chip_smoke_imports_only_the_port():
+    """``chip_smoke.py`` names no module of JAX or of the JAX package."""
+    names = _imported_modules(REPO / "chip_smoke.py")
     tops = {name.split(".")[0] for name in names}
     assert "lightning_pose_tpu_torch" in tops
-    assert not tops & {"jax", "jaxlib", "flax", "lightning_pose_tpu"}, sorted(names)
+    assert not tops & set(BLOCKED), sorted(names)
+
+
+def test_no_port_module_names_jax_or_the_jax_package():
+    """No ``.py`` file of the port imports jax, jaxlib, flax or
+    ``lightning_pose_tpu``, at the top or inside a function."""
+    files = sorted((REPO / "lightning_pose_tpu_torch").rglob("*.py"))
+    assert len(files) >= 30
+    found = {
+        str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
+        for f in files
+    }
+    assert not {f: names for f, names in found.items() if names}
 
 
 def test_every_port_module_imports_without_jax():
@@ -54,10 +76,11 @@ import lightning_pose_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names), "jax" in sys.modules)
+blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(len(names), len(blocked))
 """)
-    count, has_jax = out.split()
-    assert int(count) >= 15 and has_jax == "False"
+    count, n_blocked = out.split()
+    assert int(count) >= 30 and n_blocked == "0"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -72,7 +95,7 @@ print(json.dumps({{
     "shape": list(result.predictions.shape),
     "finite": bool(np.isfinite(result.predictions.to_numpy()).all()),
     "frame": list(frame["keypoints"].shape),
-    "jax": [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")],
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
 }}))
 """)
     report = json.loads(out.strip().splitlines()[-1])
@@ -112,7 +135,7 @@ frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cp
     np.zeros((130, 140, 3), dtype=np.uint8))
 print(json.dumps({{
     "finite": bool(np.isfinite(frame["keypoints"]).all()),
-    "jax": [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")],
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
 }}))
 """)
     report = json.loads(out.strip().splitlines()[-1])
