@@ -22,7 +22,8 @@ Phases, each fatal on failure:
   7. times of each kernel, its plain version and, for the warp, the one
      PyTorch call that computes the same function (F.grid_sample), with the
      least time the card could take (bound) and the share of it reached;
-     the predict step's frames/s at batch 96. The memory-bound kernels
+     CLAHE also at 6 image-channels (a train step's fired subset); the
+     predict step's frames/s at batch 96. The memory-bound kernels
      (normalize, warp, CLAHE) are timed one launch at a time with the L2
      flushed before each; the decode, bound by FP32 operations, back to
      back. The warp kernel and F.grid_sample alternate over 5 rounds and
@@ -324,7 +325,8 @@ def check_clahe(images, clip, g: int) -> tuple[float, tuple]:
     ref = clahe_kernel.clahe_apply_plain(x, lut, g)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    log(f"phase 3 clahe {tuple(x.shape)} g={g}: max abs err {err:.3e} gray (limit {GRAY_TOL})")
+    log(f"phase 3 clahe {tuple(x.shape)} g={g}: max abs err {err:.3e} gray (limit {GRAY_TOL}); "
+        f"{clahe_kernel.blend_plan(b * c, h, w, g, True, torch.cuda.get_device_properties(0).multi_processor_count)}")
     check(bool(torch.isfinite(out).all()), "clahe: non-finite output")
     check(err <= GRAY_TOL, f"clahe g={g} disagrees with its plain version")
     return err, (x, lut)
@@ -566,7 +568,8 @@ def main() -> int:
     clip = torch.from_numpy(rng.uniform(1.0, 8.0, TRAIN_BATCH).astype(np.float32)).to(dev)
     clahe_images = train_images.permute(0, 3, 1, 2).contiguous()
     errors["clahe"], clahe_inputs = check_clahe(clahe_images, clip, 16)
-    errors["clahe"] = max(errors["clahe"], check_clahe(clahe_images[:2], clip[:2], 8)[0])
+    clahe_err6, clahe_inputs6 = check_clahe(clahe_images[:2], clip[:2], 16)
+    errors["clahe"] = max(errors["clahe"], clahe_err6, check_clahe(clahe_images[:2], clip[:2], 8)[0])
 
     # the engine on the card vs the same call on the CPU, same draws
     frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
@@ -698,6 +701,7 @@ def main() -> int:
     _, warp_coords, _, _ = engine.sampling_grid(warp_draws, TRAIN_BATCH, dev)
     warp_coords = warp_coords.contiguous()
     clahe_x, clahe_lut = clahe_inputs
+    clahe_x6, clahe_lut6 = clahe_inputs6
     # F.grid_sample on the NHWC images viewed as NCHW (channels-last), at the
     # same coordinates normalized outside the timed region
     nchw = train_images.permute(0, 3, 1, 2)
@@ -761,6 +765,12 @@ def main() -> int:
         f"{DOWNSAMPLE} ({bound_inputs['decode'][1] / 1e9:.3f} GFLOP banded); warp ({TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3) "
         f"fp32 at a dlc grid (F.grid_sample {gs_err:.2e} gray from the kernel); clahe {tuple(clahe_x.shape)} g=16; "
         f"L2 flushed before each timed launch of normalize, warp and CLAHE")
+    clahe6_ms = flushed_ms(lambda: clahe_kernel.clahe_apply(clahe_x6, clahe_lut6, 16))
+    clahe6_bound = (clahe_x6.numel() * 2 + clahe_lut6.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 7 clahe at {tuple(clahe_x6.shape)} g=16 (a train step's fired subset), L2 flushed: kernel "
+        f"{clahe6_ms:.5f} ms; bound {clahe6_bound:.5f} ms (bytes), {clahe6_bound / clahe6_ms:.1%} of it reached; "
+        f"at {tuple(clahe_x.shape)}: {times['clahe'][0]:.5f} ms, bound {bounds['clahe'][0]:.5f} ms, "
+        f"{bounds['clahe'][0] / times['clahe'][0]:.1%} {card}")
     copy_ms = flushed_ms(lambda: copy_dst.copy_(copy_src))
     log(f"phase 7 warp kernel against F.grid_sample on the same inputs, medians of "
         f"{len(warp_rounds['kernel'])} alternating rounds of 50 launches: "

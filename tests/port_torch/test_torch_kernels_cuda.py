@@ -197,19 +197,94 @@ def test_warp_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
 
 
-@pytest.mark.parametrize("n, h, w, g", [(48, 256, 256, 16), (6, 256, 256, 8), (5, 96, 160, 8), (3, 64, 64, 2)])
-def test_clahe_kernel_matches_plain(cuda_device, n, h, w, g):
-    rng = np.random.default_rng(n + g)
-    x = torch.from_numpy(rng.uniform(-3, 258, (n, h, w)).astype(np.float32)).to(cuda_device)
+def _clahe_inputs(n, h, w, g, device, seed=None):
+    """Pixels a little outside 0-255 and the LUTs the port builds from them."""
+    rng = np.random.default_rng(n + g if seed is None else seed)
+    x = torch.from_numpy(rng.uniform(-3, 258, (n, h, w)).astype(np.float32)).to(device)
     images = x.clamp(0, 255).to(torch.int64).reshape(1, n, h, w)
-    clip = torch.full((1,), 3.0, device=cuda_device)
-    lut = _clahe_lut_grid(images, clip, g).reshape(n, g, g, 256).contiguous()
+    clip = torch.full((1,), 3.0, device=device)
+    return x, _clahe_lut_grid(images, clip, g).reshape(n, g, g, 256).contiguous()
+
+
+@pytest.mark.parametrize(
+    "n, h, w, g",
+    [
+        (48, 256, 256, 16),  # the product shape
+        (6, 256, 256, 16),  # a train step's fired subset
+        (1, 256, 256, 16),
+        (6, 256, 256, 8),
+        (5, 96, 160, 8),  # half-block columns of 10: the scalar path
+        (2, 60, 36, 3),  # half-block columns of 6, an odd grid
+        (3, 64, 64, 2),  # tall half-blocks
+    ],
+)
+def test_clahe_kernel_matches_plain(cuda_device, n, h, w, g):
+    x, lut = _clahe_inputs(n, h, w, g, cuda_device)
     before = clahe_kernel.launches
     out = clahe_kernel.clahe_apply(x, lut, g)
     ref = clahe_kernel.clahe_apply_plain(x, lut, g)
     torch.cuda.synchronize()
     assert clahe_kernel.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+@pytest.mark.parametrize("n, h, w, g", [(6, 256, 256, 16), (2, 128, 384, 8), (3, 64, 64, 2)])
+def test_clahe_kernel_matches_plain_by_every_plan(cuda_device, n, h, w, g):
+    """Every band count, column-tile width and pixel path the kernel takes
+    (bands that start and end inside a group, bands of one half-block row)."""
+    x, lut = _clahe_inputs(n, h, w, g, cuda_device)
+    ref = clahe_kernel.clahe_apply_plain(x, lut, g)
+    vecs = (1, 4) if (w // (2 * g)) % 4 == 0 else (1,)
+    before = clahe_kernel.launches
+    count = 0
+    for vec in vecs:
+        for threads_x in (64, 32, 16, 256):
+            for bands in range(1, 2 * g + 1):
+                plan = clahe_kernel.make_plan(n, h, w, g, vec, threads_x, bands)
+                out = clahe_kernel._launch(x, lut, torch.full_like(x, float("nan")), plan)
+                torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL, msg=lambda m: f"{plan}: {m}")
+                count += 1
+    assert clahe_kernel.launches == before + count
+
+
+def test_clahe_plan_occupancy_matches_the_card(cuda_device):
+    """The blocks an SM holds, as the plan counts them (launch bounds, shared
+    memory, threads), are what the CUDA occupancy calculator says; the
+    plan's shared memory is the kernel's."""
+    for n, h, w, g in [(48, 256, 256, 16), (6, 256, 256, 8), (5, 96, 160, 8), (2, 128, 2048, 64)]:
+        for vec_ok in (True, False):
+            plan = clahe_kernel.blend_plan(n, h, w, g, vec_ok, 132)
+            assert clahe_kernel.blocks_per_sm(plan, cuda_device) == plan.blocks_per_sm, plan
+            assert clahe_kernel._library().lp_clahe_smem_bytes(plan.tile_cols) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_clahe_kernel_on_offset_tensors(cuda_device, offset):
+    """Pixels, LUTs and output that start ``offset`` floats into their
+    buffers (not 16-byte aligned: scalar pixel accesses, 4-byte LUT
+    copies) give what fresh tensors give; the 16-byte path refuses them."""
+    n, h, w, g = 6, 256, 256, 16
+    x, lut = _clahe_inputs(n, h, w, g, cuda_device, seed=offset)
+    ref = clahe_kernel.clahe_apply_plain(x, lut, g)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + offset, device=cuda_device)
+        return buf[offset:].view(t.shape).copy_(t)
+
+    x_u, lut_u, out_u = shifted(x), shifted(lut), shifted(torch.zeros_like(x))
+    before = clahe_kernel.launches
+    out = clahe_kernel.clahe_apply(x_u, lut_u, g)
+    sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = clahe_kernel.blend_plan(n, h, w, g, False, sm_count)
+    assert plan.vec == 1
+    clahe_kernel._launch(x, lut_u, out_u, plan)
+    torch.cuda.synchronize()
+    assert clahe_kernel.launches == before + 2
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+    torch.testing.assert_close(out_u, ref, rtol=0, atol=GRAY_TOL)
+    with pytest.raises(ValueError):
+        clahe_kernel._launch(x, lut, out_u, clahe_kernel.blend_plan(n, h, w, g, True, sm_count))
+    assert clahe_kernel.launches == before + 2
 
 
 def test_warp_kernel_all_taps_outside(cuda_device):
