@@ -7,11 +7,14 @@ Phases, each fatal on failure:
   1. device: CUDA must be available (there is no CPU path); prints the
      ``nvidia-smi`` name and power limit.
   2. build: every kernel from the sources in the checkout, the CUDA sources
-     (decode, warp, CLAHE) by one nvcc each, started together, then the
-     Triton kernel (normalize) by its first call.
+     (decode, its backward, warp, CLAHE) by one nvcc each, started together,
+     then the Triton kernel (normalize) by its first call.
   3. kernel vs plain PyTorch version on the card, at the product shapes;
-     then the augmentation engine on the card against the same call on the
-     CPU (plain versions), with the same draws.
+     the decode's backward kernel against autograd of the plain decode (544
+     maps, 64 -> 256; a rectangular shape; df 3), and the decode forward
+     with its log-sum-exp output on against off, bitwise; then the
+     augmentation engine on the card against the same call on the CPU
+     (plain versions), with the same draws.
   4. inference path: a ResNet-50 heatmap model (256 px, 17 keypoints, df 2,
      bf16) with seeded weights loaded through the flax bridge predicts 4
      batches of 96 frames; normalize and decode launch once per batch.
@@ -36,6 +39,18 @@ Phases, each fatal on failure:
      Model.from_dir(dir).predict_on_video_file(video) from what it wrote.
   9. times of the train step (and of its augmentation) at batch 16, and the
      training path's peak device memory.
+ 10. semi-supervised step, card against CPU: resnet18, 128 px, 4 labeled
+     frames and an 8-frame window, fp32 with TF32 off, the same draws, the
+     unsupervised losses at weight 1/2 and epsilons 0: parameter gradients.
+ 11. semi-supervised training path: train(cfg, dir) of the default model
+     with losses_to_use [pca_singleview, temporal] (batch 16 with dlc, one
+     32-frame window a step from two synthetic mp4s) for 20 steps; the warp
+     launches twice a step, the decode's backward once, its forward twice a
+     step and once per validation batch; then prediction from the
+     directory. Times: the step at full width, the device's busy share and
+     the backward kernel's share of it (torch.profiler), peak memory, the
+     backward kernel beside its plain version and bound, and the warp at
+     the window's shape (32, 256, 256, 3) with the L2 flushed.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
 the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
@@ -90,6 +105,18 @@ TRAIN_STEPS = 20
 UNFREEZE_STEP = 5
 TRAIN_FRAMES = 64
 TRAIN_SEED = 3  # rng_seed_data_pt: its draws fire CLAHE in the 20 steps
+WINDOW = 32  # dali.base.train.sequence_length: unlabeled frames a step
+# the decode's backward kernel against autograd of the plain decode, both
+# fp32 with TF32 off: the largest error within 1e-3 of the largest entry
+# (the temperature of 1000 multiplies the upsampled maps' rounding)
+DECODE_GRAD_REL_TOL = 1e-3
+# one semi-supervised step, card against CPU, fp32, TF32 off: the gradient
+# through the temperature-1000 decode is ill-conditioned in fp32 (on the
+# CPU the port's fp32 gradients are up to 0.7% of a leaf's largest entry
+# off float64), so each leaf within 10% of its largest entry and all the
+# parameters' gradient within 1% in the 2-norm
+SEMI_LEAF_REL_TOL = 0.1
+SEMI_NORM_REL_TOL = 1e-2
 
 KERNELS = {
     "normalize": {
@@ -111,6 +138,11 @@ KERNELS = {
         "route": "cuda",
         "source": "lightning_pose_tpu_torch/csrc/clahe.cu",
         "replaces": "lightning_pose_tpu/ops/pallas_clahe.py:121",
+    },
+    "decode_grad": {
+        "route": "cuda",
+        "source": "lightning_pose_tpu_torch/csrc/decode_grad.cu",
+        "replaces": "none: the gradient of lightning_pose_tpu/ops/softargmax.py:123-147, XLA autodiff",
     },
 }
 
@@ -182,6 +214,37 @@ def decode_flops(n_maps: int, h: int, w: int, df: int) -> int:
     m_h, m_w = upsample_matrix(h, df), upsample_matrix(w, df)
     fmas = h * int((m_w != 0).sum()) + m_w.shape[0] * int((m_h != 0).sum())
     return 2 * fmas * n_maps
+
+
+def decode_grad_flops(n_maps: int, h: int, w: int, df: int) -> int:
+    """FP32 operations of the banded backward: 2 per FMA of T and up
+    recomputed as the forward has them, of u = dup @ Mw and of Mh^T @ u,
+    over the non-zeros of the upsample matrices."""
+    from lightning_pose_tpu_torch.ops.decode_kernel import upsample_matrix
+
+    m_h, m_w = upsample_matrix(h, df), upsample_matrix(w, df)
+    nnz_h, nnz_w = int((m_h != 0).sum()), int((m_w != 0).sum())
+    fmas = h * nnz_w + m_w.shape[0] * nnz_h + m_h.shape[0] * nnz_w + w * nnz_h
+    return 2 * fmas * n_maps
+
+
+def decode_grads(hm, df: int, seed: int):
+    """The maps' gradient of ``sum(g * keypoints)`` for seeded ``g`` through
+    the kernels and through autograd of the plain decode."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import decode_kernel
+
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal((hm.shape[0], 2 * hm.shape[1])))
+    g = g.to(hm.device, torch.float32)
+    x = hm.clone().requires_grad_()
+    kp, _ = decode_kernel.decode(x, df)
+    (kp * g).sum().backward()
+    x_ref = hm.clone().requires_grad_()
+    kp_ref, _ = decode_kernel.decode_plain(x_ref, df)
+    (kp_ref * g).sum().backward()
+    torch.cuda.synchronize()
+    return x.grad, x_ref.grad
 
 
 def peaked_heatmaps(rng, b: int, k: int, h: int, w: int, sigma: float = 1.25) -> np.ndarray:
@@ -371,6 +434,277 @@ def write_video(path: Path, rng, n_frames: int, height: int, width: int) -> Path
     return path
 
 
+def semisup_config(data_dir: Path, keypoint_names: list[str]):
+    """The default config with losses_to_use [pca_singleview, temporal] on
+    the synthetic labeled set and its two mp4s. So that the unsupervised
+    term carries gradient in 20 steps from random weights: the anneal
+    weight is 1 from epoch 0 (init_val 1, freeze_until_epoch 0), the
+    epsilons are 0, and the temporal loss's confidence threshold is 0 (the
+    random head's near-uniform maps have confidences far below 0.05)."""
+    cfg = train_config(data_dir, keypoint_names)
+    cfg.model.model_name = "smokesemi"
+    cfg.model.losses_to_use = ["pca_singleview", "temporal"]
+    check(int(cfg.dali.base.train.sequence_length) == WINDOW, "the defaults changed")
+    cfg.losses.pca_singleview.epsilon = 0.0
+    cfg.losses.temporal.epsilon = 0.0
+    cfg.losses.temporal.prob_threshold = 0.0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    return cfg
+
+
+def fake_data_module(n: int, k: int, size: int, seed: int):
+    """What the PCA fit reads of a data module: ``n`` keypoint rows of a
+    rigid body of ``k`` points in a ``size`` px frame, with noise."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    template = rng.uniform(-0.2, 0.2, (k, 2)) * size
+    angles = rng.uniform(-0.5, 0.5, n)
+    rot = np.stack([np.stack([np.cos(angles), -np.sin(angles)], -1),
+                    np.stack([np.sin(angles), np.cos(angles)], -1)], -2)
+    kp = np.einsum("nij,kj->nki", rot, template) + rng.uniform(0.4, 0.6, (n, 1, 2)) * size
+    kp = (kp + rng.normal(0, 1.0, (n, k, 2))).astype(np.float32)
+    dataset = SimpleNamespace(keypoints_resized=lambda i: kp[i], num_keypoints=k)
+    return SimpleNamespace(dataset=dataset, train_dataset=SimpleNamespace(indices=np.arange(n)))
+
+
+def semisup_card_vs_cpu(card: str) -> tuple[float, float]:
+    """Phase 10: one semi-supervised step (resnet18, 128 px, 4 labeled
+    frames with dlc, an 8-frame window, fp32, TF32 off) on the card and on
+    the CPU from the same weights and draws; the parameters' gradients.
+    Returns the largest leaf error (relative to the leaf's largest entry)
+    and the 2-norm error of all gradients."""
+    import copy
+
+    import torch
+
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.train.checkpoints import load_flax_variables, state_dict_to_flax
+
+    dev = torch.device("cuda", 0)
+    size, n_lab, n_win = 128, 4, 8
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = size
+    cfg.model.losses_to_use = ["pca_singleview", "temporal"]
+    for name in ("pca_singleview", "temporal"):
+        cfg.losses[name].log_weight = 0.0
+        cfg.losses[name].epsilon = 0.0
+    cfg.losses.temporal.prob_threshold = 0.0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    factories = get_loss_factories(cfg, fake_data_module(60, KEYPOINTS, size, SEED))
+    model = build_model("heatmap", "resnet18", KEYPOINTS, DOWNSAMPLE)
+    shapes_params, shapes_stats = state_dict_to_flax(model.state_dict())
+    wrng = np.random.default_rng(SEED + 2)
+    load_flax_variables(model, seeded_flax_variables(shapes_params, wrng), seeded_flax_variables(shapes_stats, wrng))
+    engine = AugmentationEngine("dlc", size, size)
+    gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+    draws = engine.sample(gen, n_lab, field_gen)
+    for name in ("histeq_u", "clahe_u", "emboss_u"):  # no integer-bin ops: they round apart
+        getattr(draws, name).fill_(1.0)
+    video_draws = sample_video_draws(gen, n_win, size, size, field_gen)
+    rng = np.random.default_rng(SEED + 3)
+    cache = {
+        "images": torch.from_numpy(rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)),
+        "keypoints": torch.from_numpy(rng.uniform(8, size - 8, (8, KEYPOINTS, 2)).astype(np.float32)),
+        "visibility": torch.full((8, KEYPOINTS), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, size, size]] * 8),
+    }
+    window = {
+        "frames": torch.from_numpy(rng.integers(0, 256, (n_win, size, size, 3), dtype=np.uint8)),
+        "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0]] * n_win),
+    }
+    grads = {}
+    for where, m in (("cuda", copy.deepcopy(model).to(dev, memory_format=torch.channels_last)), ("cpu", model)):
+        d = torch.device(where, 0) if where == "cuda" else torch.device("cpu")
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, m)
+        state = trainer.TrainState(model=m, optimizer=optimizer)
+        step = trainer.make_step_fns({"model_type": "heatmap", "downsample_factor": DOWNSAMPLE}, factories, engine,
+                                     cfg, head_sched, bb_sched, 10, compute_dtype=torch.float32)[2]
+        # the draws as sampled (scalars on the host, fields on the card), or
+        # all on the CPU
+        step_draws, step_video_draws = (draws, video_draws) if where == "cuda" else (
+            type(draws)(**{k: None if v is None else v.cpu() for k, v in vars(draws).items()}),
+            type(video_draws)(**{k: v.cpu() for k, v in vars(video_draws).items()}),
+        )
+        logs = step(
+            state, {k: v.to(d) for k, v in cache.items()}, torch.arange(n_lab, device=d),
+            torch.ones(n_lab, dtype=torch.bool, device=d), step_draws,
+            {k: v.to(d) for k, v in window.items()}, step_video_draws,
+        )
+        check(all(bool(torch.isfinite(v).all()) for v in logs.values()), f"semi-supervised step on {where}: non-finite logs")
+        grads[where] = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
+        if where == "cuda":
+            unsup = float(logs["train_unsupervised_loss"])
+    leaf_err = max(
+        float((grads["cuda"][n] - g).abs().max() / g.abs().max())
+        for n, g in grads["cpu"].items() if n != "head.deconv1.bias" and float(g.abs().max()) > 0
+    )
+    flat = {k: torch.cat([g.flatten() for n, g in v.items() if n != "head.deconv1.bias"]) for k, v in grads.items()}
+    norm_err = float((flat["cuda"] - flat["cpu"]).norm() / flat["cpu"].norm())
+    log(f"phase 10 semi-supervised step card vs CPU (resnet18, {size} px, {n_lab} + {n_win} frames, fp32, TF32 off, "
+        f"unsupervised loss {unsup:.4f}): parameter gradients, largest leaf error {leaf_err:.3e} of the leaf's "
+        f"largest entry (limit {SEMI_LEAF_REL_TOL}), 2-norm error {norm_err:.3e} (limit {SEMI_NORM_REL_TOL})")
+    check(leaf_err <= SEMI_LEAF_REL_TOL and norm_err <= SEMI_NORM_REL_TOL,
+          "the semi-supervised step's gradients on the card disagree with the CPU")
+    return leaf_err, norm_err
+
+
+def semisup_phase(rng, card: str) -> dict:
+    """Phase 11: train() of the semi-supervised configuration, prediction
+    from its directory, then the step's times. Returns the decode backward's
+    launches in the train() run and its times."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import decode_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+    dev = torch.device("cuda", 0)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_labeled_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        videos = [write_unlabeled_video(data, f"session{i}", 120, 240, 320, n_blobs=KEYPOINTS, seed=SEED + i)
+                  for i in range(2)]
+        cfg = semisup_config(data, names)
+        model_dir = Path(tmp) / "model"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, skip_evaluation=True, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "decode": decode_kernel.launches,
+                    "decode_grad": decode_kernel.grad_launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_logs = [h for h in result.history if "train_unsupervised_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        dm = result.data_module
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        pca = [h["train_pca_singleview_loss"] for h in train_logs]
+        temporal = [h["train_temporal_loss"] for h in train_logs]
+        log(f"phase 11 semi-supervised train(): {TRAIN_STEPS} steps of {TRAIN_BATCH} labeled + {WINDOW} unlabeled "
+            f"frames (ResNet-50, {IMAGE} px, dlc, bf16, pca_singleview + temporal) in {elapsed:.1f} s with set-up "
+            f"and the PCA fit, {len(val_logs)} validations of {val_batches // max(len(val_logs), 1)} batch(es); "
+            f"launches {launches}; unsupervised loss {train_logs[0]['train_unsupervised_loss']:.3e} -> "
+            f"{train_logs[-1]['train_unsupervised_loss']:.3e}, pca_singleview max {max(pca):.4f}, temporal max "
+            f"{max(temporal):.4f}; peak device memory {peak:.2f} GiB {card}")
+        check(launches["warp"] == 2 * TRAIN_STEPS, f"warp launched {launches['warp']} times in {TRAIN_STEPS} steps")
+        check(launches["decode_grad"] == TRAIN_STEPS,
+              f"the decode's backward launched {launches['decode_grad']} times in {TRAIN_STEPS} steps")
+        check(launches["decode"] == 2 * TRAIN_STEPS + val_batches,
+              f"decode launched {launches['decode']} times in {TRAIN_STEPS} steps and {val_batches} validation batches")
+        check(len(train_logs) == TRAIN_STEPS and val_logs, "semi-supervised train() logged too little")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        check(max(pca) > 0 and max(temporal) > 0, "the pca_singleview or temporal loss was 0 in every step")
+        check(not any(t.is_alive() for t in dm.unlabeled_loader._threads), "the unlabeled loader's threads live on")
+        check(json.loads((model_dir / "train_status.json").read_text())["status"] == "COMPLETED",
+              "train_status.json is not COMPLETED")
+        df = Model.from_dir(model_dir).predict_on_video_file(videos[0]).predictions
+        check(df.shape == (120, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"the semi-supervised dir's CSV: shape {df.shape} or non-finite values")
+        log(f"phase 11 predict from the semi-supervised dir: {df.shape[0]} rows, finite")
+
+        # -- the step at full width ------------------------------------------------
+        spe = trainer.calculate_steps_per_epoch(dm)
+        factories = get_loss_factories(cfg, dm)
+        dm.close()
+        torch.manual_seed(SEED)
+        model = build_model("heatmap", "resnet50", KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+        state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+        engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+        step = trainer.make_step_fns({"model_type": "heatmap", "downsample_factor": DOWNSAMPLE}, factories,
+                                     engine, cfg, head_sched, bb_sched, spe)[2]
+        cache = trainer._device_cache(dm.dataset, dev)
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        window = {
+            "frames": torch.from_numpy(rng.integers(0, 256, (WINDOW, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev),
+            "bbox": torch.tensor([[0.0, 0.0, 240.0, 320.0]] * WINDOW, device=dev),
+        }
+        draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+
+        def one_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            draws = engine.sample(draw_gen, TRAIN_BATCH, field_gen)
+            step(state, cache, idxs, valid, draws, window, sample_video_draws(draw_gen, WINDOW, IMAGE, IMAGE, field_gen))
+
+        for _ in range(3):
+            one_step()
+        n = 20
+        step_ms = timed(lambda: [one_step() for _ in range(n)]) * 1e3 / n
+        n_prof = 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_s = timed(lambda: [one_step() for _ in range(n_prof)])
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "Optimizer.step" not in e.key]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        grad_us = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key)
+        fwd_us = sum(e.self_device_time_total for e in kernels if "decode_kernel" in e.key and "grad" not in e.key)
+        busy = device_us / (prof_s * 1e6)
+        log(f"phase 11 semi-supervised step (ResNet-50, {IMAGE} px, bf16, {TRAIN_BATCH} labeled with dlc + {WINDOW} "
+            f"unlabeled, backbone unfrozen): {step_ms:.3f} ms, {(TRAIN_BATCH + WINDOW) / step_ms * 1e3:.1f} frames/s, "
+            f"mean of {n} steps by the host clock with draws sampled in each; torch.profiler over {n_prof} steps: "
+            f"{device_us / 1e3 / n_prof:.3f} ms of device time a step, the device busy {busy:.1%} of "
+            f"{prof_s * 1e3 / n_prof:.3f} ms; the decode's backward {grad_us / n_prof / 1e3:.4f} ms a step "
+            f"({grad_us / max(device_us, 1e-9):.2%} of the device time), its forward {fwd_us / n_prof / 1e3:.4f} ms "
+            f"{card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        log("phase 11 largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / n_prof / 1e3:.3f} ms" for e in top))
+
+        # -- the backward kernel and the warp at the window's shape ------------
+        hm_h = IMAGE // 2**DOWNSAMPLE
+        hm = torch.from_numpy(peaked_heatmaps(rng, WINDOW, KEYPOINTS, hm_h, hm_h)).to(dev)
+        ops = decode_kernel._device_operands(hm_h, hm_h, DOWNSAMPLE, decode_kernel._layout(), dev)
+        lse2 = torch.empty(WINDOW * KEYPOINTS, device=dev)
+        kp, _ = decode_kernel._launch(hm, ops, DOWNSAMPLE, 1000.0, lse2)
+        g = torch.randn(kp.shape, device=dev)
+        grad_ms = cuda_ms(lambda: decode_kernel._launch_grad(hm, kp, lse2, g, ops, DOWNSAMPLE, 1000.0), iters=50)
+        x = hm.clone().requires_grad_()
+        kp_plain, _ = decode_kernel.decode_plain(x, DOWNSAMPLE)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(kp_plain, x, g, retain_graph=True))
+        maps = WINDOW * KEYPOINTS
+        flops = decode_grad_flops(maps, hm_h, hm_h, DOWNSAMPLE)
+        n_bytes = (2 * hm.numel() + maps * 5) * 4
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        log(f"phase 11 decode backward at {tuple(hm.shape)} df {DOWNSAMPLE} ({flops / 1e9:.3f} GFLOP banded): kernel "
+            f"{grad_ms:.4f} ms back to back, plain (autograd's backward of the plain decode) {plain_ms:.4f} ms; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / grad_ms:.1%} of it reached {card}")
+        frames = torch.from_numpy(rng.uniform(0, 255, (WINDOW, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+        theta = 0.1
+        ys, xs = torch.meshgrid(torch.arange(IMAGE, dtype=torch.float32, device=dev),
+                                torch.arange(IMAGE, dtype=torch.float32, device=dev), indexing="ij")
+        c = IMAGE / 2.0
+        field = torch.stack([np.cos(theta) * (xs - c) - np.sin(theta) * (ys - c) + c,
+                             np.sin(theta) * (xs - c) + np.cos(theta) * (ys - c) + c], dim=-1)
+        coords = field.expand(WINDOW, IMAGE, IMAGE, 2).contiguous()
+        warp_ms = flushed_ms(lambda: warp_kernel.warp(frames, coords))
+        warp_bytes = (frames.numel() * 2 + coords.numel()) * 4
+        warp_bound = warp_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"phase 11 warp at the window's shape {tuple(frames.shape)}, L2 flushed: {warp_ms:.5f} ms; bound "
+            f"{warp_bound:.5f} ms (bytes: {warp_bytes / 1e6:.1f} MB, of which the expanded coordinates "
+            f"{coords.numel() * 4 / 1e6:.1f} MB), {warp_bound / warp_ms:.1%} of it reached {card}")
+    return {"launches": launches["decode_grad"], "ms": grad_ms, "plain_ms": plain_ms, "bound": bound}
+
+
 def train_phase(rng, card: str) -> dict[str, int]:
     """Phases 8 and 9: train() of the default model on a synthetic labeled
     set, prediction from the directory it wrote, then the train step's
@@ -497,8 +831,9 @@ def main() -> int:
     # -- 2. build: one nvcc per CUDA source, started together; then the
     # Triton kernel by its first call
     t0 = time.perf_counter()
-    nvcc_s = cuda_build.build("decode.cu", "warp.cu", "clahe.cu")
+    nvcc_s = cuda_build.build("decode.cu", "decode_grad.cu", "warp.cu", "clahe.cu")
     decode_kernel._library()
+    decode_kernel._grad_library()
     warp_kernel._library()
     clahe_kernel._library()
     triton_s = {
@@ -557,6 +892,34 @@ def main() -> int:
               and flips <= DECODE_MAX_WINDOW_FLIPS, f"decode {name} disagrees with its plain version")
         decode_err = max(decode_err, kp_err)
     errors["decode"] = decode_err
+
+    # the decode's backward kernel against autograd of the plain decode: the
+    # unlabeled window's maps at the product shape, a rectangular shape, df 3
+    grad_err = 0.0
+    for name, maps, df in (
+        ("window", peaked_heatmaps(rng, WINDOW, KEYPOINTS, hm_h, hm_h), DOWNSAMPLE),
+        ("rectangular", peaked_heatmaps(rng, 8, KEYPOINTS, 48, 64), DOWNSAMPLE),
+        ("df 3", peaked_heatmaps(rng, 4, KEYPOINTS, 32, 32), 3),
+    ):
+        hm = torch.from_numpy(maps).to(dev)
+        grad, grad_ref = decode_grads(hm, df, seed=len(name))
+        err, scale = float((grad - grad_ref).abs().max()), float(grad_ref.abs().max())
+        log(f"phase 3 decode backward {name} {tuple(hm.shape)} df {df}: max abs err {err:.3e} of a largest entry "
+            f"{scale:.3e} ({err / scale:.2e}, limit {DECODE_GRAD_REL_TOL})")
+        check(bool(torch.isfinite(grad).all()) and scale > 0, f"decode backward {name}: non-finite or zero gradient")
+        check(err <= DECODE_GRAD_REL_TOL * scale, f"decode backward {name} disagrees with autograd of the plain decode")
+        grad_err = max(grad_err, err)
+    errors["decode_grad"] = grad_err
+    hm = torch.from_numpy(cases["peaked"]).to(dev)
+    ops = decode_kernel._device_operands(hm_h, hm_h, DOWNSAMPLE, decode_kernel._layout(), dev)
+    lse2 = torch.full((BATCH * KEYPOINTS,), float("nan"), device=dev)
+    kp_off, conf_off = decode_kernel._launch(hm, ops, DOWNSAMPLE, 1000.0)
+    kp_on, conf_on = decode_kernel._launch(hm, ops, DOWNSAMPLE, 1000.0, lse2)
+    torch.cuda.synchronize()
+    check(torch.equal(kp_off, kp_on) and torch.equal(conf_off, conf_on) and bool(torch.isfinite(lse2).all()),
+          "the decode forward with its log-sum-exp output differs from the one without")
+    log(f"phase 3 decode forward with the log-sum-exp output on: keypoints and confidences bitwise those with it off, "
+        f"{lse2.numel()} finite log-sum-exps")
 
     engine = AugmentationEngine("dlc", IMAGE, IMAGE)
     train_images = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
@@ -783,6 +1146,11 @@ def main() -> int:
         f"{BATCH / step_ms * 1e3:.1f} frames/s {card}")
 
     launches.update(train_phase(rng, card))
+    semisup_card_vs_cpu(card)
+    semi = semisup_phase(rng, card)
+    launches["decode_grad"] = semi["launches"]
+    times["decode_grad"] = (semi["ms"], semi["plain_ms"], None)
+    bounds["decode_grad"] = semi["bound"]
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "lightning_pose_tpu"))
     check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")
 

@@ -10,8 +10,10 @@
 //   conf = sum of p in the (2*window+1)^2 box at (floor(x), floor(y)),
 //          clipped to the map, zero outside it
 //
-// and writes (x - offset, y - offset) and conf. Separate Mh and Mw lift the
-// TPU kernel's square-only limit.
+// and writes (x - offset, y - offset) and conf; where the caller asks for
+// it, also lse2 = m + log2(s), the base-2 log-sum-exp of the map's logits,
+// from which the backward kernel (decode_grad.cu) recomputes p. Separate Mh
+// and Mw lift the TPU kernel's square-only limit.
 //
 // What bounds it on the H100: fp32 FMAs, not memory (each map is 16 KB of
 // input at the product shape, 64x64 maps to 256x256). Mh and Mw are banded
@@ -164,6 +166,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) dec
     const int* __restrict__ strip_band,    // (kCluster, 2): [lo, hi) of i for a strip's Mh rows
     float* __restrict__ keypoints,         // (N, 2)
     float* __restrict__ confidences,       // (N,)
+    float* __restrict__ lse2,              // (N,) or null: m + log2(s) of the map's base-2 logits
     int h, int w, int H, int W, int Wp, int strip_rows, int band_rows, int tile_band, float scale,
     int window, float offset) {
   extern __shared__ float4 smem4[];
@@ -339,6 +342,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads) dec
       if (rank == 0) {
         keypoints[2 * map] = px - offset;
         keypoints[2 * map + 1] = py - offset;
+        if (lse2 != nullptr) lse2[map] = tot.m + log2f(tot.s);
         s_warp[0].s = tot.s;
       }
     }
@@ -377,11 +381,12 @@ size_t lp_decode_smem_bytes(int band_rows, int tile_band, int strip_rows, int w,
          (rows * Wp + static_cast<size_t>(strip_rows) * tile_band + rows * w + kHmPad);
 }
 
-// Launches the decode of n_maps maps on `stream` of `device`; returns the
-// first CUDA error (cudaGetLastError() after the launch), 0 if none.
+// Launches the decode of n_maps maps on `stream` of `device`; `lse2` may be
+// null. Returns the first CUDA error (cudaGetLastError() after the launch),
+// 0 if none.
 int lp_decode_launch(const void* maps, const void* mh_tiles, const void* mw_packed, const void* mh_band,
                      const void* mw_band, const void* strip_band, void* keypoints,
-                     void* confidences, int n_maps, int h, int w, int H, int W, int Wp,
+                     void* confidences, void* lse2, int n_maps, int h, int w, int H, int W, int Wp,
                      int strip_rows, int band_rows, int tile_band, float scale, int window, float offset,
                      int device, void* stream) {
   const size_t smem = lp_decode_smem_bytes(band_rows, tile_band, strip_rows, w, Wp);
@@ -394,7 +399,8 @@ int lp_decode_launch(const void* maps, const void* mh_tiles, const void* mw_pack
       static_cast<const float*>(maps), static_cast<const float*>(mh_tiles),
       static_cast<const float*>(mw_packed), static_cast<const int*>(mh_band),
       static_cast<const int*>(mw_band), static_cast<const int*>(strip_band),
-      static_cast<float*>(keypoints), static_cast<float*>(confidences), h, w, H, W, Wp,
+      static_cast<float*>(keypoints), static_cast<float*>(confidences), static_cast<float*>(lse2),
+      h, w, H, W, Wp,
       strip_rows, band_rows, tile_band, scale, window, offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,12 +61,10 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
 
 
 def get_data_module(cfg, dataset, video_dir: str | None = None) -> BaseDataModule:
-    """The supervised data module: seeded splits and batch iterators."""
-    if check_if_semi_supervised(cfg.model.get("losses_to_use")):
-        raise NotImplementedError(
-            "semi-supervised data modules are not ported yet (ROADMAP queue 1, item 10)"
-        )
-    return BaseDataModule(
+    """The data module: seeded splits and batch iterators; a semi-supervised
+    config adds the unlabeled video stream from ``video_dir`` (reference
+    data/factory.py:205-319)."""
+    common = dict(
         dataset=dataset,
         train_batch_size=cfg.training.train_batch_size,
         val_batch_size=cfg.training.val_batch_size,
@@ -76,3 +74,8 @@ def get_data_module(cfg, dataset, video_dir: str | None = None) -> BaseDataModul
         train_frames=cfg.training.get("train_frames", None),
         torch_seed=cfg.training.get("rng_seed_data_pt", 42),
     )
+    if not check_if_semi_supervised(cfg.model.get("losses_to_use")):
+        return BaseDataModule(**common)
+    from lightning_pose_tpu_torch.data.unlabeled import UnlabeledDataModule
+
+    return UnlabeledDataModule(cfg=cfg, video_dir=video_dir, **common)

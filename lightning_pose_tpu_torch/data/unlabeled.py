@@ -1,0 +1,60 @@
+"""Unlabeled data module (counterpart of ``lightning_pose_tpu/data/unlabeled.py``).
+
+The reference pairs labeled and unlabeled loaders with Lightning's
+``CombinedLoader(mode="max_size_cycle")`` (reference
+lightning_pose/data/datamodules.py:240-341): each training step takes one
+labeled batch and one unlabeled video window. Here the labeled batches come
+from the data module's index batches, as in supervised training, and the
+train loop takes one window a step from :attr:`unlabeled_loader`; the
+window's augmentation and normalization run on the device in the train
+step. Single view, one process: the stream is shard 0 of 1.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+from lightning_pose_tpu_torch.data.video import UnlabeledVideoLoader
+from lightning_pose_tpu_torch.utils.io import check_video_paths
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["UnlabeledDataModule"]
+
+
+class UnlabeledDataModule(BaseDataModule):
+    """:class:`BaseDataModule` plus a background unlabeled video stream of
+    ``dali.base.train.sequence_length`` frames a window, seeded by
+    ``training.rng_seed_data_pt``."""
+
+    def __init__(self, cfg, video_dir: str, **kwargs) -> None:
+        view_names = cfg.data.get("view_names", None)
+        if view_names and len(view_names) > 1:
+            raise NotImplementedError(
+                "multiview unlabeled video is not ported yet (ROADMAP queue 1, item 12)"
+            )
+        super().__init__(**kwargs)
+        self.cfg = cfg
+        self.video_dir = video_dir
+        seq_len = int(cfg.dali.base.train.sequence_length)
+        seed = int(cfg.training.get("rng_seed_data_pt", 0)) + 123456
+        # auto: rgb, as in the JAX package off the TPU
+        fmt = str(cfg.training.get("video_transfer_format", "auto")).lower()
+        if fmt == "auto":
+            fmt = "rgb"
+        video_files = check_video_paths(video_dir)
+        self.unlabeled_loader = UnlabeledVideoLoader(
+            video_files=list(video_files),
+            sequence_length=seq_len,
+            resize_height=int(cfg.data.image_resize_dims.height),
+            resize_width=int(cfg.data.image_resize_dims.width),
+            seed=seed,
+            shard_id=0,
+            transfer_format=fmt,
+        )
+        logger.info(f"unlabeled stream: {len(video_files)} video(s), sequence_length={seq_len}")
+
+    def close(self) -> None:
+        """Stop the unlabeled stream's decode threads."""
+        self.unlabeled_loader.close()

@@ -1,18 +1,22 @@
-"""Host video decode for prediction (the port's copy of what it uses of
-``lightning_pose_tpu/data/video.py``, the DALI replacement).
+"""Host video decode for prediction and for semi-supervised training (the
+port's copy of what it uses of ``lightning_pose_tpu/data/video.py``, the
+DALI replacement).
 
 OpenCV's C++/ffmpeg decoder runs on the host with background threads and
-feeds fixed-shape uint8 RGB batches; normalization runs on the device.
-The batch policy mirrors the reference's DALI predict pipe (reference
-dali.py:519-562,699-760): sequential ``sequence_length``-frame windows, the
-last one filled by repeating the final frame so that shapes stay static.
+feeds fixed-shape uint8 RGB batches; normalization and augmentation run on
+the device. The batch policies mirror the reference's DALI pipes (reference
+dali.py:519-562,699-760):
 
-A single H.264/H.265 stream decodes serially, so the loader shards the
-video by window across ``decode_threads`` worker decoders (each seeks to
-its window and decodes one batch; batches are emitted in order). Window
-assignment is deterministic, so the batches are the same for any thread
-count. Context windows, bbox crops and the yuv420 transfer are not ported
-yet.
+- predict: sequential ``sequence_length``-frame windows, the last one filled
+  by repeating the final frame so that shapes stay static. A single
+  H.264/H.265 stream decodes serially, so the loader shards the video by
+  window across ``decode_threads`` worker decoders (each seeks to its window
+  and decodes one batch; batches are emitted in order). Window assignment
+  is deterministic, so the batches are the same for any thread count.
+- train (unlabeled): random-start windows of a random video, from a
+  counter-keyed generator, decoded by worker threads and emitted in order.
+
+Context windows, bbox crops and the yuv420 transfer are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +28,21 @@ import threading
 
 import cv2
 import numpy as np
+import torch
 
 from lightning_pose_tpu_torch import native
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["PredictVideoLoader", "VideoFrameDecoder", "count_frames", "default_decode_threads"]
+__all__ = [
+    "PredictVideoLoader",
+    "UnlabeledVideoLoader",
+    "VideoFrameDecoder",
+    "count_frames",
+    "default_decode_threads",
+    "undo_affine_transform_batch",
+]
+
 
 def default_decode_threads() -> int:
     """Worker-decoder count: the LP_TPU_DECODE_THREADS environment variable
@@ -66,10 +79,13 @@ def count_frames(video_file: str) -> int:
 
 
 class VideoFrameDecoder:
-    """Sequential decoder of native-resolution BGR frames (C++/ffmpeg)."""
+    """Sequential decoder (C++/ffmpeg): native-resolution BGR frames, or RGB
+    frames resized on the host to ``(resize_height, resize_width)``."""
 
-    def __init__(self, video_file: str):
+    def __init__(self, video_file: str, resize_height: int | None = None, resize_width: int | None = None):
         self.video_file = str(video_file)
+        self.h = None if resize_height is None else int(resize_height)
+        self.w = None if resize_width is None else int(resize_width)
         self.cap = cv2.VideoCapture(self.video_file)
         if not self.cap.isOpened():
             raise FileNotFoundError(f"could not open video {video_file}")
@@ -80,6 +96,16 @@ class VideoFrameDecoder:
         """Decode one native-resolution BGR frame (no conversion/resize)."""
         ret, frame = self.cap.read()
         return frame if ret else None
+
+    def read(self) -> np.ndarray | None:
+        """Decode one frame as RGB, resized with ``INTER_LINEAR``."""
+        if self.h is None or self.w is None:
+            raise ValueError("read() needs the decoder's resize_height and resize_width")
+        frame = self.read_raw()
+        if frame is None:
+            return None
+        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        return cv2.resize(frame, (self.w, self.h), interpolation=cv2.INTER_LINEAR)
 
     def seek(self, frame_idx: int) -> None:
         self.cap.set(cv2.CAP_PROP_POS_FRAMES, frame_idx)
@@ -253,3 +279,160 @@ class PredictVideoLoader:
             if item is None:
                 break
             yield item
+
+
+class UnlabeledVideoLoader:
+    """Random-window unlabeled-frame loader for semi-supervised training.
+
+    Each ``__next__`` yields ``{"frames": (T, h, w, 3) uint8 RGB, "bbox":
+    (T, 4) float32}``: a contiguous ``sequence_length``-frame window from a
+    random start in a random video (the seeded DALI random reader, reference
+    dali.py:148-152,580-592), padded by repeating its last frame, with the
+    full-frame bbox ``[0, 0, orig_height, orig_width]``. Window ``k`` comes
+    from ``np.random.default_rng([seed, shard_id, k])``, so the stream is the
+    same for any number of decode threads. Call :meth:`close` to stop the
+    worker threads.
+    """
+
+    def __init__(
+        self,
+        video_files: list[str],
+        sequence_length: int,
+        resize_height: int,
+        resize_width: int,
+        seed: int = 123456,
+        shard_id: int = 0,
+        prefetch_batches: int = 2,
+        decode_threads: int | None = None,
+        transfer_format: str = "rgb",
+    ):
+        assert len(video_files) > 0, "no unlabeled videos found"
+        if transfer_format == "yuv420":
+            raise NotImplementedError(
+                "the yuv420 transfer of unlabeled frames is not ported yet (ROADMAP queue 1, item 10)"
+            )
+        if transfer_format != "rgb":
+            raise ValueError(f"unknown transfer_format {transfer_format!r}")
+        self.video_files = [str(v) for v in video_files]
+        self.seq_len = int(sequence_length)
+        self.h = int(resize_height)
+        self.w = int(resize_width)
+        self.seed = int(seed)
+        self.shard_id = int(shard_id)
+        # fail fast on bad paths (the reference's DALI filename validation,
+        # reference dali.py:449-455) instead of hanging the sampler
+        missing = [v for v in self.video_files if not os.path.isfile(v)]
+        if missing:
+            raise FileNotFoundError(f"unlabeled video files not found: {missing}")
+        self.frame_counts = [count_frames(v) for v in self.video_files]
+        unreadable = [v for v, n in zip(self.video_files, self.frame_counts) if n <= 0]
+        if unreadable:
+            raise RuntimeError(f"could not decode any frames from: {unreadable}")
+        n_workers = decode_threads if decode_threads is not None else default_decode_threads()
+        self._n_workers = max(1, int(n_workers))
+        self._prefetch = int(prefetch_batches)
+        self._stop = threading.Event()
+        self._cond = threading.Condition()
+        self._results: dict[int, dict] = {}
+        self._errors: list[BaseException] = []
+        self._next_emit = 0
+        self._threads = [
+            threading.Thread(target=self._produce, args=(wid,), daemon=True)
+            for wid in range(self._n_workers)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _window_params(self, k: int) -> tuple[int, int]:
+        """``(video index, start frame)`` of the k-th window."""
+        rng = np.random.default_rng([self.seed, self.shard_id, k])
+        vid_idx = int(rng.integers(len(self.video_files)))
+        n = self.frame_counts[vid_idx]
+        start = int(rng.integers(max(n - self.seq_len, 1)))
+        return vid_idx, start
+
+    def _decode_window(self, decoder: VideoFrameDecoder, start: int) -> dict:
+        decoder.seek(start)
+        frames = []
+        for _ in range(self.seq_len):
+            frame = decoder.read()
+            if frame is None:
+                break
+            frames.append(frame)
+        if not frames:
+            frames = [np.zeros((self.h, self.w, 3), dtype=np.uint8)]
+        while len(frames) < self.seq_len:
+            frames.append(frames[-1])
+        bbox = np.tile(
+            np.array([0.0, 0.0, decoder.orig_height, decoder.orig_width], dtype=np.float32),
+            (self.seq_len, 1),
+        )
+        return {"frames": np.stack(frames), "bbox": bbox}
+
+    def _produce(self, wid: int) -> None:
+        decoders: dict[int, VideoFrameDecoder] = {}
+        max_lead = self._n_workers + self._prefetch
+        try:
+            k = wid
+            while not self._stop.is_set():
+                with self._cond:
+                    while k - self._next_emit >= max_lead and not self._stop.is_set():
+                        self._cond.wait(timeout=0.5)
+                if self._stop.is_set():
+                    return
+                vid_idx, start = self._window_params(k)
+                if vid_idx not in decoders:
+                    decoders[vid_idx] = VideoFrameDecoder(self.video_files[vid_idx], self.h, self.w)
+                batch = self._decode_window(decoders[vid_idx], start)
+                with self._cond:
+                    self._results[k] = batch
+                    self._cond.notify_all()
+                k += self._n_workers
+        except BaseException as exc:  # surface a worker's death to the consumer
+            with self._cond:
+                self._errors.append(exc)
+                self._cond.notify_all()
+        finally:
+            for d in decoders.values():
+                d.close()
+
+    def __next__(self) -> dict:
+        with self._cond:
+            k = self._next_emit
+            while k not in self._results and not self._errors and not self._stop.is_set():
+                self._cond.wait(timeout=0.5)
+            if self._errors:
+                self._stop.set()
+                self._cond.notify_all()
+                raise RuntimeError("unlabeled-video decode worker failed") from self._errors[0]
+            if self._stop.is_set() and k not in self._results:
+                raise StopIteration
+            batch = self._results.pop(k)
+            self._next_emit = k + 1
+            self._cond.notify_all()
+        return batch
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        # join before the decoders are garbage-collected (cv2 teardown from a
+        # live daemon thread can crash at interpreter shutdown)
+        for t in self._threads:
+            t.join(timeout=10.0)
+
+
+def undo_affine_transform_batch(keypoints: torch.Tensor, transforms: torch.Tensor) -> torch.Tensor:
+    """Map ``(B, 2K)`` keypoints predicted on augmented frames back to the
+    original frames, through the inverse of each frame's forward ``(B, 2, 3)``
+    matrix (``augmented = M @ [x, y, 1]``; reference data/utils.py:192-235).
+    Differentiable in the keypoints. The 2x2 inverse is the closed form, so
+    that nothing waits for the device (``torch.linalg.inv`` checks for
+    singular matrices on the host)."""
+    b = keypoints.shape[0]
+    kp = keypoints.reshape(b, -1, 2)
+    m = transforms.to(keypoints.dtype)
+    a, bb, c, d = m[:, 0, 0], m[:, 0, 1], m[:, 1, 0], m[:, 1, 1]
+    a_inv = torch.stack([torch.stack([d, -bb], -1), torch.stack([-c, a], -1)], -2) / (a * d - bb * c)[:, None, None]
+    kp_orig = torch.einsum("bij,bkj->bki", a_inv, kp - m[:, None, :, 2])
+    return kp_orig.reshape(b, -1)

@@ -1,7 +1,11 @@
 """Loss factory (counterpart of ``lightning_pose_tpu/losses/factory.py``).
 
-Only the supervised heatmap losses are ported. A configured unsupervised
-loss (``model.losses_to_use``) raises ``NotImplementedError``.
+``get_loss_factories(cfg, data_module)`` builds the ``supervised`` and
+``unsupervised`` :class:`LossFactory` of a heatmap config; a factory call
+sums ``anneal_weight * weight * loss`` over its losses, the heatmap losses
+exempt from the anneal weight (reference factory.py:272-279). The PCA
+losses are fitted on the data module's train split when the factory is
+built. Multiview losses and other model types raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,10 @@ from lightning_pose_tpu_torch.losses.losses import (
     HeatmapJSLoss,
     HeatmapKLLoss,
     HeatmapMSELoss,
+    PCALoss,
+    TemporalHeatmapLoss,
+    TemporalLoss,
+    UnimodalLoss,
 )
 
 __all__ = ["LossFactory", "get_loss_classes", "get_loss_factories"]
@@ -28,26 +36,49 @@ def get_loss_classes() -> dict[str, type]:
         "heatmap_mse": HeatmapMSELoss,
         "heatmap_kl": HeatmapKLLoss,
         "heatmap_js": HeatmapJSLoss,
+        "pca_singleview": PCALoss,
+        "temporal": TemporalLoss,
+        "temporal_heatmap_mse": TemporalHeatmapLoss,
+        "temporal_heatmap_kl": TemporalHeatmapLoss,
+        "unimodal_mse": UnimodalLoss,
+        "unimodal_kl": UnimodalLoss,
+        "unimodal_js": UnimodalLoss,
     }
 
 
 def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
-    """Supervised and unsupervised loss factories of a heatmap config."""
+    """Supervised and unsupervised loss factories of a heatmap config
+    (reference factory.py:79-200)."""
     if "heatmap" not in cfg.model.model_type:
         raise NotImplementedError(
             f"losses of model_type {cfg.model.model_type} are not ported yet "
             "(ROADMAP queue 1, item 13)"
         )
-    losses_to_use = [name for name in (cfg.model.get("losses_to_use") or []) if name]
-    if losses_to_use:
-        raise NotImplementedError(
-            f"unsupervised losses {losses_to_use} are not ported yet "
-            "(ROADMAP queue 1, item 10)"
-        )
     supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
+    unsupervised: dict[str, dict] = {}
+    for loss_name in [name for name in (cfg.model.get("losses_to_use") or []) if name]:
+        if loss_name == "pca_multiview":
+            raise NotImplementedError("the multiview PCA loss is not ported yet (ROADMAP queue 1, item 12)")
+        params = dict(cfg.losses[loss_name].to_dict(resolve=True))
+        params["loss_name"] = loss_name
+        if loss_name.startswith("unimodal") or loss_name.startswith("temporal_heatmap"):
+            height = int(cfg.data.image_resize_dims.height)
+            width = int(cfg.data.image_resize_dims.width)
+            df = int(cfg.data.get("downsample_factor", 2))
+            params["original_image_height"] = height
+            params["original_image_width"] = width
+            params["downsampled_image_height"] = height // 2**df
+            params["downsampled_image_width"] = width // 2**df
+        elif loss_name == "pca_singleview":
+            if cfg.data.get("view_names", None) and len(cfg.data.view_names) > 1:
+                raise NotImplementedError(
+                    "The Pose PCA loss is currently not implemented for multiview data."
+                )
+            params["columns_for_singleview_pca"] = cfg.data.get("columns_for_singleview_pca", None)
+        unsupervised[loss_name] = params
     return {
         "supervised": LossFactory(supervised, data_module=data_module),
-        "unsupervised": LossFactory({}, data_module=data_module),
+        "unsupervised": LossFactory(unsupervised, data_module=data_module),
     }
 
 
@@ -63,9 +94,27 @@ class LossFactory:
             raise NotImplementedError(
                 f"losses {unknown} are not ported yet (ROADMAP queue 1, items 10-13)"
             )
-        self.loss_instance_dict: dict[str, Any] = {
-            name: classes[name](**params) for name, params in losses_params_dict.items()
-        }
+        self.loss_instance_dict: dict[str, Any] = {}
+        for loss_name, params in losses_params_dict.items():
+            params = dict(params)
+            if loss_name.startswith("pca"):
+                # a PCA loss needs its subspace, fitted on the train split
+                from lightning_pose_tpu_torch.utils.pca import KeypointPCA
+
+                if data_module is None:
+                    raise ValueError("a PCA loss needs a data_module to fit on")
+                pca = KeypointPCA(
+                    loss_type=loss_name,
+                    data_module=data_module,
+                    components_to_keep=params.pop("components_to_keep", 0.95),
+                    empirical_epsilon_percentile=params.pop("empirical_epsilon_percentile", 99.0),
+                    mirrored_column_matches=params.pop("mirrored_column_matches", None),
+                    columns_for_singleview_pca=params.pop("columns_for_singleview_pca", None),
+                    centering_method=params.pop("centering_method", None),
+                )
+                pca()
+                params["pca"] = pca
+            self.loss_instance_dict[loss_name] = classes[loss_name](**params)
 
     def __call__(
         self,
@@ -73,7 +122,8 @@ class LossFactory:
         anneal_weight: Any = 1.0,
         **kwargs: Any,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """Total weighted loss and a flat dict of logs."""
+        """Total weighted loss and a flat dict of logs; an empty factory
+        gives a zero on the device of the tensors it was given."""
         total = None
         logs: dict[str, torch.Tensor] = {}
         for name, loss in self.loss_instance_dict.items():
@@ -84,5 +134,6 @@ class LossFactory:
             logs.update(loss_logs)
             logs[f"{stage}_{name}_loss_weighted"] = weighted
         if total is None:
-            total = torch.zeros((), dtype=torch.float32)
+            device = next((v.device for v in kwargs.values() if isinstance(v, torch.Tensor)), None)
+            total = torch.zeros((), dtype=torch.float32, device=device)
         return total, logs

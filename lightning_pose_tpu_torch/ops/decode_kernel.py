@@ -1,11 +1,16 @@
-"""Decode kernel: fused upsample + softmax + expectation + confidence.
+"""Decode kernel: fused upsample + softmax + expectation + confidence, and
+its backward.
 
-Replaces the TPU kernel ``lightning_pose_tpu/ops/pallas_decode.py``
-(``run_subpixelmaxima_pallas``). The CUDA source is ``csrc/decode.cu``; its
-header says what bounds it on the H100 and how it is laid out. This module
-holds the upsample matrices, the plain PyTorch version of the decode (the
-reference's XLA path, ``lightning_pose_tpu/ops/softargmax.py:123-147``), and
-the wrapper that picks between them by device.
+The forward replaces the TPU kernel ``lightning_pose_tpu/ops/pallas_decode.py``
+(``run_subpixelmaxima_pallas``); its CUDA source is ``csrc/decode.cu``. The
+backward (``csrc/decode_grad.cu``) replaces no TPU kernel: the JAX package
+trains through its XLA decode and differentiates it by autodiff. Each
+source's header says what bounds it on the H100 and how it is laid out.
+This module holds the upsample matrices, the plain PyTorch version of the
+decode (the reference's XLA path,
+``lightning_pose_tpu/ops/softargmax.py:123-147``), and the wrapper that
+picks between them by device and, on the card, between the forward-only
+launch and the autograd function of the two kernels.
 
 Heatmaps are ``(B, K, h, w)`` here, the layout the port's head emits: the
 kernel walks them as ``B*K`` maps of ``(h, w)`` with no transpose.
@@ -33,12 +38,15 @@ __all__ = [
     "GRID_OFFSETS",
     "decode",
     "decode_plain",
+    "grad_launches",
     "launches",
     "upsample_matrix",
 ]
 
-# launches of the CUDA kernel in this process; only ``decode`` adds to it
+# launches of the CUDA kernels in this process: the forward (``launches``)
+# and the backward (``grad_launches``); only the wrappers add to them
 launches = 0
+grad_launches = 0
 
 # grid-offset correction of repeated align_corners=False upsampling, by
 # downsample factor (reference heads/heatmap.py:131-136)
@@ -93,16 +101,17 @@ def decode_plain(
     downsample_factor: int = 2,
     temperature: float = 1000.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch decode of ``(B, K, h, w)`` heatmaps.
+    """Plain PyTorch decode of ``(B, K, h, w)`` heatmaps, differentiable by
+    autograd.
 
     Returns ``(B, 2K)`` keypoints (x, y) in full-resolution pixels and
-    ``(B, K)`` confidences, both float32.
+    ``(B, K)`` confidences, float32 (float64 for float64 maps).
     """
     b, k, h, w = heatmaps.shape
-    up = heatmaps.to(torch.float32)
+    up = heatmaps.to(torch.promote_types(heatmaps.dtype, torch.float32))
     if downsample_factor > 0:
         mh, mw = (
-            torch.from_numpy(np.array(upsample_matrix(n, downsample_factor))).to(heatmaps.device)
+            torch.from_numpy(np.array(upsample_matrix(n, downsample_factor))).to(heatmaps.device, up.dtype)
             for n in (h, w)
         )
         up = torch.matmul(mh, torch.matmul(up, mw.T))  # (B, K, H, W)
@@ -122,7 +131,7 @@ def _library() -> ctypes.CDLL:
     lib.lp_decode_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.lp_decode_smem_bytes.restype = ctypes.c_size_t
     lib.lp_decode_launch.argtypes = [
-        *[ctypes.c_void_p] * 8,
+        *[ctypes.c_void_p] * 9,
         *[ctypes.c_int] * 9,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p,
@@ -192,22 +201,37 @@ def _band_packed_mw(m_w: np.ndarray, bands: np.ndarray, layout: _Layout) -> np.n
 
 @dataclass(frozen=True)
 class _Operands:
-    """What the kernel reads besides the maps, on the maps' device: the row
-    tiles' Mh bands and the column tiles' Mw bands, packed as the kernel
-    reads them, and the ``[lo, hi)`` bands of Mh's row tiles, of Mw's column
+    """What the kernels read besides the maps, on the maps' device: the row
+    tiles' Mh bands and the column tiles' Mw bands, packed as the kernels
+    read them, and the ``[lo, hi)`` bands of Mh's row tiles, of Mw's column
     tiles and of each strip's Mh rows (``[0, 0)`` for a strip past ``H``);
-    ``wp`` columns (``W`` padded, zero past it), strips of ``strip_rows``
-    rows, the widest strip band ``band_rows`` and tile band ``tile_band``."""
+    for the backward, the ``[lo, hi)`` range of the column tiles whose Mw
+    band holds each input column; ``wp`` columns (``W`` padded, zero past
+    it), strips of ``strip_rows`` rows, the widest strip band ``band_rows``
+    and tile band ``tile_band``."""
 
     mh_tiles: torch.Tensor
     mw_packed: torch.Tensor
     mh_band: torch.Tensor
     mw_band: torch.Tensor
     strip_band: torch.Tensor
+    mw_cols: torch.Tensor
     wp: int
     strip_rows: int
     band_rows: int
     tile_band: int
+
+
+def column_tile_ranges(bands: np.ndarray, n_cols: int) -> np.ndarray:
+    """``(n_cols, 2)`` int32: for each column ``j`` of a banded matrix, the
+    ``[lo, hi)`` range of the tiles whose ``bands`` (``row_tile_bands``)
+    hold ``j``; ``[0, 0)`` for a column no band holds."""
+    out = np.zeros((n_cols, 2), np.int32)
+    for j in range(n_cols):
+        tiles = np.flatnonzero((bands[:, 0] <= j) & (j < bands[:, 1]))
+        if tiles.size:
+            out[j] = (tiles[0], tiles[-1] + 1)
+    return out
 
 
 def _operands_from_bands(
@@ -225,7 +249,7 @@ def _operands_from_bands(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
         for a in (
             _tile_packed_mh(m_h, mh_bands, layout), _band_packed_mw(m_w, mw_bands, layout),
-            mh_bands, mw_bands, strips,
+            mh_bands, mw_bands, strips, column_tile_ranges(mw_bands, m_w.shape[1]),
         )
     ]
     return _Operands(
@@ -260,26 +284,26 @@ def _layout() -> _Layout:
     )
 
 
-def _launch(heatmaps: torch.Tensor, ops: _Operands, downsample_factor: int, temperature: float):
-    """Run the kernel on contiguous fp32 CUDA ``(B, K, h, w)`` heatmaps."""
+def _launch(
+    heatmaps: torch.Tensor, ops: _Operands, downsample_factor: int, temperature: float,
+    lse2: torch.Tensor | None = None,
+):
+    """Run the kernel on contiguous fp32 CUDA ``(B, K, h, w)`` heatmaps; with
+    ``lse2`` (a ``(B * K,)`` fp32 tensor) it also writes each map's base-2
+    log-sum-exp there."""
     global launches
     b, k, h, w = heatmaps.shape
     big_h, big_w = h * 2**downsample_factor, w * 2**downsample_factor
     lib = _library()
     smem = lib.lp_decode_smem_bytes(ops.band_rows, ops.tile_band, ops.strip_rows, w, ops.wp)
-    limit = torch.cuda.get_device_properties(heatmaps.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"decode kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w}) need "
-            f"{smem} bytes of shared memory per block; the card allows {limit}"
-        )
+    _check_smem(smem, heatmaps.device, f"decode kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w})")
     keypoints = torch.empty((b, 2 * k), dtype=torch.float32, device=heatmaps.device)
     confidences = torch.empty((b, k), dtype=torch.float32, device=heatmaps.device)
     if b * k:
         err = lib.lp_decode_launch(
             heatmaps.data_ptr(),
             *(t.data_ptr() for t in (ops.mh_tiles, ops.mw_packed, ops.mh_band, ops.mw_band, ops.strip_band)),
-            keypoints.data_ptr(), confidences.data_ptr(),
+            keypoints.data_ptr(), confidences.data_ptr(), None if lse2 is None else lse2.data_ptr(),
             b * k, h, w, big_h, big_w, ops.wp, ops.strip_rows, ops.band_rows, ops.tile_band,
             float(temperature) * _LOG2_E, CONFIDENCE_WINDOW,
             GRID_OFFSETS[downsample_factor], heatmaps.device.index,
@@ -291,6 +315,90 @@ def _launch(heatmaps: torch.Tensor, ops: _Operands, downsample_factor: int, temp
     return keypoints, confidences
 
 
+def _check_smem(smem: int, device: torch.device, what: str) -> None:
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"{what} need {smem} bytes of shared memory per block; the card allows {limit}")
+
+
+@functools.lru_cache(maxsize=1)
+def _grad_library() -> ctypes.CDLL:
+    lib = load_library("decode_grad.cu")
+    for name in ("lp_decode_grad_band_rows", "lp_decode_grad_band_cols", "lp_decode_grad_max_band"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.lp_decode_grad_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.lp_decode_grad_smem_bytes.restype = ctypes.c_size_t
+    lib.lp_decode_grad_launch.argtypes = [
+        *[ctypes.c_void_p] * 10,
+        *[ctypes.c_int] * 7,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.lp_decode_grad_launch.restype = ctypes.c_int
+    layout = _layout()
+    theirs = (lib.lp_decode_grad_band_rows(), lib.lp_decode_grad_band_cols(), lib.lp_decode_grad_max_band())
+    if theirs != (layout.band_rows, layout.band_cols, layout.max_band):
+        raise RuntimeError(f"decode_grad.cu packs bands as {theirs}, decode.cu as {layout}")
+    return lib
+
+
+def _launch_grad(
+    heatmaps: torch.Tensor, keypoints: torch.Tensor, lse2: torch.Tensor, grad_keypoints: torch.Tensor,
+    ops: _Operands, downsample_factor: int, temperature: float,
+) -> torch.Tensor:
+    """Run the backward kernel: the gradient of the keypoints' loss with
+    respect to contiguous fp32 CUDA ``(B, K, h, w)`` heatmaps, given the
+    forward's keypoints and ``lse2`` and the keypoints' gradient ``(B, 2K)``."""
+    global grad_launches
+    b, k, h, w = heatmaps.shape
+    big_h, big_w = h * 2**downsample_factor, w * 2**downsample_factor
+    lib = _grad_library()
+    smem = lib.lp_decode_grad_smem_bytes(h, w, big_h, ops.wp, ops.tile_band)
+    _check_smem(smem, heatmaps.device, f"decode backward kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w})")
+    grad = torch.empty_like(heatmaps)
+    if b * k:
+        err = lib.lp_decode_grad_launch(
+            *(t.data_ptr() for t in (heatmaps, keypoints, lse2, grad_keypoints, ops.mh_tiles, ops.mw_packed,
+                                     ops.mh_band, ops.mw_band, ops.mw_cols, grad)),
+            b * k, h, w, big_h, big_w, ops.wp, ops.tile_band,
+            float(temperature) * _LOG2_E, float(temperature), GRID_OFFSETS[downsample_factor],
+            heatmaps.device.index, torch.cuda.current_stream(heatmaps.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"decode backward kernel launch failed with CUDA error {err}")
+        grad_launches += 1
+    return grad
+
+
+class _DecodeFunction(torch.autograd.Function):
+    """The decode kernel forward and the backward kernel, for CUDA heatmaps
+    that require grad. The confidences carry no gradient."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
+    def forward(ctx, heatmaps, downsample_factor, temperature):
+        b, k, h, w = heatmaps.shape
+        ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
+        lse2 = torch.empty(b * k, dtype=torch.float32, device=heatmaps.device)
+        keypoints, confidences = _launch(heatmaps, ops, downsample_factor, temperature, lse2)
+        ctx.save_for_backward(heatmaps, keypoints, lse2)
+        ctx.downsample_factor, ctx.temperature = downsample_factor, temperature
+        ctx.mark_non_differentiable(confidences)
+        return keypoints, confidences
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_keypoints, grad_confidences):
+        heatmaps, keypoints, lse2 = ctx.saved_tensors
+        _, _, h, w = heatmaps.shape
+        ops = _device_operands(h, w, ctx.downsample_factor, _layout(), heatmaps.device)
+        grad = _launch_grad(
+            heatmaps, keypoints, lse2, grad_keypoints.contiguous(), ops, ctx.downsample_factor, ctx.temperature
+        )
+        return grad, None, None
+
+
 def decode(
     heatmaps: torch.Tensor,
     downsample_factor: int = 2,
@@ -299,8 +407,10 @@ def decode(
     """Fused decode of ``(B, K, h, w)`` heatmaps (drop-in for
     :func:`decode_plain`).
 
-    A CUDA tensor runs the CUDA kernel; a CPU tensor runs
-    :func:`decode_plain`. Anything else raises.
+    A CUDA tensor runs the CUDA kernel; where grad mode is on and the
+    heatmaps require grad, it runs the kernel and the backward kernel as an
+    autograd function, so the keypoints carry a gradient. A CPU tensor runs
+    :func:`decode_plain`, differentiable by autograd. Anything else raises.
     """
     if heatmaps.ndim != 4:
         raise ValueError(f"decode takes (B, K, h, w) heatmaps, got {tuple(heatmaps.shape)}")
@@ -320,5 +430,7 @@ def decode(
     b, k, h, w = heatmaps.shape
     if b * k * 4 >= 2**31:
         raise ValueError(f"the decode kernel takes fewer than 2**29 maps a launch, got {b * k}")
+    if torch.is_grad_enabled() and heatmaps.requires_grad:
+        return _DecodeFunction.apply(heatmaps, downsample_factor, temperature)
     ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
     return _launch(heatmaps, ops, downsample_factor, temperature)

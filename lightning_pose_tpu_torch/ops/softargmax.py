@@ -15,9 +15,10 @@ __all__ = ["spatial_softmax2d", "spatial_expectation2d", "run_subpixelmaxima"]
 
 
 def spatial_softmax2d(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
-    """Softmax over the spatial dims of each ``(B, K, H, W)`` map, in float32."""
+    """Softmax over the spatial dims of each ``(B, K, H, W)`` map, in float32
+    (float64 for float64 maps)."""
     b, k, h, w = heatmaps.shape
-    flat = heatmaps.to(torch.float32).reshape(b, k, h * w) * temperature
+    flat = heatmaps.to(torch.promote_types(heatmaps.dtype, torch.float32)).reshape(b, k, h * w) * temperature
     return torch.softmax(flat, dim=-1).reshape(b, k, h, w)
 
 
@@ -39,8 +40,10 @@ def run_subpixelmaxima(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Soft-argmax decode of ``(B, K, h, w)`` heatmaps to ``(B, 2K)``
     keypoints in full-image pixels and ``(B, K)`` confidences, through
-    ``ops/decode_kernel.decode``: the CUDA kernel on a CUDA tensor (not
-    differentiable), the plain PyTorch version on a CPU tensor.
+    ``ops/decode_kernel.decode``: the CUDA kernel on a CUDA tensor, with the
+    backward kernel under grad mode when the heatmaps require grad; the
+    plain PyTorch version, differentiable by autograd, on a CPU tensor. The
+    confidences carry no gradient on the card.
     """
     from lightning_pose_tpu_torch.ops import decode_kernel
 

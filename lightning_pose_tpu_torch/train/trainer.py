@@ -1,5 +1,5 @@
-"""Supervised training of the single-view heatmap model (counterpart of
-``lightning_pose_tpu/train/trainer.py``).
+"""Supervised and semi-supervised training of the single-view heatmap model
+(counterpart of ``lightning_pose_tpu/train/trainer.py``).
 
 One process, one device. Each step gathers its batch from a device-resident
 copy of the labeled set, augments it on the device (``ops/augment.py``, with
@@ -9,6 +9,15 @@ Adam step on two parameter groups (backbone and head), each with its
 schedule read at the step count (``train/schedules.py``). Targets and losses
 are fp32; the logged pixel RMSE decodes the predicted maps with the decode
 kernel on the card (the plain decode on the CPU).
+
+With unsupervised losses (``model.losses_to_use``), each step also takes one
+unlabeled video window from the data module's loader, copied to the device
+through pinned memory. The window is augmented on the device
+(``ops/video_augment.py``), run through the model in a second train-mode
+forward (after the labeled one, so the BatchNorm statistics chain as in the
+JAX package), decoded with gradient (the decode and its backward kernel on
+the card), mapped back through the augmentation and to frame pixels, and
+given to the unsupervised losses at the epoch's anneal weight.
 
 ``train(cfg, model_dir)`` writes the reference's model directory:
 ``config.yaml``, a copy of the label CSV, ``train_status.json``,
@@ -36,9 +45,11 @@ from torch import nn
 from lightning_pose_tpu_torch.api.model import resolve_device
 from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
+from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
 from lightning_pose_tpu_torch.train import checkpoints as ckpt_utils
 from lightning_pose_tpu_torch.train.schedules import anneal_weight, backbone_lr, multistep_lr
 
@@ -52,14 +63,19 @@ __all__ = [
     "make_step_fns",
     "run_validation_epoch",
     "train",
+    "unsupervised_loss",
 ]
 
 _CACHE_KEYS = ("images", "keypoints", "visibility", "bbox")
 
 
 def calculate_steps_per_epoch(data_module) -> int:
-    """``ceil(n_train / batch_size)``."""
-    return math.ceil(len(data_module.train_dataset) / data_module.train_batch_size)
+    """``ceil(n_train / batch_size)``, at least 10 with an unlabeled stream
+    (reference train.py:63-82)."""
+    steps = math.ceil(len(data_module.train_dataset) / data_module.train_batch_size)
+    if hasattr(data_module, "unlabeled_loader"):
+        steps = max(10, steps)
+    return steps
 
 
 # ------------------------------------------------------------------------------
@@ -157,6 +173,35 @@ def _to_nchw(images: torch.Tensor) -> torch.Tensor:
     return normalize_images(images).permute(0, 3, 1, 2)
 
 
+def unsupervised_loss(
+    model: nn.Module,
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    bbox: torch.Tensor,
+    factory,
+    anneal_weight: float,
+    image_hw: tuple[int, int],
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, dict]:
+    """The unsupervised term of a train step on one augmented window (the
+    JAX step's unlabeled branch, reference trainer.py:470-577): normalized
+    ``images (T, 3, H, W)`` through the model in its current mode, the maps
+    decoded with gradient, the keypoints mapped back through the forward
+    ``transforms (T, 2, 3)`` of the augmentation and from model to frame
+    pixels by ``bbox (T, 4)``, then ``factory`` (the unsupervised losses) at
+    ``anneal_weight``. Returns the loss and the factory's logs."""
+    height, width = image_hw
+    with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
+        heatmaps = model(images)
+    preds, confidences = model.decode(heatmaps)
+    preds = undo_affine_transform_batch(preds, transforms)
+    preds = model_to_frame_batch(preds, bbox, width, height)
+    return factory(
+        stage="train", anneal_weight=anneal_weight,
+        keypoints_pred=preds, heatmaps_pred=heatmaps, confidences=confidences,
+    )
+
+
 def make_step_fns(
     meta: dict,
     loss_factories: dict,
@@ -170,17 +215,22 @@ def make_step_fns(
     """``(train_step, eval_step, train_step_cached)`` of the single-view
     heatmap model.
 
-    - ``train_step(state, batch, draws) -> logs``: augment with ``draws``
-      (``augmenter.sample``; None for an identity pipeline), one optimizer
-      step; ``state.step`` advances.
+    - ``train_step(state, batch, draws, video_draws=None) -> logs``: augment
+      with ``draws`` (``augmenter.sample``; None for an identity pipeline),
+      one optimizer step; ``state.step`` advances. With unsupervised losses
+      and an ``unlabeled`` window in the batch, the window is augmented with
+      ``video_draws`` (``ops/video_augment.sample_video_draws``), geometric
+      only with the ``dlc`` pipelines, and its loss is added.
     - ``eval_step(state, batch, stage) -> (logs, preds, confidences)``.
-    - ``train_step_cached(state, cache, idxs, valid, draws) -> logs``: the
-      batch is gathered from a device-resident labeled cache by index; rows
-      with ``valid`` False are padding (visibility 0, NaN keypoints).
+    - ``train_step_cached(state, cache, idxs, valid, draws, unlabeled=None,
+      video_draws=None) -> logs``: the batch is gathered from a
+      device-resident labeled cache by index; rows with ``valid`` False are
+      padding (visibility 0, NaN keypoints).
 
     Batches hold ``images (B, H, W, 3)``, ``keypoints (B, K, 2)``,
-    ``visibility (B, K)`` and ``bbox (B, 4)`` on the model's device. Logs are
-    0-d tensors, read when the caller needs them.
+    ``visibility (B, K)`` and ``bbox (B, 4)`` on the model's device; an
+    unlabeled window holds ``frames (T, H, W, 3)`` and ``bbox (T, 4)``. Logs
+    are 0-d tensors, read when the caller needs them.
     """
     height = int(cfg.data.image_resize_dims.height)
     width = int(cfg.data.image_resize_dims.width)
@@ -189,6 +239,8 @@ def make_step_fns(
     anneal_cfg = cfg.callbacks.anneal_weight
     rmse_loss = RegressionRMSELoss()
     supervised = loss_factories["supervised"]
+    unsup = loss_factories.get("unsupervised")
+    has_unsup = unsup is not None and len(unsup.loss_instance_dict) > 0
 
     def supervised_loss(model, images, keypoints, visibility, bbox, stage):
         with torch.autocast(
@@ -211,29 +263,39 @@ def make_step_fns(
         logs[f"{stage}_supervised_rmse"] = rmse
         return loss, logs, preds, confidences
 
-    def train_step(state: TrainState, batch: dict, draws: Draws | None) -> dict:
+    def train_step(state: TrainState, batch: dict, draws: Draws | None, video_draws: VideoDraws | None = None) -> dict:
+        aw = anneal_weight(
+            state.step // steps_per_epoch,
+            init_val=float(anneal_cfg.init_val),
+            increase_factor=float(anneal_cfg.increase_factor),
+            final_val=float(anneal_cfg.final_val),
+            freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
+        )
         images, keypoints, vis = augmenter.apply(
             batch["images"], batch["keypoints"], batch["visibility"], draws
         )
         visibility = _effective_visibility(keypoints, vis)
         state.model.train()
-        loss, logs, _, _ = supervised_loss(
+        total, logs, _, _ = supervised_loss(
             state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train"
         )
+        if has_unsup and "unlabeled" in batch:
+            if video_draws is None:
+                raise ValueError("an unlabeled window needs its draws (ops/video_augment.sample_video_draws)")
+            ul = batch["unlabeled"]
+            frames, transforms = augment_video_sequence(ul["frames"], video_draws, apply_geometric=augmenter.is_dlc)
+            loss_unsup, logs_unsup = unsupervised_loss(
+                state.model, _to_nchw(frames), transforms, ul["bbox"], unsup, aw, (height, width), compute_dtype
+            )
+            total = total + loss_unsup
+            logs.update({k: v.detach() for k, v in logs_unsup.items()})
+            logs["train_unsupervised_loss"] = loss_unsup.detach()
         set_learning_rates(state.optimizer, state.step, head_sched, bb_sched)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        total.backward()
         state.optimizer.step()
-        logs["total_loss"] = loss.detach()
-        logs["total_unsupervised_importance"] = torch.tensor(
-            anneal_weight(
-                state.step // steps_per_epoch,
-                init_val=float(anneal_cfg.init_val),
-                increase_factor=float(anneal_cfg.increase_factor),
-                final_val=float(anneal_cfg.final_val),
-                freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
-            )
-        )
+        logs["total_loss"] = total.detach()
+        logs["total_unsupervised_importance"] = torch.tensor(aw)
         state.step += 1
         return logs
 
@@ -247,12 +309,15 @@ def make_step_fns(
         )
         return logs, preds, confidences
 
-    def train_step_cached(state, cache: dict, idxs: torch.Tensor, valid: torch.Tensor, draws):
+    def train_step_cached(state, cache: dict, idxs: torch.Tensor, valid: torch.Tensor, draws,
+                          unlabeled: dict | None = None, video_draws: VideoDraws | None = None):
         batch = {k: v.index_select(0, idxs) for k, v in cache.items()}
         batch["visibility"] = torch.where(valid[:, None], batch["visibility"], 0)
         # NaN pad-row labels so the logged pixel RMSE ignores them
         batch["keypoints"] = torch.where(valid[:, None, None], batch["keypoints"], float("nan"))
-        return train_step(state, batch, draws)
+        if unlabeled is not None:
+            batch["unlabeled"] = unlabeled
+        return train_step(state, batch, draws, video_draws)
 
     return train_step, eval_step, train_step_cached
 
@@ -312,6 +377,12 @@ def _check_ported(cfg, skip_evaluation: bool) -> None:
         raise NotImplementedError(
             "loading torchvision backbone weights is not ported yet (ROADMAP queue 1, item 9)"
         )
+    unimodal = [n for n in (cfg.model.get("losses_to_use") or []) if str(n).startswith("unimodal")]
+    if unimodal:
+        raise NotImplementedError(
+            f"{unimodal} cannot train: the loss takes keypoints in augmented-image space, which the "
+            "JAX package's train step does not pass (ROADMAP queue 3; queue 1, item 10)"
+        )
 
 
 def _device_cache(dataset, device: torch.device) -> dict[str, torch.Tensor]:
@@ -327,6 +398,16 @@ def _device_cache(dataset, device: torch.device) -> dict[str, torch.Tensor]:
 
 def _on_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in _CACHE_KEYS}
+
+
+def _window_on_device(window: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """An unlabeled window's frames and bbox on ``device``; to a card through
+    pinned memory, without waiting for the copy."""
+    out = {}
+    for key in ("frames", "bbox"):
+        host = torch.from_numpy(np.ascontiguousarray(window[key]))
+        out[key] = host.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else host
+    return out
 
 
 def train(
@@ -365,154 +446,167 @@ def train(
     if cfg.data.get("num_keypoints", None) is None:
         cfg.data.num_keypoints = dataset.num_keypoints
     data_module = get_data_module(cfg, dataset, video_dir)
-    steps_per_epoch = calculate_steps_per_epoch(data_module)
-    loss_factories = get_loss_factories(cfg, data_module)
-
-    # -- model, optimizer, augmentation
-    model = get_model(cfg, num_keypoints=dataset.num_keypoints)
-    if cfg.model.get("checkpoint"):
-        if ckpt_utils.warm_start(model, str(cfg.model.checkpoint)):
-            logger.info(f"warm-started from {cfg.model.checkpoint}")
-        else:
-            logger.warning(
-                f"checkpoint {cfg.model.checkpoint} does not match the model head; "
-                "warm-started the backbone only"
-            )
-    model = model.to(device, memory_format=torch.channels_last)
-    optimizer, head_sched, bb_sched = make_optimizer(cfg, steps_per_epoch, model)
-    state = TrainState(model=model, optimizer=optimizer)
-    height = int(cfg.data.image_resize_dims.height)
-    width = int(cfg.data.image_resize_dims.width)
-    augmenter = AugmentationEngine(
-        pipeline=dataset.imgaug_pipeline,
-        image_height=height,
-        image_width=width,
-        hflip=bool(cfg.training.get("imgaug_hflip", False)),
-        hflip_swap_indices=dataset.hflip_swap_indices,
-    )
-    meta = {"model_type": "heatmap", "downsample_factor": int(cfg.data.get("downsample_factor", 2))}
-    _, eval_step, train_step_cached = make_step_fns(
-        meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch
-    )
-    cache = _device_cache(dataset, device)
-    logger.info(f"cached {len(dataset)} labeled samples on {device}")
-
-    # -- model directory
-    cfg.save(str(model_dir / "config.yaml"))
-    csv_files = cfg.data.csv_file
-    for csv_file in [csv_files] if isinstance(csv_files, str) else csv_files:
-        src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
-        if src.exists():
-            shutil.copy(src, model_dir / src.name)
-    version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
-    os.makedirs(version_dir, exist_ok=True)
-    ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
-    writer = None
     try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        logger.info("tensorboardX is not installed; no event files are written")
-    else:
-        writer = SummaryWriter(version_dir)
-        writer.add_text("config", "```\n" + cfg.to_yaml() + "\n```")
+        steps_per_epoch = calculate_steps_per_epoch(data_module)
+        loss_factories = get_loss_factories(cfg, data_module)
 
-    sched = _resolve_schedule_cfg(cfg, steps_per_epoch)
-    max_epochs, max_steps = sched["max_epochs"], int(sched["max_steps"])
-    min_epochs = int(cfg.training.get("min_epochs") or 0)
-    check_val_every = int(cfg.training.get("check_val_every_n_epoch", 5) or 5)
-    log_every = int(cfg.training.get("log_every_n_steps", 10) or 10)
-    ckpt_every = cfg.training.get("ckpt_every_n_epochs", None)
-    early_stopping = bool(cfg.training.get("early_stopping", False))
-    patience = int(cfg.training.get("early_stop_patience", 3) or 3)
-
-    write_status(status_file, "TRAINING")
-    progress = JSONTrainingProgressTracker(status_file, total_epochs=max_epochs)
-    # per-image draws on the host, fields on the device, both seeded
-    data_seed = int(cfg.training.get("rng_seed_data_pt", 0))
-    draw_gen = torch.Generator().manual_seed(data_seed)
-    field_gen = torch.Generator(device).manual_seed(data_seed)
-    logger.info(
-        f"training heatmap/{cfg.model.backbone} for {max_epochs} epochs x "
-        f"{steps_per_epoch} steps on {device}"
-    )
-
-    history: list[dict] = []
-    best_val = float("inf")
-    best_ckpt_path = last_ckpt_path = None
-    bad_val_checks = 0
-    for epoch in range(max_epochs):
-        steps_this_epoch = min(steps_per_epoch, max_steps - state.step)
-        if steps_this_epoch <= 0:
-            break
-        for idxs, valid in data_module.train_index_batches(epoch, steps=steps_this_epoch):
-            draws = None if augmenter.identity else augmenter.sample(draw_gen, len(idxs), field_gen)
-            logs = train_step_cached(
-                state,
-                cache,
-                torch.from_numpy(idxs).to(device, non_blocking=True),
-                torch.from_numpy(valid).to(device, non_blocking=True),
-                draws,
-            )
-            if state.step % log_every == 0:
-                record = {
-                    **{k: float(v) for k, v in logs.items()},
-                    "lr-head": head_sched(state.step),
-                    "lr-backbone": bb_sched(state.step),
-                }
-                history.append({"step": state.step, "epoch": epoch, **record})
-                if writer is not None:
-                    for k, v in record.items():
-                        writer.add_scalar(k, v, state.step)
-                    writer.add_scalar("epoch", epoch, state.step)
-
-        progress.update(epoch)
-        run_val = (epoch + 1) % check_val_every == 0 or epoch == max_epochs - 1
-        if not (run_val and len(data_module.val_dataset) > 0):
-            continue
-        val_logs = run_validation_epoch(
-            data_module.val_batches(),
-            lambda b: eval_step(state, _on_device(b, device), stage="val")[0],
+        # -- model, optimizer, augmentation
+        model = get_model(cfg, num_keypoints=dataset.num_keypoints)
+        if cfg.model.get("checkpoint"):
+            if ckpt_utils.warm_start(model, str(cfg.model.checkpoint)):
+                logger.info(f"warm-started from {cfg.model.checkpoint}")
+            else:
+                logger.warning(
+                    f"checkpoint {cfg.model.checkpoint} does not match the model head; "
+                    "warm-started the backbone only"
+                )
+        model = model.to(device, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = make_optimizer(cfg, steps_per_epoch, model)
+        state = TrainState(model=model, optimizer=optimizer)
+        height = int(cfg.data.image_resize_dims.height)
+        width = int(cfg.data.image_resize_dims.width)
+        augmenter = AugmentationEngine(
+            pipeline=dataset.imgaug_pipeline,
+            image_height=height,
+            image_width=width,
+            hflip=bool(cfg.training.get("imgaug_hflip", False)),
+            hflip_swap_indices=dataset.hflip_swap_indices,
         )
-        history.append({"step": state.step, "epoch": epoch, **val_logs})
-        if writer is not None:
-            for k, v in val_logs.items():
-                writer.add_scalar(k, v, state.step)
-        val_loss = val_logs.get("val_supervised_loss", float("inf"))
-        if val_loss < best_val:
-            best_val, bad_val_checks = val_loss, 0
-            if best_ckpt_path:
-                ckpt_utils.remove_checkpoint(best_ckpt_path)
-            best_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-best.ckpt")
-            ckpt_utils.save_module(best_ckpt_path, model, state.step, epoch)
+        meta = {"model_type": "heatmap", "downsample_factor": int(cfg.data.get("downsample_factor", 2))}
+        _, eval_step, train_step_cached = make_step_fns(
+            meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch
+        )
+        cache = _device_cache(dataset, device)
+        logger.info(f"cached {len(dataset)} labeled samples on {device}")
+
+        # -- model directory
+        cfg.save(str(model_dir / "config.yaml"))
+        csv_files = cfg.data.csv_file
+        for csv_file in [csv_files] if isinstance(csv_files, str) else csv_files:
+            src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
+            if src.exists():
+                shutil.copy(src, model_dir / src.name)
+        version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
+        os.makedirs(version_dir, exist_ok=True)
+        ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
+        writer = None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            logger.info("tensorboardX is not installed; no event files are written")
         else:
-            bad_val_checks += 1
-        if ckpt_every and (epoch + 1) % int(ckpt_every) == 0:
-            ckpt_utils.save_module(
-                os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
-            )
-        # the latest weights (no optimizer state: resume is not ported)
-        prev_last = last_ckpt_path
-        last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
-        ckpt_utils.save_module(
-            last_ckpt_path, model, state.step, epoch,
-            extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
-                   "best_ckpt_path": best_ckpt_path or ""},
-        )
-        if prev_last and prev_last != last_ckpt_path:
-            ckpt_utils.remove_checkpoint(prev_last)
-        if early_stopping and bad_val_checks >= patience and epoch + 1 >= min_epochs:
-            logger.info(f"early stopping at epoch {epoch}")
-            break
+            writer = SummaryWriter(version_dir)
+            writer.add_text("config", "```\n" + cfg.to_yaml() + "\n```")
 
-    if best_ckpt_path is None:  # always leave a checkpoint
-        best_ckpt_path = os.path.join(
-            ckpt_dir, f"epoch={max_epochs - 1}-step={state.step}-best.ckpt"
+        sched = _resolve_schedule_cfg(cfg, steps_per_epoch)
+        max_epochs, max_steps = sched["max_epochs"], int(sched["max_steps"])
+        min_epochs = int(cfg.training.get("min_epochs") or 0)
+        check_val_every = int(cfg.training.get("check_val_every_n_epoch", 5) or 5)
+        log_every = int(cfg.training.get("log_every_n_steps", 10) or 10)
+        ckpt_every = cfg.training.get("ckpt_every_n_epochs", None)
+        early_stopping = bool(cfg.training.get("early_stopping", False))
+        patience = int(cfg.training.get("early_stop_patience", 3) or 3)
+
+        write_status(status_file, "TRAINING")
+        progress = JSONTrainingProgressTracker(status_file, total_epochs=max_epochs)
+        # per-image and per-window draws on the host, fields on the device,
+        # both seeded
+        data_seed = int(cfg.training.get("rng_seed_data_pt", 0))
+        unlabeled_loader = getattr(data_module, "unlabeled_loader", None)
+        draw_gen = torch.Generator().manual_seed(data_seed)
+        field_gen = torch.Generator(device).manual_seed(data_seed)
+        logger.info(
+            f"training heatmap/{cfg.model.backbone} for {max_epochs} epochs x "
+            f"{steps_per_epoch} steps on {device}"
         )
-        ckpt_utils.save_module(best_ckpt_path, model, state.step, max_epochs - 1)
-    if writer is not None:
-        writer.close()
-    logger.info(f"training finished in {time.time() - t_start:.1f}s")
-    write_status(status_file, "COMPLETED")
-    return TrainedModel(
-        cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history
-    )
+
+        history: list[dict] = []
+        best_val = float("inf")
+        best_ckpt_path = last_ckpt_path = None
+        bad_val_checks = 0
+        for epoch in range(max_epochs):
+            steps_this_epoch = min(steps_per_epoch, max_steps - state.step)
+            if steps_this_epoch <= 0:
+                break
+            for idxs, valid in data_module.train_index_batches(epoch, steps=steps_this_epoch):
+                draws = None if augmenter.identity else augmenter.sample(draw_gen, len(idxs), field_gen)
+                unlabeled = video_draws = None
+                if unlabeled_loader is not None:
+                    unlabeled = _window_on_device(next(unlabeled_loader), device)
+                    video_draws = sample_video_draws(draw_gen, *unlabeled["frames"].shape[:3], field_gen)
+                logs = train_step_cached(
+                    state,
+                    cache,
+                    torch.from_numpy(idxs).to(device, non_blocking=True),
+                    torch.from_numpy(valid).to(device, non_blocking=True),
+                    draws,
+                    unlabeled,
+                    video_draws,
+                )
+                if state.step % log_every == 0:
+                    record = {
+                        **{k: float(v) for k, v in logs.items()},
+                        "lr-head": head_sched(state.step),
+                        "lr-backbone": bb_sched(state.step),
+                    }
+                    history.append({"step": state.step, "epoch": epoch, **record})
+                    if writer is not None:
+                        for k, v in record.items():
+                            writer.add_scalar(k, v, state.step)
+                        writer.add_scalar("epoch", epoch, state.step)
+
+            progress.update(epoch)
+            run_val = (epoch + 1) % check_val_every == 0 or epoch == max_epochs - 1
+            if not (run_val and len(data_module.val_dataset) > 0):
+                continue
+            val_logs = run_validation_epoch(
+                data_module.val_batches(),
+                lambda b: eval_step(state, _on_device(b, device), stage="val")[0],
+            )
+            history.append({"step": state.step, "epoch": epoch, **val_logs})
+            if writer is not None:
+                for k, v in val_logs.items():
+                    writer.add_scalar(k, v, state.step)
+            val_loss = val_logs.get("val_supervised_loss", float("inf"))
+            if val_loss < best_val:
+                best_val, bad_val_checks = val_loss, 0
+                if best_ckpt_path:
+                    ckpt_utils.remove_checkpoint(best_ckpt_path)
+                best_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-best.ckpt")
+                ckpt_utils.save_module(best_ckpt_path, model, state.step, epoch)
+            else:
+                bad_val_checks += 1
+            if ckpt_every and (epoch + 1) % int(ckpt_every) == 0:
+                ckpt_utils.save_module(
+                    os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
+                )
+            # the latest weights (no optimizer state: resume is not ported)
+            prev_last = last_ckpt_path
+            last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
+            ckpt_utils.save_module(
+                last_ckpt_path, model, state.step, epoch,
+                extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
+                       "best_ckpt_path": best_ckpt_path or ""},
+            )
+            if prev_last and prev_last != last_ckpt_path:
+                ckpt_utils.remove_checkpoint(prev_last)
+            if early_stopping and bad_val_checks >= patience and epoch + 1 >= min_epochs:
+                logger.info(f"early stopping at epoch {epoch}")
+                break
+
+        if best_ckpt_path is None:  # always leave a checkpoint
+            best_ckpt_path = os.path.join(
+                ckpt_dir, f"epoch={max_epochs - 1}-step={state.step}-best.ckpt"
+            )
+            ckpt_utils.save_module(best_ckpt_path, model, state.step, max_epochs - 1)
+        if writer is not None:
+            writer.close()
+        logger.info(f"training finished in {time.time() - t_start:.1f}s")
+        write_status(status_file, "COMPLETED")
+        return TrainedModel(
+            cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history
+        )
+    finally:
+        close = getattr(data_module, "close", None)
+        if close is not None:  # the unlabeled stream's decode threads
+            close()

@@ -24,6 +24,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "LabeledData",
+    "check_video_paths",
     "ckpt_path_from_base_path",
     "find_video_files_for_views",
     "get_videos_in_dir",
@@ -296,6 +297,31 @@ def get_videos_in_dir(
     return [
         [os.path.join(video_dir, f) for f in per_view[view]] for view in view_names
     ]
+
+
+def check_video_paths(
+    video_paths: list[str] | str, view_names: list[str] | None = None
+) -> list[str] | list[list[str]]:
+    """Validate/normalize video paths to a flat or per-view nested list
+    (reference utils/io.py:423)."""
+    if isinstance(video_paths, list):
+        filenames = video_paths
+    elif isinstance(video_paths, str) and os.path.isfile(video_paths):
+        filenames = [video_paths]
+    elif isinstance(video_paths, str) and os.path.isdir(video_paths):
+        filenames = get_videos_in_dir(video_paths, view_names=view_names)
+    else:
+        raise ValueError(
+            "`video_paths` must be a list of files, a single file, or a directory name"
+        )
+    flat = (
+        f
+        for entry in filenames
+        for f in ([entry] if isinstance(entry, (str, Path)) else entry)
+    )
+    for f in flat:
+        assert str(f).endswith(".mp4"), "video files must be mp4 format!"
+    return filenames
 
 
 def extract_view_name_from_video(

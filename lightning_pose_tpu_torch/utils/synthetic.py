@@ -1,10 +1,13 @@
-"""Seeded synthetic labeled data for smoke runs and tests.
+"""Seeded synthetic labeled data and unlabeled video for smoke runs and
+tests.
 
 ``write_labeled_dataset`` writes what a labeling project holds: PNG frames
 under ``labeled-data/``, a DLC-format ``CollectedData.csv`` (scorer,
 bodyparts, coords header rows), and an empty ``videos/`` directory. Each
 frame is a dark background with one Gaussian blob per keypoint at its
-label, so a model can learn the labels.
+label, so a model can learn the labels. ``write_unlabeled_video`` adds an
+mp4 to ``videos/`` in which such blobs drift smoothly from frame to frame,
+the unlabeled stream of semi-supervised training.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["write_labeled_dataset"]
+__all__ = ["write_labeled_dataset", "write_unlabeled_video"]
 
 
 def write_labeled_dataset(
@@ -61,3 +64,39 @@ def write_labeled_dataset(
         root / "CollectedData.csv"
     )
     return root
+
+
+def write_unlabeled_video(
+    root: str | Path,
+    name: str,
+    n_frames: int,
+    height: int,
+    width: int,
+    n_blobs: int = 4,
+    seed: int = 0,
+) -> Path:
+    """Write ``root/videos/<name>.mp4``: ``n_frames`` RGB frames of
+    ``(height, width)`` in which ``n_blobs`` Gaussian blobs drift along
+    smooth paths. Returns the file's path."""
+    import cv2
+
+    path = Path(root) / "videos" / f"{name}.mp4"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    colors = rng.uniform(80, 255, (n_blobs, 3))
+    start = rng.uniform(0.2, 0.8, (n_blobs, 2)) * (width, height)
+    amplitude = rng.uniform(0.05, 0.15, (n_blobs, 2)) * (width, height)
+    period = rng.uniform(40, 120, (n_blobs, 1))
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (width, height))
+    try:
+        for t in range(n_frames):
+            centers = start + amplitude * np.sin(2 * np.pi * t / period)
+            frame = rng.uniform(0, 30, (height, width, 3))
+            for (x, y), color in zip(centers, colors):
+                blob = np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / (2 * 6.0**2))
+                frame = np.maximum(frame, blob[..., None] * color)
+            writer.write(np.clip(frame, 0, 255).astype(np.uint8)[..., ::-1])
+    finally:
+        writer.release()
+    return path

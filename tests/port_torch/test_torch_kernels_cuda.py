@@ -31,6 +31,11 @@ MAX_WINDOW_FLIPS = 2
 # warp and CLAHE kernels against their plain versions, fp32 against fp32:
 # the same terms summed in another order, on 0-255 gray levels
 GRAY_TOL = 1e-3
+# the decode's backward kernel against autograd of the plain decode, both
+# fp32 (TF32 off): the largest gradient error within 1e-3 of the largest
+# gradient entry. The temperature of 1000 multiplies the rounding of the
+# upsampled maps by 1000 * log2(e) in the recomputed softmax.
+GRAD_REL_TOL = 1e-3
 
 
 @pytest.fixture()
@@ -122,6 +127,85 @@ def test_decode_kernel_matches_plain_on_flat_maps(cuda_device):
     kp, conf = decode_kernel.decode(hm, 2)
     kp_ref, conf_ref = decode_kernel.decode_plain(hm, 2)
     _assert_decode_close(kp, conf, kp_ref, conf_ref, 2)
+
+
+def _decode_grads(hm, df, seed=0):
+    """The heatmaps' gradient of ``sum(g * keypoints)`` for seeded ``g``,
+    through the kernels and through autograd of the plain decode; and the
+    kernels' keypoints."""
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal((hm.shape[0], 2 * hm.shape[1])).astype(np.float32))
+    g = g.to(hm.device)
+    x = hm.clone().requires_grad_()
+    kp, conf = decode_kernel.decode(x, df)
+    (kp * g).sum().backward()
+    x_ref = hm.clone().requires_grad_()
+    kp_ref, _ = decode_kernel.decode_plain(x_ref, df)
+    (kp_ref * g).sum().backward()
+    torch.cuda.synchronize()
+    return x.grad, x_ref.grad, kp, conf
+
+
+@pytest.mark.parametrize(
+    "b, k, h, w, df",
+    [
+        (32, 17, 64, 64, 2),  # the unlabeled window's maps at the product shape
+        (4, 17, 48, 64, 2),  # rectangular
+        (2, 5, 32, 32, 3),
+        (3, 3, 20, 12, 1),  # H not a multiple of the 16-row chunk; W of 8
+        (2, 3, 9, 7, 0),
+    ],
+)
+def test_decode_backward_kernel_matches_autograd_of_plain(cuda_device, b, k, h, w, df):
+    hm = _peaked_maps(b, k, h, w, seed=b + w).to(cuda_device)
+    before = (decode_kernel.launches, decode_kernel.grad_launches)
+    grad, grad_ref, _, _ = _decode_grads(hm, df, seed=h)
+    assert (decode_kernel.launches, decode_kernel.grad_launches) == (before[0] + 1, before[1] + 1)
+    scale = float(grad_ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(grad).all())
+    assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * scale
+
+
+def test_decode_backward_on_flat_maps(cuda_device):
+    """Softmaxed random logits: the mass, and so the gradient, spread out."""
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.standard_normal((4, 17, 64 * 64)).astype(np.float32) * 3.0)
+    hm = torch.softmax(z, dim=-1).reshape(4, 17, 64, 64).to(cuda_device)
+    grad, grad_ref, _, _ = _decode_grads(hm, 2, seed=4)
+    assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * float(grad_ref.abs().max())
+
+
+def test_decode_lse2_leaves_the_forward_bitwise(cuda_device):
+    """The forward with its log-sum-exp output on writes bitwise the
+    keypoints and confidences it writes with it off; the log-sum-exp is the
+    plain one's within fp32 rounding of logits of about 1000 * log2(e)."""
+    hm = _peaked_maps(96, 17, 64, 64, seed=6).to(cuda_device)
+    ops = decode_kernel._device_operands(64, 64, 2, decode_kernel._layout(), cuda_device)
+    lse2 = torch.full((96 * 17,), float("nan"), device=cuda_device)
+    kp, conf = decode_kernel._launch(hm, ops, 2, 1000.0)
+    kp_l, conf_l = decode_kernel._launch(hm, ops, 2, 1000.0, lse2)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, kp_l) and torch.equal(conf, conf_l)
+    m_h = torch.from_numpy(np.array(decode_kernel.upsample_matrix(64, 2))).to(cuda_device)
+    up = (m_h @ hm @ m_h.T).reshape(96 * 17, -1).double()
+    ref = torch.logsumexp(up * 1000.0, dim=-1) / np.log(2.0)
+    torch.testing.assert_close(lse2.double(), ref, rtol=0, atol=1e-3)
+
+
+def test_decode_with_grad_on_cuda_returns_keypoints_with_a_gradient(cuda_device):
+    """A CUDA decode of maps that require grad goes through the autograd
+    function: its keypoints carry a grad_fn, its confidences none; without
+    grad mode it is the forward-only launch."""
+    hm = _peaked_maps(2, 3, 16, 16).to(cuda_device).requires_grad_()
+    kp, conf = decode_kernel.decode(hm, 2)
+    assert kp.grad_fn is not None and kp.requires_grad
+    assert not conf.requires_grad
+    with torch.no_grad():
+        kp_ng, _ = decode_kernel.decode(hm, 2)
+    assert kp_ng.grad_fn is None
+    torch.testing.assert_close(kp.detach(), kp_ng, rtol=0, atol=0)
+    before = decode_kernel.grad_launches
+    kp.sum().backward()
+    assert decode_kernel.grad_launches == before + 1 and hm.grad is not None
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
@@ -409,3 +493,56 @@ def test_one_train_step_on_card_launches_the_kernels(cuda_device):
     assert (warp_kernel.launches, clahe_kernel.launches) == (before[0] + 1, before[1] + 1)
     assert bool(torch.isfinite(logs["total_loss"])) and state.step == 1
     assert not torch.equal(weight, model.head.deconv0.weight)
+
+
+def test_one_semisupervised_step_on_card_launches_the_kernels(cuda_device, tmp_path):
+    """A resnet18 semi-supervised step on the card (bf16 autocast), 4
+    labeled frames and an 8-frame window: the warp twice, the decode forward
+    twice (labeled RMSE, unlabeled), its backward once; finite losses."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import LossFactory
+    from lightning_pose_tpu_torch.losses.losses import TemporalLoss
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.training.max_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    torch.manual_seed(0)
+    model = build_model("heatmap", "resnet18", 5).to(cuda_device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer)
+    engine = AugmentationEngine("dlc", 128, 128)
+    factories = {
+        "supervised": LossFactory({"heatmap_mse": {"log_weight": 0.0}}),
+        "unsupervised": LossFactory({"temporal": {"log_weight": 0.0}}),
+    }
+    assert isinstance(factories["unsupervised"].loss_instance_dict["temporal"], TemporalLoss)
+    step = trainer.make_step_fns({"model_type": "heatmap", "downsample_factor": 2}, factories,
+                                 engine, cfg, head_sched, bb_sched, 10)[2]
+    rng = np.random.default_rng(5)
+    cache = {
+        "images": torch.from_numpy(rng.integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)),
+        "keypoints": torch.from_numpy(rng.uniform(0, 128, (8, 5, 2)).astype(np.float32)),
+        "visibility": torch.full((8, 5), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, 128.0, 128.0]] * 8),
+    }
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    window = {
+        "frames": torch.from_numpy(rng.integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)).to(cuda_device),
+        "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0]] * 8, device=cuda_device),
+    }
+    gen, field_gen = torch.Generator().manual_seed(1), torch.Generator(cuda_device).manual_seed(1)
+    draws = engine.sample(gen, 4, field_gen)
+    video_draws = sample_video_draws(gen, 8, 128, 128, field_gen)
+    before = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    logs = step(state, cache, torch.arange(4, device=cuda_device), torch.ones(4, dtype=torch.bool, device=cuda_device),
+                draws, window, video_draws)
+    torch.cuda.synchronize()
+    after = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
+    assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
+    assert state.step == 1

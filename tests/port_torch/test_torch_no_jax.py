@@ -1,7 +1,8 @@
 """The port imports no JAX and nothing of the JAX package: its whole
-package, its predict path and its training path run in a subprocess where
-importing jax, jaxlib, flax or ``lightning_pose_tpu`` raises, and no module
-of the port names one of them in an import."""
+package, its predict path and its supervised and semi-supervised training
+paths run in a subprocess where importing jax, jaxlib, flax or
+``lightning_pose_tpu`` raises, and no module of the port names one of them
+in an import."""
 
 from __future__ import annotations
 
@@ -59,14 +60,29 @@ def test_chip_smoke_imports_only_the_port():
 
 def test_no_port_module_names_jax_or_the_jax_package():
     """No ``.py`` file of the port imports jax, jaxlib, flax or
-    ``lightning_pose_tpu``, at the top or inside a function."""
+    ``lightning_pose_tpu``, at the top or inside a function; the scan covers
+    the semi-supervised modules and the backward kernel's wrapper."""
     files = sorted((REPO / "lightning_pose_tpu_torch").rglob("*.py"))
     assert len(files) >= 30
+    names = {str(f.relative_to(REPO / "lightning_pose_tpu_torch")) for f in files}
+    assert {"data/unlabeled.py", "utils/pca.py", "ops/video_augment.py", "ops/decode_kernel.py"} <= names
+    assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
         for f in files
     }
     assert not {f: names for f, names in found.items() if names}
+
+
+def _imported_sources(path: Path) -> set[str]:
+    """The CUDA sources a wrapper loads: string arguments of
+    ``load_library`` calls."""
+    return {
+        node.args[0].value
+        for node in ast.walk(ast.parse(path.read_text()))
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "load_library"
+        and node.args and isinstance(node.args[0], ast.Constant)
+    }
 
 
 def test_every_port_module_imports_without_jax():
@@ -140,3 +156,48 @@ print(json.dumps({{
 """)
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"finite": True, "jax": []}
+
+
+def test_semisupervised_training_path_runs_without_jax(tmp_path):
+    """train() with pca_singleview + temporal on a synthetic labeled set and
+    two synthetic mp4s, then prediction from the directory it wrote."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+names = ["a", "b", "c"]
+data = write_labeled_dataset({str(tmp_path / "data")!r}, 12, 130, 140, names, seed=1)
+for i in range(2):
+    write_unlabeled_video(data, f"session{{i}}", 8, 96, 128, n_blobs=3, seed=i)
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.backbone = "resnet18"
+cfg.model.model_name = "nojaxsemi"
+cfg.model.losses_to_use = ["pca_singleview", "temporal"]
+cfg.dali.base.train.sequence_length = 4
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+cfg.training.max_steps = cfg.training.min_steps = 2
+cfg.training.unfreezing_step = 1
+cfg.training.log_every_n_steps = 1
+cfg.training.lr_scheduler_params.multisteplr.milestones = None
+cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+result = train(cfg, {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
+frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cpu").predict_frame(
+    np.zeros((130, 140, 3), dtype=np.uint8))
+print(json.dumps({{
+    "finite": bool(np.isfinite(frame["keypoints"]).all()),
+    "unsupervised_logged": sum("train_unsupervised_loss" in h for h in result.history),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"finite": True, "unsupervised_logged": 2, "jax": []}

@@ -161,7 +161,7 @@ def test_rmse_and_loss_factory_match_jax():
         assert set(logs) == set(ref_logs)
         np.testing.assert_allclose(float(out), float(ref), rtol=LOSS_TOL)
         np.testing.assert_allclose(float(logs[f"heatmap_{loss_type}_weight"]), 0.5)
-    cfg.model.losses_to_use = ["pca_singleview"]
+    cfg.model.losses_to_use = ["pca_multiview"]  # the unsupervised losses not ported yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_loss_factories(cfg)
 
@@ -497,7 +497,7 @@ def test_train_in_epoch_mode_with_warm_start(data_dir, trained_dir, tmp_path):
     "change, match",
     [
         ({"skip_evaluation": False}, "item 10"),
-        ({"losses_to_use": ["pca_singleview"]}, "item 10"),
+        ({"losses_to_use": ["unimodal_mse"]}, "item 10"),
         ({"num_gpus": 2}, "item 14"),
         ({"resume": True}, "item 9"),
         ({"checkpoint_backend": "orbax"}, "item 9"),
