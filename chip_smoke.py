@@ -20,8 +20,10 @@ Phases, each fatal on failure:
      batches of 96 frames; normalize and decode launch once per batch.
   5. the same model at fp32 on the card and on the CPU (plain versions).
   6. file path: Model.from_dir(dir).predict_on_video_file(video) on a
-     written config, checkpoint and synthetic mp4; whether the native frame
-     ops loaded.
+     written config, checkpoint and synthetic mp4 (timed without metrics),
+     then with its defaults (the temporal-norm CSV) and
+     generate_labeled_video=True (the labeled mp4); whether the native
+     frame ops loaded.
   7. times of each kernel, its plain version and, for the warp, the one
      PyTorch call that computes the same function (F.grid_sample), with the
      least time the card could take (bound) and the share of it reached;
@@ -33,10 +35,15 @@ Phases, each fatal on failure:
      each reports its median round.
   8. training path: train(cfg, dir) of the default model (ResNet-50, 256 px,
      batch 16, dlc augmentation, Adam with the multistep and unfreeze
-     schedules) for 20 steps on a synthetic labeled set; the warp kernel
-     launches once per step, CLAHE at least once, and the decode once per
-     train step and once per validation batch; then
+     schedules) for 20 steps on a synthetic labeled set, with its
+     evaluation (image_preds/<csv>/predictions.csv, the pixel-error CSV, the
+     legacy copies); the warp kernel launches once per step, CLAHE at least
+     once, the decode once per train step, validation batch and evaluation
+     batch, the normalize once per evaluation batch; then
      Model.from_dir(dir).predict_on_video_file(video) from what it wrote.
+ 8b. labeled-CSV path: Model.from_dir(dir).predict_on_label_csv(csv) of the
+     trained directory at bf16 (normalize and decode once per batch), then
+     at fp32 on the card against the port on the CPU.
   9. times of the train step (and of its augmentation) at batch 16, and the
      training path's peak device memory.
  10. semi-supervised step, card against CPU: resnet18, 128 px, 4 labeled
@@ -44,12 +51,15 @@ Phases, each fatal on failure:
      unsupervised losses at weight 1/2 and epsilons 0: parameter gradients.
  11. semi-supervised training path: train(cfg, dir) of the default model
      with losses_to_use [pca_singleview, temporal] (batch 16 with dlc, one
-     32-frame window a step from two synthetic mp4s) for 20 steps; the warp
+     32-frame window a step from two synthetic mp4s) for 20 steps, with its
+     evaluation: the labeled frames (pixel-error and PCA CSVs) and the two
+     mp4s as test videos (temporal-norm CSVs, labeled mp4s); the warp
      launches twice a step, the decode's backward once, its forward twice a
-     step and once per validation batch; then prediction from the
-     directory. Times: the step at full width, the device's busy share and
+     step and once per validation and evaluation batch; then prediction
+     from the directory. Times: the step at full width, the device's busy share and
      the backward kernel's share of it (torch.profiler), peak memory, the
-     backward kernel beside its plain version and bound, and the warp at
+     backward kernel beside its plain version, its bound and the time
+     PERF.md records for its first design (BACKWARD_FIRST_DESIGN_MS), and the warp at
      the window's shape (32, 256, 256, 3) with the L2 flushed.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
@@ -110,6 +120,10 @@ WINDOW = 32  # dali.base.train.sequence_length: unlabeled frames a step
 # fp32 with TF32 off: the largest error within 1e-3 of the largest entry
 # (the temperature of 1000 multiplies the upsampled maps' rounding)
 DECODE_GRAD_REL_TOL = 1e-3
+# the backward's first design (one block of 256 threads a map) at the
+# window's shape, as PERF.md records it (H100 80GB HBM3, 700 W); this run
+# does not time that design, it only prints the recorded time beside its own
+BACKWARD_FIRST_DESIGN_MS = 0.7364
 # one semi-supervised step, card against CPU, fp32, TF32 off: the gradient
 # through the temperature-1000 decode is ill-conditioned in fp32 (on the
 # CPU the port's fp32 gradients are up to 0.7% of a leaf's largest entry
@@ -581,12 +595,19 @@ def semisup_phase(rng, card: str) -> dict:
         videos = [write_unlabeled_video(data, f"session{i}", 120, 240, 320, n_blobs=KEYPOINTS, seed=SEED + i)
                   for i in range(2)]
         cfg = semisup_config(data, names)
+        # the evaluation predicts the two mp4s as test videos, with labeled
+        # videos; naming every keypoint's column keeps the PCA subspace (None
+        # means all of them) and has the evaluation write the PCA metric CSVs
+        cfg.data.columns_for_singleview_pca = list(range(KEYPOINTS))
+        cfg.eval.predict_vids_after_training = True
+        cfg.eval.save_vids_after_training = True
+        cfg.eval.test_videos_directory = str(data / "videos")
         model_dir = Path(tmp) / "model"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         warp_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
         t0 = time.perf_counter()
-        result = trainer.train(cfg, model_dir, skip_evaluation=True, device="cuda")
+        result = trainer.train(cfg, model_dir, device="cuda")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {"warp": warp_kernel.launches, "decode": decode_kernel.launches,
@@ -596,19 +617,22 @@ def semisup_phase(rng, card: str) -> dict:
         val_logs = [h for h in result.history if "val_supervised_loss" in h]
         dm = result.data_module
         val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size) + len(videos) * math.ceil(120 / BATCH)
         pca = [h["train_pca_singleview_loss"] for h in train_logs]
         temporal = [h["train_temporal_loss"] for h in train_logs]
         log(f"phase 11 semi-supervised train(): {TRAIN_STEPS} steps of {TRAIN_BATCH} labeled + {WINDOW} unlabeled "
-            f"frames (ResNet-50, {IMAGE} px, dlc, bf16, pca_singleview + temporal) in {elapsed:.1f} s with set-up "
-            f"and the PCA fit, {len(val_logs)} validations of {val_batches // max(len(val_logs), 1)} batch(es); "
+            f"frames (ResNet-50, {IMAGE} px, dlc, bf16, pca_singleview + temporal) in {elapsed:.1f} s with set-up, "
+            f"the PCA fit and evaluation, {len(val_logs)} validations of {val_batches // max(len(val_logs), 1)} "
+            f"batch(es), {eval_batches} evaluation batches (labeled frames and 2 test videos); "
             f"launches {launches}; unsupervised loss {train_logs[0]['train_unsupervised_loss']:.3e} -> "
             f"{train_logs[-1]['train_unsupervised_loss']:.3e}, pca_singleview max {max(pca):.4f}, temporal max "
             f"{max(temporal):.4f}; peak device memory {peak:.2f} GiB {card}")
         check(launches["warp"] == 2 * TRAIN_STEPS, f"warp launched {launches['warp']} times in {TRAIN_STEPS} steps")
         check(launches["decode_grad"] == TRAIN_STEPS,
               f"the decode's backward launched {launches['decode_grad']} times in {TRAIN_STEPS} steps")
-        check(launches["decode"] == 2 * TRAIN_STEPS + val_batches,
-              f"decode launched {launches['decode']} times in {TRAIN_STEPS} steps and {val_batches} validation batches")
+        check(launches["decode"] == 2 * TRAIN_STEPS + val_batches + eval_batches,
+              f"decode launched {launches['decode']} times in {TRAIN_STEPS} steps, {val_batches} validation batches "
+              f"and {eval_batches} evaluation batches")
         check(len(train_logs) == TRAIN_STEPS and val_logs, "semi-supervised train() logged too little")
         check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
               "a logged loss is not finite")
@@ -616,6 +640,14 @@ def semisup_phase(rng, card: str) -> dict:
         check(not any(t.is_alive() for t in dm.unlabeled_loader._threads), "the unlabeled loader's threads live on")
         check(json.loads((model_dir / "train_status.json").read_text())["status"] == "COMPLETED",
               "train_status.json is not COMPLETED")
+        files = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error", "pca_singleview_error"])
+        video_files = sorted(str(f.relative_to(model_dir / "video_preds")) for f in (model_dir / "video_preds").rglob("*.*"))
+        expected = sorted(f"{v.stem}{end}" for v in videos for end in (".csv", "_temporal_norm.csv",
+                                                                      "_pca_singleview_error.csv"))
+        expected += sorted(f"labeled_videos/{v.stem}_labeled.mp4" for v in videos)
+        check(sorted(video_files) == sorted(expected), f"video_preds/ holds {video_files}, expected {expected}")
+        log(f"phase 11 train()'s evaluation: image_preds/CollectedData.csv/ {files} and their legacy copies; "
+            f"video_preds/ {video_files}")
         df = Model.from_dir(model_dir).predict_on_video_file(videos[0]).predictions
         check(df.shape == (120, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
               f"the semi-supervised dir's CSV: shape {df.shape} or non-finite values")
@@ -685,9 +717,13 @@ def semisup_phase(rng, card: str) -> dict:
         n_bytes = (2 * hm.numel() + maps * 5) * 4
         by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
         bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        plan = decode_kernel._device_grad_operands(hm_h, hm_h, DOWNSAMPLE, ops.wp, ops.tile_band, dev)
         log(f"phase 11 decode backward at {tuple(hm.shape)} df {DOWNSAMPLE} ({flops / 1e9:.3f} GFLOP banded): kernel "
             f"{grad_ms:.4f} ms back to back, plain (autograd's backward of the plain decode) {plain_ms:.4f} ms; bound "
-            f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / grad_ms:.1%} of it reached {card}")
+            f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / grad_ms:.1%} of it reached; the first design (one block a map), "
+            f"not timed in this run, is recorded in PERF.md at {BACKWARD_FIRST_DESIGN_MS} ms; "
+            f"{decode_kernel.GRAD_CLUSTER} blocks a map, {plan.smem} bytes of shared memory a block, chunks of "
+            f"{plan.chunk_rows} of {plan.strip_rows} rows {card}")
         frames = torch.from_numpy(rng.uniform(0, 255, (WINDOW, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
         theta = 0.1
         ys, xs = torch.meshgrid(torch.arange(IMAGE, dtype=torch.float32, device=dev),
@@ -705,10 +741,72 @@ def semisup_phase(rng, card: str) -> dict:
     return {"launches": launches["decode_grad"], "ms": grad_ms, "plain_ms": plain_ms, "bound": bound}
 
 
+def check_image_preds(model_dir: Path, csv_name: str, metrics: list[str]) -> list[str]:
+    """train()'s evaluation of the labeled frames: predictions.csv with its
+    set column and the metric CSVs in image_preds/<csv>/, with their legacy
+    copies in the model directory. Returns the directory's file names."""
+    import pandas as pd
+
+    preds_dir = model_dir / "image_preds" / csv_name
+    files = sorted(f.name for f in preds_dir.glob("*.csv"))
+    expected = ["predictions.csv"] + [f"predictions_{m}.csv" for m in metrics]
+    check(sorted(expected) == files, f"{preds_dir}: {files}, expected {expected}")
+    df = pd.read_csv(preds_dir / "predictions.csv", header=[0, 1, 2], index_col=0)
+    check(df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and df.columns[-1][0] == "set"
+          and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(), f"{preds_dir}/predictions.csv: shape {df.shape}")
+    check(all((model_dir / f).is_file() for f in files), f"the legacy copies of {files} are missing")
+    return files
+
+
+def label_csv_phase(model_dir: Path, card: str) -> None:
+    """Phase 8b: predict_on_label_csv of the trained directory on the card
+    (bf16, the default), then at fp32 on the card and on the CPU."""
+    import pandas as pd
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    model = Model.from_dir(model_dir)
+    model._load()  # the model's load and weights stay out of the counts and the time
+    torch.cuda.synchronize()
+    normalize_kernel.launches = decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = model.predict_on_label_csv("CollectedData.csv", output_dir=model_dir / "label_csv_bf16")
+    elapsed = time.perf_counter() - t0
+    launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    batches = -(-TRAIN_FRAMES // int(model.cfg.training.test_batch_size))
+    check(all(n == batches for n in launches.values()), f"label CSV path launches {launches}, {batches} batches")
+    df = result.predictions
+    check(df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(),
+          f"predict_on_label_csv: shape {df.shape} or non-finite values")
+    check(result.metrics is not None and result.metrics.pixel_error_df is not None
+          and (model_dir / "label_csv_bf16" / "predictions_pixel_error.csv").is_file(),
+          "predict_on_label_csv wrote no pixel-error metrics")
+    pixel = result.metrics.pixel_error_df.iloc[:, :-1].to_numpy(float)
+    log(f"phase 8b predict_on_label_csv of the trained dir (bf16): {df.shape[0]} frames in {batches} batches, "
+        f"launches {launches}, {elapsed:.2f} s with metrics; pixel error median {np.nanmedian(pixel):.2f} px "
+        f"(20 steps from random weights) {card}")
+
+    frames = {}
+    for device in ("cuda", "cpu"):
+        Model.from_dir(model_dir, precision="fp32", device=device).predict_on_label_csv(
+            "CollectedData.csv", output_dir=model_dir / f"label_csv_{device}", compute_metrics=False)
+        frames[device] = pd.read_csv(model_dir / f"label_csv_{device}" / "predictions.csv", header=[0, 1, 2],
+                                     index_col=0)
+    xy = frames["cpu"].columns.get_level_values("coords").isin(["x", "y"])
+    diff = float(np.abs(frames["cuda"].loc[:, xy].to_numpy(float) - frames["cpu"].loc[:, xy].to_numpy(float)).max())
+    check(frames["cuda"].index.equals(frames["cpu"].index), "label CSV predictions: the index differs")
+    check(diff <= CARD_VS_CPU_TOL_PX, f"predict_on_label_csv card vs CPU: {diff} px")
+    log(f"phase 8b predict_on_label_csv fp32 card (TF32 off) vs CPU, {TRAIN_FRAMES} frames: keypoints max abs diff "
+        f"{diff:.3e} px (limit {CARD_VS_CPU_TOL_PX})")
+
+
 def train_phase(rng, card: str) -> dict[str, int]:
-    """Phases 8 and 9: train() of the default model on a synthetic labeled
-    set, prediction from the directory it wrote, then the train step's
-    times. Returns the warp and CLAHE launches of the train() run."""
+    """Phases 8, 8b and 9: train() of the default model on a synthetic
+    labeled set with its evaluation, prediction from the directory it wrote
+    (a video, the labeled CSV), then the train step's times. Returns the
+    warp and CLAHE launches of the train() run."""
     import math
 
     import torch
@@ -729,28 +827,33 @@ def train_phase(rng, card: str) -> dict[str, int]:
         model_dir = Path(tmp) / "model"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = 0
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
         t0 = time.perf_counter()
-        result = trainer.train(cfg, model_dir, skip_evaluation=True, device="cuda")
+        result = trainer.train(cfg, model_dir, device="cuda")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches}
-        train_decodes = decode_kernel.launches
+        train_decodes, eval_normalizes = decode_kernel.launches, normalize_kernel.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
         val_logs = [h for h in result.history if "val_supervised_loss" in h]
         dm = result.data_module
         val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
         log(f"phase 8 train(): {TRAIN_STEPS} steps of {TRAIN_BATCH} (ResNet-50, {IMAGE} px, dlc, bf16) in "
-            f"{elapsed:.1f} s with set-up, {len(val_logs)} validations of {val_batches // max(len(val_logs), 1)} "
-            f"batch(es); launches {launches}, decode {train_decodes}; "
+            f"{elapsed:.1f} s with set-up and evaluation, {len(val_logs)} validations of "
+            f"{val_batches // max(len(val_logs), 1)} batch(es), {eval_batches} evaluation batches; launches "
+            f"{launches}, decode {train_decodes}, normalize {eval_normalizes}; "
             f"train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> {train_logs[-1]['train_heatmap_mse_loss']:.4f}, "
             f"lr head {train_logs[-1]['lr-head']:.2e}, backbone {train_logs[-1]['lr-backbone']:.2e}; "
             f"peak device memory {peak:.2f} GiB {card}")
         check(launches["warp"] == TRAIN_STEPS, f"warp launched {launches['warp']} times in {TRAIN_STEPS} steps")
         check(launches["clahe"] >= 1, "CLAHE never launched in training")
-        check(train_decodes == TRAIN_STEPS + val_batches,
-              f"decode launched {train_decodes} times in {TRAIN_STEPS} steps and {val_batches} validation batches")
+        check(train_decodes == TRAIN_STEPS + val_batches + eval_batches,
+              f"decode launched {train_decodes} times in {TRAIN_STEPS} steps, {val_batches} validation batches "
+              f"and {eval_batches} evaluation batches")
+        check(eval_normalizes == eval_batches, f"normalize launched {eval_normalizes} times in {eval_batches} "
+              "evaluation batches")
         check(len(train_logs) == TRAIN_STEPS and val_logs, "train() logged too little")
         check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
               "a logged loss is not finite")
@@ -758,6 +861,8 @@ def train_phase(rng, card: str) -> dict[str, int]:
         check(len(best) == 1, f"best checkpoints: {best}")
         check(json.loads((model_dir / "train_status.json").read_text())["status"] == "COMPLETED",
               "train_status.json is not COMPLETED")
+        files = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error"])
+        log(f"phase 8 train()'s evaluation: image_preds/CollectedData.csv/ {files} and their legacy copies")
 
         video = write_video(Path(tmp) / "synthetic.mp4", rng, 150, 240, 320)
         normalize_kernel.launches = decode_kernel.launches = 0
@@ -769,6 +874,7 @@ def train_phase(rng, card: str) -> dict[str, int]:
               f"the trained dir's CSV: shape {df.shape} or non-finite values")
         check(all(n > 0 for n in predict_launches.values()), f"predict launches {predict_launches}")
         log(f"phase 8 predict from the trained dir: {df.shape[0]} rows, finite, launches {predict_launches}")
+        label_csv_phase(model_dir, card)
 
         # -- 9. the train step's times -------------------------------------------
         spe = trainer.calculate_steps_per_epoch(result.data_module)
@@ -894,12 +1000,14 @@ def main() -> int:
     errors["decode"] = decode_err
 
     # the decode's backward kernel against autograd of the plain decode: the
-    # unlabeled window's maps at the product shape, a rectangular shape, df 3
+    # unlabeled window's maps at the product shape, a rectangular shape, df
+    # 3, and a map count that neither the cluster nor the strips divide
     grad_err = 0.0
     for name, maps, df in (
         ("window", peaked_heatmaps(rng, WINDOW, KEYPOINTS, hm_h, hm_h), DOWNSAMPLE),
         ("rectangular", peaked_heatmaps(rng, 8, KEYPOINTS, 48, 64), DOWNSAMPLE),
         ("df 3", peaked_heatmaps(rng, 4, KEYPOINTS, 32, 32), 3),
+        ("21 maps", peaked_heatmaps(rng, 3, 7, hm_h, hm_h), DOWNSAMPLE),
     ):
         hm = torch.from_numpy(maps).to(dev)
         grad, grad_ref = decode_grads(hm, df, seed=len(name))
@@ -1042,7 +1150,7 @@ def main() -> int:
                 writer.write(rng.integers(0, 256, (vid_h, vid_w, 3), dtype=np.uint8))
             writer.release()
             t0 = time.perf_counter()
-            result = Model.from_dir(model_dir).predict_on_video_file(video_file)
+            result = Model.from_dir(model_dir).predict_on_video_file(video_file, compute_metrics=False)
             elapsed = time.perf_counter() - t0
             df = result.predictions
             csv = model_dir / "video_preds" / "synthetic.csv"
@@ -1054,7 +1162,30 @@ def main() -> int:
             log(f"phase 6 file path: {csv.name} {df.shape[0]} rows x {df.shape[1]} columns, "
                 f"x in [{xs.min():.1f}, {xs.max():.1f}], y in [{ys.min():.1f}, {ys.max():.1f}] "
                 f"for a {vid_w}x{vid_h} video; {n_frames / elapsed:.1f} frames/s including "
-                f"model load and decode of a {n_frames}-frame mp4 {card}")
+                f"model load and decode of a {n_frames}-frame mp4, without metrics {card}")
+            # the defaults (metrics on) and a labeled video
+            normalize_kernel.launches = decode_kernel.launches = 0
+            t0 = time.perf_counter()
+            result = Model.from_dir(model_dir).predict_on_video_file(video_file, generate_labeled_video=True)
+            elapsed = time.perf_counter() - t0
+            video_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+            check(all(n == -(-n_frames // BATCH) for n in video_launches.values()),
+                  f"video path launches {video_launches}")
+            norm_csv = model_dir / "video_preds" / "synthetic_temporal_norm.csv"
+            mp4 = model_dir / "video_preds" / "labeled_videos" / "synthetic_labeled.mp4"
+            check(result.metrics is not None and result.metrics.temporal_norm_df is not None and norm_csv.is_file(),
+                  "predict_on_video_file with its defaults wrote no temporal-norm metrics")
+            norm = result.metrics.temporal_norm_df.to_numpy()
+            check(norm.shape == (n_frames, KEYPOINTS) and np.isnan(norm[0]).all() and np.isfinite(norm[1:]).all(),
+                  f"temporal norm: shape {norm.shape} or values")
+            cap = cv2.VideoCapture(str(mp4))
+            labeled_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            cap.release()
+            check(mp4.is_file() and labeled_frames == n_frames, f"labeled video {mp4}: {labeled_frames} frames")
+            log(f"phase 6 file path with its defaults and generate_labeled_video=True: {norm_csv.name} "
+                f"(temporal norm up to {np.nanmax(norm):.2f} px), {mp4.name} of {labeled_frames} frames; launches "
+                f"{video_launches}; {n_frames / elapsed:.1f} frames/s including model load, metrics and the "
+                f"labeled video {card}")
 
     # -- 7. times ----------------------------------------------------------------
     import torch.nn.functional as F

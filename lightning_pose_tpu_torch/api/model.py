@@ -5,7 +5,10 @@
 the tracker in PyTorch on an explicit device, loads the reference's
 checkpoint through the parameter bridge, and serves predictions:
 
-- ``predict_on_video_file`` -> ``video_preds/<stem>.csv``
+- ``predict_on_label_csv`` -> ``image_preds/<csv name>/predictions.csv``
+  and its metric CSVs
+- ``predict_on_video_file`` -> ``video_preds/<stem>.csv``, its metric CSVs
+  and, on request, a labeled mp4
 - ``predict_frame`` -> keypoints of one in-memory frame
 
 Ported so far: the single-view ``heatmap`` model with soft-argmax decode and
@@ -111,7 +114,7 @@ class Model:
         ``precision``: fp32 or bf16 (default bf16; fp16 maps to bf16)."""
         if data_parallel:
             raise NotImplementedError(
-                "data-parallel prediction is not ported yet (ROADMAP queue 1, item 14)"
+                "data-parallel prediction is not ported yet (ROADMAP queue 1, item 8: multi-GPU)"
             )
         from lightning_pose_tpu_torch.api.model_config import ModelConfig
         from lightning_pose_tpu_torch.config import Config
@@ -127,6 +130,9 @@ class Model:
         from lightning_pose_tpu_torch.utils.io import ckpt_path_from_base_path
 
         return ckpt_path_from_base_path(str(self.model_dir), self.cfg.model.model_name)
+
+    def image_preds_dir(self) -> Path:
+        return self.model_dir / "image_preds"
 
     # -- lazy loading -----------------------------------------------------------
 
@@ -144,7 +150,7 @@ class Model:
         decode_method = str(cfg.eval.get("decode_method", "softargmax")).lower()
         if decode_method == "dark":
             raise NotImplementedError(
-                "DARK decoding is not ported yet (ROADMAP queue 1, item 13)"
+                "DARK decoding is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
             )
         if decode_method != "softargmax":
             raise ValueError(
@@ -166,18 +172,110 @@ class Model:
 
     # -- prediction entry points ------------------------------------------------
 
+    def predict_on_label_csv(
+        self,
+        csv_file: str | Path,
+        data_dir: str | Path | None = None,
+        compute_metrics: bool = True,
+        add_train_val_test_set: bool = False,
+        output_dir: str | Path | None = None,
+        bbox_file: str | Path | None = None,
+    ):
+        """Predict every frame of a labeled CSV; write
+        ``image_preds/<csv name>/predictions.csv`` (or into ``output_dir``)
+        and its metric CSVs (reference model.py:958). Returns a
+        ``PredictionResult``.
+
+        ``bbox_file``: an optional per-frame [x, y, h, w] CSV; each frame is
+        cropped to its box and the keypoints are mapped back to the frame.
+        ``add_train_val_test_set``: the seeded training splits give the
+        ``set`` column; otherwise every frame is ``train``."""
+        if self.config.is_multi_view():
+            raise NotImplementedError(
+                "multiview label CSVs are not ported yet (ROADMAP queue 1, item 6: multiview)"
+            )
+        self._load()
+        from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+        from lightning_pose_tpu_torch.data.datasets import HeatmapDataset
+        from lightning_pose_tpu_torch.data.datatypes import PredictionResult
+        from lightning_pose_tpu_torch.utils.predictions import predict_dataset
+
+        cfg = self.cfg.copy()
+        if not add_train_val_test_set:
+            cfg.training.train_prob = 1
+            cfg.training.val_prob = 0
+            cfg.training.train_frames = 1
+        data_dir = str(data_dir or cfg.data.data_dir)
+        csv_file = str(csv_file)
+        dataset = HeatmapDataset(
+            root_directory=data_dir,
+            csv_path=csv_file,
+            image_resize_height=cfg.data.image_resize_dims.height,
+            image_resize_width=cfg.data.image_resize_dims.width,
+            imgaug_pipeline="default",
+            downsample_factor=int(cfg.data.get("downsample_factor", 2)),
+            bbox_path=str(bbox_file) if bbox_file else None,
+        )
+        data_module = BaseDataModule(
+            dataset=dataset,
+            train_batch_size=cfg.training.train_batch_size,
+            val_batch_size=cfg.training.val_batch_size,
+            test_batch_size=cfg.training.test_batch_size,
+            train_probability=cfg.training.train_prob,
+            val_probability=cfg.training.get("val_prob", None),
+            torch_seed=cfg.training.get("rng_seed_data_pt", 42),
+        )
+        if cfg.data.get("keypoint_names", None) is None:
+            cfg.data.keypoint_names = list(dataset.keypoint_names)
+
+        out_dir = Path(output_dir) if output_dir else self.image_preds_dir() / Path(csv_file).name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        preds_file = out_dir / "predictions.csv"
+        # the written CSV keeps the 'set' column: the metrics tell labeled
+        # from video predictions by it (reference metrics.py:211-216)
+        df = predict_dataset(cfg, data_module, self._predict_step, self.device, str(preds_file))
+
+        metrics_result = None
+        if compute_metrics:
+            from lightning_pose_tpu_torch.metrics import compute_metrics_single
+
+            labels_file = Path(csv_file)
+            if not labels_file.is_absolute():
+                labels_file = Path(data_dir) / labels_file
+            try:
+                metrics_result = compute_metrics_single(
+                    cfg=cfg, labels_file=str(labels_file), preds_file=str(preds_file), data_module=data_module
+                )
+            except Exception as e:
+                logger.warning(f"metrics computation failed: {e}")
+        return PredictionResult(predictions=df, metrics=metrics_result)
+
     def predict_on_video_file(
         self,
         video_file: str | Path,
-        compute_metrics: bool = False,
+        compute_metrics: bool = True,
+        generate_labeled_video: bool = False,
         output_dir: str | Path | None = None,
+        bbox_df=None,
+        bbox_file: str | Path | None = None,
+        progress_file: str | Path | None = None,
     ):
         """Predict a video; write ``video_preds/<stem>.csv`` (or into
-        ``output_dir``). Returns a ``PredictionResult``."""
+        ``output_dir``), its metric CSVs and, with
+        ``generate_labeled_video``, a labeled mp4 (reference model.py:1139).
+        ``bbox_file`` (a per-frame x, y, h, w CSV) or ``bbox_df`` crops each
+        frame to its box; ``progress_file`` writes the App's progress JSON.
+        Returns a ``PredictionResult``."""
         self._video_transfer_format()
         self._load()
         from lightning_pose_tpu_torch.utils.video_predictions import predict_video
 
+        if bbox_file is not None:
+            if bbox_df is not None:
+                raise ValueError("pass bbox_file or bbox_df, not both")
+            import pandas as pd
+
+            bbox_df = pd.read_csv(bbox_file, index_col=0)
         preds_file = None
         if output_dir:
             preds_file = str(Path(output_dir) / (Path(video_file).stem + ".csv"))
@@ -188,7 +286,10 @@ class Model:
             model_dir=str(self.model_dir),
             device=self.device,
             preds_file=preds_file,
+            generate_labeled_video=generate_labeled_video,
             compute_metrics=compute_metrics,
+            bbox_df=bbox_df,
+            progress_file=progress_file,
         )
 
     def _video_transfer_format(self) -> str:
@@ -197,7 +298,7 @@ class Model:
         fmt = str(self.cfg.eval.get("video_transfer_format", "auto")).lower()
         if fmt == "yuv420":
             raise NotImplementedError(
-                "yuv420 video transfer is not ported yet (ROADMAP queue 1, item 10)"
+                "yuv420 video transfer is not ported yet (ROADMAP queue 1, item 5: yuv420 transfer)"
             )
         if fmt not in ("rgb", "auto"):
             raise ValueError(
@@ -264,13 +365,8 @@ class Model:
 
     # -- not ported yet ---------------------------------------------------------
 
-    def predict_on_label_csv(self, *args, **kwargs):
-        raise NotImplementedError(
-            "predict_on_label_csv is not ported yet (ROADMAP queue 1, item 7)"
-        )
-
     def compile(self) -> None:
-        raise NotImplementedError("compile is not ported yet (ROADMAP queue 1, item 15)")
+        raise NotImplementedError("compile is not ported yet (ROADMAP queue 1, item 9: API and CLI remainder)")
 
     def export(self, output_dir: str | Path | None = None) -> str:
-        raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 15)")
+        raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 9: API and CLI remainder)")

@@ -1,13 +1,14 @@
-"""Training progress files (counterpart of the JSON progress pieces of
-``lightning_pose_tpu/callbacks.py``, whose module imports JAX)."""
+"""Training and inference progress files (counterpart of the JSON progress
+pieces of ``lightning_pose_tpu/callbacks.py``, whose module imports JAX)."""
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
 
-__all__ = ["JSONTrainingProgressTracker", "write_status"]
+__all__ = ["JSONInferenceProgressTracker", "JSONTrainingProgressTracker", "write_status"]
 
 
 def _atomic_write_json(path: Path, payload: dict) -> None:
@@ -43,3 +44,26 @@ class JSONTrainingProgressTracker:
                 **(extra or {}),
             },
         )
+
+
+class JSONInferenceProgressTracker:
+    """Atomic-write inference progress JSON with the reference's schema
+    ``{"completed": N, "total": T, "timestamp": ...}``, which the LP App
+    reads (reference callbacks.py:454-525)."""
+
+    def __init__(self, status_file: str | Path, total_batches: int) -> None:
+        self.status_file = Path(status_file)
+        self.total_batches = max(int(total_batches), 1)
+        self._n = 0
+        os.makedirs(os.path.dirname(self.status_file) or ".", exist_ok=True)
+        self._save()
+
+    def _save(self) -> None:
+        _atomic_write_json(
+            self.status_file,
+            {"completed": self._n, "total": self.total_batches, "timestamp": time.time()},
+        )
+
+    def step(self) -> None:
+        self._n += 1
+        self._save()

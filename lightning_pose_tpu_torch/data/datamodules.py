@@ -199,3 +199,11 @@ class BaseDataModule:
 
     def val_batches(self) -> Iterator[HeatmapLabeledBatchDict]:
         return self._eval_batches(self.val_dataset, self.val_batch_size)
+
+    def full_batches(self, batch_size: int | None = None) -> Iterator[HeatmapLabeledBatchDict]:
+        """Every frame in CSV order, padded like the other batches and marked
+        by ``valid`` (for ``predict_dataset``)."""
+        bs = batch_size or self.test_batch_size
+        all_idx = np.arange(len(self.dataset))
+        for b in range(math.ceil(len(all_idx) / bs)):
+            yield collate_batch(self.dataset, all_idx[b * bs:(b + 1) * bs], bs)

@@ -43,7 +43,7 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
     view_names = cfg.data.get("view_names") or []
     if len(view_names) > 1:
         raise NotImplementedError(
-            "multiview datasets are not ported yet (ROADMAP queue 1, item 12)"
+            "multiview datasets are not ported yet (ROADMAP queue 1, item 6: multiview)"
         )
     return HeatmapDataset(
         root_directory=data_dir,

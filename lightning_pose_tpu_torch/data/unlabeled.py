@@ -32,7 +32,7 @@ class UnlabeledDataModule(BaseDataModule):
         view_names = cfg.data.get("view_names", None)
         if view_names and len(view_names) > 1:
             raise NotImplementedError(
-                "multiview unlabeled video is not ported yet (ROADMAP queue 1, item 12)"
+                "multiview unlabeled video is not ported yet (ROADMAP queue 1, item 6: multiview)"
             )
         super().__init__(**kwargs)
         self.cfg = cfg

@@ -16,7 +16,9 @@ dali.py:519-562,699-760):
 - train (unlabeled): random-start windows of a random video, from a
   counter-keyed generator, decoded by worker threads and emitted in order.
 
-Context windows, bbox crops and the yuv420 transfer are not ported yet.
+With a per-frame bbox table the predict loader crops each native-resolution
+frame to its box before the resize (reference dali.py:332-396). Context
+windows and the yuv420 transfer are not ported yet.
 """
 
 from __future__ import annotations
@@ -126,9 +128,13 @@ class PredictVideoLoader:
         resize_width: int,
         prefetch_batches: int = 3,
         decode_threads: int | None = None,
+        bbox_df=None,
     ):
         """``decode_threads``: worker decoders sharding the video by window
-        (default :func:`default_decode_threads`)."""
+        (default :func:`default_decode_threads`). ``bbox_df``: optional
+        per-frame ``[x, y, h, w]`` DataFrame; each frame is cropped to its
+        box (zero outside the frame) before the resize, and the caller maps
+        keypoints back through the same boxes."""
         self.video_file = str(video_file)
         self.seq_len = int(sequence_length)
         self.h = int(resize_height)
@@ -144,6 +150,7 @@ class PredictVideoLoader:
         self.frame_count = count_frames(self.video_file)
         if self.frame_count <= 0:
             raise RuntimeError(f"could not decode any frames from {self.video_file}")
+        self.bbox_df = bbox_df
         self.decode_threads = (
             decode_threads if decode_threads is not None
             else default_decode_threads()
@@ -152,10 +159,17 @@ class PredictVideoLoader:
     def __len__(self) -> int:
         return int(np.ceil(self.frame_count / self.seq_len))
 
-    def _convert(self, raw_frames: list[np.ndarray]) -> np.ndarray:
-        """Raw BGR native-resolution frames -> a (T, h, w, 3) RGB uint8 batch
-        (the fused native BGR->RGB + resize, parallel across frames)."""
-        return native.batch_resize_rgb(np.stack(raw_frames), self.h, self.w, swap_rb=True)
+    def _convert(self, raw_frames: list[np.ndarray], start_idx: int) -> np.ndarray:
+        """Raw BGR native-resolution frames from frame ``start_idx`` on -> a
+        (T, h, w, 3) RGB uint8 batch (the fused native BGR->RGB + resize,
+        parallel across frames; with ``bbox_df``, each frame's crop first;
+        the FILL frames past the end take the last box)."""
+        stacked = np.stack(raw_frames)
+        if self.bbox_df is None:
+            return native.batch_resize_rgb(stacked, self.h, self.w, swap_rb=True)
+        idx = np.minimum(np.arange(start_idx, start_idx + len(stacked)), len(self.bbox_df) - 1)
+        boxes = self.bbox_df[["x", "y", "h", "w"]].to_numpy()[idx]
+        return native.batch_crop_resize_rgb(stacked, boxes, self.h, self.w)
 
     def _produce(self, q: queue.Queue) -> None:
         decoder = VideoFrameDecoder(self.video_file)
@@ -164,6 +178,7 @@ class PredictVideoLoader:
             # convert and resize a whole window in one native call
             last_frame = None
             batch = []
+            start = 0
             while True:
                 frame = decoder.read_raw()
                 if frame is None:
@@ -171,14 +186,15 @@ class PredictVideoLoader:
                 last_frame = frame
                 batch.append(frame)
                 if len(batch) == self.seq_len:
-                    q.put(self._convert(batch))
+                    q.put(self._convert(batch, start))
+                    start += len(batch)
                     batch = []
             if batch:
                 # FILL policy: repeat the final frame (reference
                 # dali.py:699-760)
                 while len(batch) < self.seq_len:
                     batch.append(last_frame)
-                q.put(self._convert(batch))
+                q.put(self._convert(batch, start))
         finally:
             decoder.close()
             q.put(None)
@@ -206,7 +222,7 @@ class PredictVideoLoader:
             )
         while len(raw) < self.seq_len:
             raw.append(raw[-1])  # FILL policy (reference dali.py:699-760)
-        return self._convert(raw)
+        return self._convert(raw, start)
 
     def _iter_parallel(self):
         """Window-sharded parallel decode: worker w handles windows
@@ -309,7 +325,7 @@ class UnlabeledVideoLoader:
         assert len(video_files) > 0, "no unlabeled videos found"
         if transfer_format == "yuv420":
             raise NotImplementedError(
-                "the yuv420 transfer of unlabeled frames is not ported yet (ROADMAP queue 1, item 10)"
+                "the yuv420 transfer of unlabeled frames is not ported yet (ROADMAP queue 1, item 5: yuv420 transfer)"
             )
         if transfer_format != "rgb":
             raise ValueError(f"unknown transfer_format {transfer_format!r}")

@@ -52,13 +52,13 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
     if "heatmap" not in cfg.model.model_type:
         raise NotImplementedError(
             f"losses of model_type {cfg.model.model_type} are not ported yet "
-            "(ROADMAP queue 1, item 13)"
+            "(ROADMAP queue 1, item 7: remaining model families)"
         )
     supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
     unsupervised: dict[str, dict] = {}
     for loss_name in [name for name in (cfg.model.get("losses_to_use") or []) if name]:
         if loss_name == "pca_multiview":
-            raise NotImplementedError("the multiview PCA loss is not ported yet (ROADMAP queue 1, item 12)")
+            raise NotImplementedError("the multiview PCA loss is not ported yet (ROADMAP queue 1, item 6: multiview)")
         params = dict(cfg.losses[loss_name].to_dict(resolve=True))
         params["loss_name"] = loss_name
         if loss_name.startswith("unimodal") or loss_name.startswith("temporal_heatmap"):
@@ -92,7 +92,7 @@ class LossFactory:
         unknown = sorted(set(losses_params_dict) - set(classes))
         if unknown:
             raise NotImplementedError(
-                f"losses {unknown} are not ported yet (ROADMAP queue 1, items 10-13)"
+                f"losses {unknown} are not ported yet (ROADMAP queue 1, items 6-7: multiview, remaining model families)"
             )
         self.loss_instance_dict: dict[str, Any] = {}
         for loss_name, params in losses_params_dict.items():

@@ -75,11 +75,11 @@ def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.
         )
     if backbone_arch.startswith("efficientnet"):
         raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 13)"
+            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
         )
     if backbone_arch.startswith("vit"):
         raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, items 12-13)"
+            f"{backbone_arch} is not ported yet (ROADMAP queue 1, items 6-7: multiview, remaining model families)"
         )
     # all resnet50_* pose variants share the resnet50 architecture
     arch = "resnet50" if backbone_arch.startswith("resnet50_") else backbone_arch

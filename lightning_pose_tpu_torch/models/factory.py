@@ -34,9 +34,9 @@ ALLOWED_MODEL_TYPES = [
 _MODEL_TYPE_ALIASES = {"heatmap_multiview_transformer": "heatmap_multiview"}
 
 _NOT_PORTED = {
-    "regression": "ROADMAP queue 1, item 13",
-    "heatmap_mhcrnn": "ROADMAP queue 1, item 11",
-    "heatmap_multiview": "ROADMAP queue 1, item 12",
+    "regression": "ROADMAP queue 1, item 7: remaining model families",
+    "heatmap_mhcrnn": "ROADMAP queue 1, item 3: context model",
+    "heatmap_multiview": "ROADMAP queue 1, item 6: multiview",
 }
 
 
@@ -111,6 +111,6 @@ def get_model(cfg, num_keypoints: int | None = None) -> nn.Module:
     if len(view_names) > 1:
         raise NotImplementedError(
             "heatmap models on multiview data are not ported yet "
-            "(ROADMAP queue 1, item 12)"
+            "(ROADMAP queue 1, item 6: multiview)"
         )
     return build_model(model_type, cfg.model.backbone, int(num_keypoints), downsample_factor)

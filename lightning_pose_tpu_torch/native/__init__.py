@@ -1,12 +1,13 @@
 """Native (C++) host frame ops, built at first use (the port's copy of what
 it uses of ``lightning_pose_tpu/native/``).
 
-``frame_ops.cpp`` fuses BGR->RGB conversion with bilinear resize over a
-batch of frames, on a worker pool. It is compiled with g++ at first use into
+``frame_ops.cpp`` fuses BGR->RGB conversion with bilinear resize, and a
+per-frame bbox crop before it, over a batch of frames, on a worker pool. It is compiled with g++ at first use into
 ``build/native/libframeops-<hash>.so`` at the root of the checkout (the hash
 covers the source and the flags, so an edited source is rebuilt). Where g++
-is missing or the build fails, :func:`batch_resize_rgb` runs the same resize
-with OpenCV, one frame at a time.
+is missing or the build fails, :func:`batch_resize_rgb` and
+:func:`batch_crop_resize_rgb` run the same operations with OpenCV, one frame
+at a time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["available", "batch_resize_rgb", "get_lib", "num_worker_threads"]
+__all__ = ["available", "batch_crop_resize_rgb", "batch_resize_rgb", "get_lib", "num_worker_threads"]
 
 _SRC = Path(__file__).resolve().parent / "frame_ops.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -78,6 +79,12 @@ def get_lib() -> ctypes.CDLL | None:
             ctypes.c_int, ctypes.c_int,
         ]
         lib.batch_resize_rgb.restype = None
+        lib.batch_crop_resize_rgb.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
+        ]
+        lib.batch_crop_resize_rgb.restype = None
         _lib = lib
         return lib
 
@@ -119,5 +126,45 @@ def batch_resize_rgb(
         out.ctypes.data, dst_h, dst_w,
         1 if swap_rb else 0,
         num_threads or num_worker_threads(),
+    )
+    return out
+
+
+def batch_crop_resize_rgb(
+    frames: np.ndarray,
+    boxes: np.ndarray,
+    dst_h: int,
+    dst_w: int,
+    num_threads: int | None = None,
+) -> np.ndarray:
+    """Per-frame crop to an ``[x, y, h, w]`` box, zero outside the frame, then
+    the fused BGR->RGB conversion + bilinear resize.
+
+    Args:
+        frames: (N, H, W, 3) uint8 BGR.
+        boxes: (N, 4) integer [x, y, h, w].
+    Returns:
+        (N, dst_h, dst_w, 3) uint8 RGB.
+    """
+    lib = get_lib()
+    frames = np.ascontiguousarray(frames, dtype=np.uint8)
+    boxes = np.ascontiguousarray(boxes, dtype=np.int32)
+    n, src_h, src_w, _ = frames.shape
+    out = np.empty((n, dst_h, dst_w, 3), dtype=np.uint8)
+    if lib is None:
+        import cv2
+
+        for i in range(n):
+            x, y, bh, bw = (int(v) for v in boxes[i])
+            crop = np.zeros((bh, bw, 3), dtype=np.uint8)
+            x0, y0 = max(x, 0), max(y, 0)
+            x1, y1 = min(x + bw, src_w), min(y + bh, src_h)
+            if x1 > x0 and y1 > y0:
+                crop[y0 - y:y1 - y, x0 - x:x1 - x] = frames[i, y0:y1, x0:x1]
+            out[i] = cv2.resize(cv2.cvtColor(crop, cv2.COLOR_BGR2RGB), (dst_w, dst_h))
+        return out
+    lib.batch_crop_resize_rgb(
+        frames.ctypes.data, n, src_h, src_w, boxes.ctypes.data,
+        out.ctypes.data, dst_h, dst_w, 1, num_threads or num_worker_threads(),
     )
     return out

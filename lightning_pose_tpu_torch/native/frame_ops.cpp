@@ -4,8 +4,9 @@
 // The reference offloads video preprocessing to NVIDIA DALI's C++/CUDA
 // pipeline (reference lightning_pose/data/dali.py:70-197). Here the host
 // stage runs on the CPU cores: BGR->RGB conversion fused with bilinear
-// resize, over a batch of frames, in a dependency-free C++ shared library
-// driven by a std::thread worker pool, called through ctypes.
+// resize, and a per-frame bbox crop before it, over a batch of frames, in a
+// dependency-free C++ shared library driven by a std::thread worker pool,
+// called through ctypes.
 //
 // Build (native/__init__.py does it at first use, into build/native/):
 //   g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread frame_ops.cpp -o <lib>
@@ -13,6 +14,7 @@
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -90,6 +92,35 @@ void batch_resize_rgb(const uint8_t* src, int n, int src_h, int src_w,
     parallel_for(n, num_threads, [&](int i) {
         resize_one(src + i * src_stride, src_h, src_w,
                    dst + i * dst_stride, dst_h, dst_w, swap_rb != 0);
+    });
+}
+
+// Batched crop (per-frame bbox) + resize. bboxes: (n, 4) int32 [x, y, h, w];
+// regions outside the frame are zero-filled.
+void batch_crop_resize_rgb(const uint8_t* src, int n, int src_h, int src_w,
+                           const int32_t* bboxes, uint8_t* dst, int dst_h,
+                           int dst_w, int swap_rb, int num_threads) {
+    const size_t src_stride = static_cast<size_t>(src_h) * src_w * 3;
+    const size_t dst_stride = static_cast<size_t>(dst_h) * dst_w * 3;
+    parallel_for(n, num_threads, [&](int i) {
+        const int32_t bx = bboxes[i * 4 + 0];
+        const int32_t by = bboxes[i * 4 + 1];
+        const int32_t bh = bboxes[i * 4 + 2];
+        const int32_t bw = bboxes[i * 4 + 3];
+        // copy the (zero-padded) crop into a temporary buffer, then resize
+        std::vector<uint8_t> crop(static_cast<size_t>(bh) * bw * 3, 0);
+        const int x0 = std::max(bx, 0);
+        const int y0 = std::max(by, 0);
+        const int x1 = std::min(bx + bw, src_w);
+        const int y1 = std::min(by + bh, src_h);
+        const uint8_t* frame = src + i * src_stride;
+        for (int y = y0; y < y1; ++y) {
+            std::memcpy(crop.data() + (static_cast<size_t>(y - by) * bw + (x0 - bx)) * 3,
+                        frame + (static_cast<size_t>(y) * src_w + x0) * 3,
+                        static_cast<size_t>(x1 - x0) * 3);
+        }
+        resize_one(crop.data(), bh, bw, dst + i * dst_stride, dst_h, dst_w,
+                   swap_rb != 0);
     });
 }
 

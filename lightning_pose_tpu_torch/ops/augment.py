@@ -548,7 +548,7 @@ class AugmentationEngine:
         """
         if images.ndim != 4:
             raise NotImplementedError(
-                "context stacks (B, T, H, W, 3) are not ported yet (ROADMAP queue 1, item 11)"
+                "context stacks (B, T, H, W, 3) are not ported yet (ROADMAP queue 1, item 3: context model)"
             )
         if self.identity:
             out = (images.to(torch.float32), keypoints)

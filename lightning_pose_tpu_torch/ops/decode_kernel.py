@@ -205,33 +205,18 @@ class _Operands:
     tiles' Mh bands and the column tiles' Mw bands, packed as the kernels
     read them, and the ``[lo, hi)`` bands of Mh's row tiles, of Mw's column
     tiles and of each strip's Mh rows (``[0, 0)`` for a strip past ``H``);
-    for the backward, the ``[lo, hi)`` range of the column tiles whose Mw
-    band holds each input column; ``wp`` columns (``W`` padded, zero past
-    it), strips of ``strip_rows`` rows, the widest strip band ``band_rows``
-    and tile band ``tile_band``."""
+    ``wp`` columns (``W`` padded, zero past it), strips of ``strip_rows``
+    rows, the widest strip band ``band_rows`` and tile band ``tile_band``."""
 
     mh_tiles: torch.Tensor
     mw_packed: torch.Tensor
     mh_band: torch.Tensor
     mw_band: torch.Tensor
     strip_band: torch.Tensor
-    mw_cols: torch.Tensor
     wp: int
     strip_rows: int
     band_rows: int
     tile_band: int
-
-
-def column_tile_ranges(bands: np.ndarray, n_cols: int) -> np.ndarray:
-    """``(n_cols, 2)`` int32: for each column ``j`` of a banded matrix, the
-    ``[lo, hi)`` range of the tiles whose ``bands`` (``row_tile_bands``)
-    hold ``j``; ``[0, 0)`` for a column no band holds."""
-    out = np.zeros((n_cols, 2), np.int32)
-    for j in range(n_cols):
-        tiles = np.flatnonzero((bands[:, 0] <= j) & (j < bands[:, 1]))
-        if tiles.size:
-            out[j] = (tiles[0], tiles[-1] + 1)
-    return out
 
 
 def _operands_from_bands(
@@ -249,7 +234,7 @@ def _operands_from_bands(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
         for a in (
             _tile_packed_mh(m_h, mh_bands, layout), _band_packed_mw(m_w, mw_bands, layout),
-            mh_bands, mw_bands, strips, column_tile_ranges(mw_bands, m_w.shape[1]),
+            mh_bands, mw_bands, strips,
         )
     ]
     return _Operands(
@@ -321,17 +306,28 @@ def _check_smem(smem: int, device: torch.device, what: str) -> None:
         raise ValueError(f"{what} need {smem} bytes of shared memory per block; the card allows {limit}")
 
 
+# strips of output rows a map in the backward kernel (decode_grad.cu's
+# kCluster), and the shared memory a backward block may take so that two
+# share an SM (228 KB an SM, 1 KB of it reserved a block)
+GRAD_CLUSTER = 4
+_GRAD_SMEM_TARGET = 113 * 1024
+# a strip that does not fit is walked in chunks of a multiple of this many
+# rows (decode_grad.cu's kULanes: the rows one u pass gives a thread each)
+_GRAD_CHUNK_STEP = 16
+
+
 @functools.lru_cache(maxsize=1)
 def _grad_library() -> ctypes.CDLL:
     lib = load_library("decode_grad.cu")
-    for name in ("lp_decode_grad_band_rows", "lp_decode_grad_band_cols", "lp_decode_grad_max_band"):
+    for name in ("lp_decode_grad_band_rows", "lp_decode_grad_band_cols", "lp_decode_grad_max_band",
+                 "lp_decode_grad_cluster_blocks", "lp_decode_grad_max_items"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    lib.lp_decode_grad_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.lp_decode_grad_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.lp_decode_grad_smem_bytes.restype = ctypes.c_size_t
     lib.lp_decode_grad_launch.argtypes = [
-        *[ctypes.c_void_p] * 10,
-        *[ctypes.c_int] * 7,
+        *[ctypes.c_void_p] * 14,
+        *[ctypes.c_int] * 12,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -340,7 +336,114 @@ def _grad_library() -> ctypes.CDLL:
     theirs = (lib.lp_decode_grad_band_rows(), lib.lp_decode_grad_band_cols(), lib.lp_decode_grad_max_band())
     if theirs != (layout.band_rows, layout.band_cols, layout.max_band):
         raise RuntimeError(f"decode_grad.cu packs bands as {theirs}, decode.cu as {layout}")
+    if lib.lp_decode_grad_cluster_blocks() != GRAD_CLUSTER:
+        raise RuntimeError(f"decode_grad.cu runs {lib.lp_decode_grad_cluster_blocks()} strips a map, "
+                           f"the wrapper plans {GRAD_CLUSTER}")
     return lib
+
+
+@dataclass(frozen=True)
+class GradPlan:
+    """How the backward kernel cuts an ``(h, w)`` map upsampled to ``(H,
+    W)``, in numpy: ``GRAD_CLUSTER`` strips of ``strip_rows`` output rows,
+    one a block, each walked in chunks of ``chunk_rows``; ``strip_band`` the
+    ``[lo, hi)`` hm rows each strip's Mh band reaches (``[0, 0)`` past
+    ``H``), at most ``band_rows``. The transposed bands: for each tile of 4
+    input columns, ``mwt_band`` the ``[lo, hi)`` output columns its Mw
+    columns reach, widened to multiples of 4, and ``mwt_packed[jt, k, c] =
+    Mw[lo + k, 4 jt + c]``; for each tile of 4 input rows, ``mht_band`` the
+    ``[lo, hi)`` output rows its Mh columns reach and ``mht_packed[it, k, c]
+    = Mh[lo + k, 4 it + c]``; zero past a band and past ``h`` or ``w``.
+    ``m_h`` is ``(H, h)`` and ``m_w`` ``(Wp, w)``, zero rows past ``W``."""
+
+    m_h: np.ndarray
+    m_w: np.ndarray
+    strip_rows: int
+    chunk_rows: int
+    strip_band: np.ndarray
+    band_rows: int
+    mwt_band: np.ndarray
+    mwt_packed: np.ndarray
+    mht_band: np.ndarray
+    mht_packed: np.ndarray
+
+    def dhm_tiles(self, strip: int) -> int:
+        """4x4 tiles of partial dhm that a strip's block accumulates."""
+        lo, hi = (int(v) for v in self.strip_band[strip])
+        return (-(-hi // 4) - lo // 4) * -(-self.m_w.shape[1] // 4) if hi > lo else 0
+
+
+def _packed_transposed_bands(m: np.ndarray, align: int) -> tuple[np.ndarray, np.ndarray]:
+    """For each tile of 4 columns of ``m``, the ``[lo, hi)`` rows where the
+    tile has non-zeros, widened to multiples of ``align``, and the tile's
+    rows over that range, ``(tiles, widest range, 4)``."""
+    bands = row_tile_bands(np.ascontiguousarray(m.T), 4)
+    bands[:, 0] = bands[:, 0] // align * align
+    bands[:, 1] = -(-bands[:, 1] // align) * align
+    packed = np.zeros((len(bands), max(int((bands[:, 1] - bands[:, 0]).max()), 1), 4), np.float32)
+    for t, (lo, hi) in enumerate(bands):
+        cols = m[lo:hi, 4 * t:4 * t + 4]
+        packed[t, : hi - lo, : cols.shape[1]] = cols
+    return bands, packed
+
+
+def grad_plan(h: int, w: int, df: int, layout: _Layout, chunk_rows: int | None = None) -> GradPlan:
+    """The backward kernel's plan for ``(h, w)`` maps at ``df``; chunks of
+    ``chunk_rows`` rows (a multiple of 4; default a whole strip)."""
+    m_h, m_w = _padded_matrices(h, w, df, layout)
+    tiles = -(-m_h.shape[0] // layout.band_rows)
+    strip_rows = -(-tiles // GRAD_CLUSTER) * layout.band_rows
+    strips = np.zeros((GRAD_CLUSTER, 2), np.int32)
+    bands = row_tile_bands(m_h, strip_rows)
+    strips[: len(bands)] = bands
+    mwt_band, mwt_packed = _packed_transposed_bands(m_w, 4)
+    mht_band, mht_packed = _packed_transposed_bands(m_h, 1)
+    chunk_rows = strip_rows if chunk_rows is None else min(chunk_rows, strip_rows)
+    if chunk_rows <= 0 or chunk_rows % layout.band_rows:
+        raise ValueError(f"decode backward: chunks of {chunk_rows} rows are not whole row tiles")
+    return GradPlan(
+        m_h, m_w, strip_rows, chunk_rows, strips, int((strips[:, 1] - strips[:, 0]).max()),
+        mwt_band, mwt_packed, mht_band, mht_packed,
+    )
+
+
+@dataclass(frozen=True)
+class _GradOperands:
+    """A :class:`GradPlan` on the maps' device, with the chunk that keeps
+    a block within ``_GRAD_SMEM_TARGET`` where a whole strip does not."""
+
+    strip_band: torch.Tensor
+    mwt_packed: torch.Tensor
+    mwt_band: torch.Tensor
+    mht_packed: torch.Tensor
+    mht_band: torch.Tensor
+    strip_rows: int
+    chunk_rows: int
+    band_rows: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=16)
+def _device_grad_operands(h: int, w: int, df: int, wp: int, tile_band: int, device: torch.device) -> _GradOperands:
+    lib = _grad_library()
+    plan = grad_plan(h, w, df, _layout())
+    most = max(plan.dhm_tiles(s) for s in range(GRAD_CLUSTER))
+    if most > lib.lp_decode_grad_max_items():
+        raise ValueError(f"decode backward: ({h}, {w}) maps need {most} dhm tiles a strip, "
+                         f"more than the kernel's {lib.lp_decode_grad_max_items()}")
+
+    def smem(chunk: int) -> int:
+        return lib.lp_decode_grad_smem_bytes(w, wp, plan.strip_rows, chunk, plan.band_rows, tile_band)
+
+    chunk = plan.strip_rows
+    while smem(chunk) > _GRAD_SMEM_TARGET and chunk > _GRAD_CHUNK_STEP:
+        chunk = max(_GRAD_CHUNK_STEP, (chunk - 1) // _GRAD_CHUNK_STEP * _GRAD_CHUNK_STEP)
+    tensors = [
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (plan.strip_band, plan.mwt_packed, plan.mwt_band, plan.mht_packed, plan.mht_band)
+    ]
+    return _GradOperands(*tensors, strip_rows=plan.strip_rows, chunk_rows=chunk, band_rows=plan.band_rows,
+                         smem=smem(chunk))
 
 
 def _launch_grad(
@@ -354,14 +457,16 @@ def _launch_grad(
     b, k, h, w = heatmaps.shape
     big_h, big_w = h * 2**downsample_factor, w * 2**downsample_factor
     lib = _grad_library()
-    smem = lib.lp_decode_grad_smem_bytes(h, w, big_h, ops.wp, ops.tile_band)
-    _check_smem(smem, heatmaps.device, f"decode backward kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w})")
+    g = _device_grad_operands(h, w, downsample_factor, ops.wp, ops.tile_band, heatmaps.device)
+    _check_smem(g.smem, heatmaps.device, f"decode backward kernel: ({h}, {w}) maps upsampled to ({big_h}, {big_w})")
     grad = torch.empty_like(heatmaps)
     if b * k:
         err = lib.lp_decode_grad_launch(
             *(t.data_ptr() for t in (heatmaps, keypoints, lse2, grad_keypoints, ops.mh_tiles, ops.mw_packed,
-                                     ops.mh_band, ops.mw_band, ops.mw_cols, grad)),
-            b * k, h, w, big_h, big_w, ops.wp, ops.tile_band,
+                                     ops.mh_band, ops.mw_band, g.strip_band, g.mwt_packed, g.mwt_band,
+                                     g.mht_packed, g.mht_band, grad)),
+            b * k, h, w, big_h, big_w, ops.wp, g.strip_rows, g.chunk_rows, g.band_rows, ops.tile_band,
+            g.mwt_packed.shape[1], g.mht_packed.shape[1],
             float(temperature) * _LOG2_E, float(temperature), GRID_OFFSETS[downsample_factor],
             heatmaps.device.index, torch.cuda.current_stream(heatmaps.device).cuda_stream,
         )

@@ -125,13 +125,13 @@ def save_checkpoint(
 
     if backend == "orbax":
         raise NotImplementedError(
-            "Orbax checkpoints are not ported yet (ROADMAP queue 1, item 9: resume)"
+            "Orbax checkpoints are not ported yet (ROADMAP queue 1, item 4: the rest of training)"
         )
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
     if opt_state is not None:
         raise NotImplementedError(
-            "optimizer state in checkpoints is not ported yet (ROADMAP queue 1, item 9: resume)"
+            "optimizer state in checkpoints is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
         )
     payload = {
         "params": params,

@@ -24,7 +24,11 @@ given to the unsupervised losses at the epoch's anneal weight.
 ``tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
 (flax-msgpack, read by both packages) and, when ``tensorboardX`` imports,
 its event files. ``Model.from_dir(model_dir)`` of either package predicts
-from it.
+from it. Unless ``skip_evaluation``, it then reloads the best checkpoint and
+evaluates as the JAX package does: ``image_preds/<csv>/predictions.csv``
+with its metric CSVs and legacy copies in the model directory, the same for
+the ``_new`` and ``_test`` label files where they exist, and the test videos
+into ``video_preds/`` when ``eval.predict_vids_after_training`` is set.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from lightning_pose_tpu_torch.api.model import resolve_device
+from lightning_pose_tpu_torch.api.model import PredictStep, resolve_device
 from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
 from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
@@ -67,6 +71,8 @@ __all__ = [
 ]
 
 _CACHE_KEYS = ("images", "keypoints", "visibility", "bbox")
+# the compute type of train() and of its evaluation, as in the JAX package
+COMPUTE_DTYPE = torch.bfloat16
 
 
 def calculate_steps_per_epoch(data_module) -> int:
@@ -331,13 +337,16 @@ def make_step_fns(
 class TrainedModel:
     """Handle on a trained model (the checkpoint is on disk). ``history``
     holds what was logged: one dict per logging step and per validation,
-    with ``step`` and ``epoch``."""
+    with ``step`` and ``epoch``. ``predict_fn(images_uint8, bbox)`` predicts
+    with the model, in eval mode, on ``device``."""
 
     cfg: object
     model_dir: Path
     model: nn.Module
     data_module: object
     history: list[dict]
+    device: torch.device
+    predict_fn: PredictStep
 
 
 def run_validation_epoch(batches, eval_logs_fn) -> dict[str, float]:
@@ -353,35 +362,30 @@ def run_validation_epoch(batches, eval_logs_fn) -> dict[str, float]:
     return {k: v / max(n_total, 1) for k, v in sums.items()}
 
 
-def _check_ported(cfg, skip_evaluation: bool) -> None:
+def _check_ported(cfg) -> None:
     """Raise, before anything is trained, on options not ported yet."""
-    if not skip_evaluation:
-        raise NotImplementedError(
-            "post-training evaluation needs metrics.py, which is not ported yet "
-            "(ROADMAP queue 1, item 10); call train(..., skip_evaluation=True)"
-        )
     if int(cfg.training.get("num_nodes", 1) or 1) > 1 or int(cfg.training.get("num_gpus", 1) or 1) > 1:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP queue 1, item 14)")
+        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP queue 1, item 8: multi-GPU)")
     for option in ("resume", "profiler"):
         if cfg.training.get(option, False):
             raise NotImplementedError(
-                f"training.{option} is not ported yet (ROADMAP queue 1, item 9)"
+                f"training.{option} is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
             )
     backend = str(cfg.training.get("checkpoint_backend", "msgpack"))
     if backend != "msgpack":
         raise NotImplementedError(
-            f"checkpoint_backend {backend} is not ported yet (ROADMAP queue 1, item 9)"
+            f"checkpoint_backend {backend} is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
         )
     bb_ckpt = cfg.model.get("backbone_checkpoint")
     if bb_ckpt and os.path.isfile(str(bb_ckpt)):
         raise NotImplementedError(
-            "loading torchvision backbone weights is not ported yet (ROADMAP queue 1, item 9)"
+            "loading torchvision backbone weights is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
         )
     unimodal = [n for n in (cfg.model.get("losses_to_use") or []) if str(n).startswith("unimodal")]
     if unimodal:
         raise NotImplementedError(
             f"{unimodal} cannot train: the loss takes keypoints in augmented-image space, which the "
-            "JAX package's train step does not pass (ROADMAP queue 3; queue 1, item 10)"
+            "JAX package's train step does not pass (ROADMAP queue 1, item 4: the rest of training; queue 3)"
         )
 
 
@@ -416,9 +420,9 @@ def train(
     skip_evaluation: bool = False,
     device: str | torch.device = "cuda",
 ) -> TrainedModel:
-    """Train the configured model on ``device`` and write the model
-    directory. There is no fallback to the CPU: a CUDA device without CUDA
-    raises."""
+    """Train the configured model on ``device``, write the model directory
+    and, unless ``skip_evaluation``, evaluate the best checkpoint into it.
+    There is no fallback to the CPU: a CUDA device without CUDA raises."""
     from lightning_pose_tpu_torch.api.model_config import ModelConfig
     from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
     from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
@@ -426,7 +430,7 @@ def train(
     from lightning_pose_tpu_torch.models.factory import get_model
     from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
-    _check_ported(cfg, skip_evaluation)
+    _check_ported(cfg)
     device = resolve_device(device)
     model_dir = Path(model_dir or os.getcwd())
     model_dir.mkdir(parents=True, exist_ok=True)
@@ -474,7 +478,7 @@ def train(
         )
         meta = {"model_type": "heatmap", "downsample_factor": int(cfg.data.get("downsample_factor", 2))}
         _, eval_step, train_step_cached = make_step_fns(
-            meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch
+            meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch, COMPUTE_DTYPE
         )
         cache = _device_cache(dataset, device)
         logger.info(f"cached {len(dataset)} labeled samples on {device}")
@@ -602,11 +606,163 @@ def train(
         if writer is not None:
             writer.close()
         logger.info(f"training finished in {time.time() - t_start:.1f}s")
-        write_status(status_file, "COMPLETED")
-        return TrainedModel(
-            cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history
+
+        write_status(status_file, "EVALUATING")
+        # evaluate the best checkpoint: what Model.from_dir later loads from
+        # this directory (reference train.py:438)
+        try:
+            best = ckpt_utils.load_checkpoint(best_ckpt_path)
+            ckpt_utils.load_flax_variables(model, best["params"], best.get("batch_stats", {}))
+            logger.info(f"reloaded best checkpoint for evaluation: {best_ckpt_path}")
+        except Exception as e:  # never fail the run over the choice of eval state
+            logger.warning(f"could not reload best checkpoint ({e}); using final state")
+        model.eval()
+        trained = TrainedModel(
+            cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history,
+            device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE),
         )
+        if not skip_evaluation:
+            _evaluate_on_training_dataset(trained)
+            # out-of-distribution label files, skipped where absent
+            # (reference train.py:110-113)
+            _evaluate_on_suffixed_csv(trained, suffix="_new")
+            _evaluate_on_suffixed_csv(trained, suffix="_test")
+            _predict_test_videos(trained)
+        write_status(status_file, "COMPLETED")
+        return trained
     finally:
         close = getattr(data_module, "close", None)
         if close is not None:  # the unlabeled stream's decode threads
             close()
+
+
+# ------------------------------------------------------------------------------
+# evaluation after training
+# ------------------------------------------------------------------------------
+
+
+def _suffixed_csv_paths(cfg, suffix: str) -> list[Path] | None:
+    """Absolute paths of the ``<stem><suffix>.csv`` label files, or None if
+    the first one does not exist (reference train.py:146-200)."""
+    csv_cfg = cfg.data.csv_file
+    csv_files = [csv_cfg] if isinstance(csv_cfg, str) else list(csv_cfg)
+    out = []
+    for csv_file in csv_files:
+        p = Path(csv_file)
+        if not p.is_absolute():
+            p = Path(cfg.data.data_dir) / p
+        out.append(p.with_stem(p.stem + suffix))
+    if not out[0].exists():
+        return None
+    return out
+
+
+def _check_single_view(cfg, what: str) -> None:
+    view_names = cfg.data.get("view_names", None)
+    if not isinstance(cfg.data.csv_file, str) or (view_names and len(view_names) > 1):
+        raise NotImplementedError(
+            f"{what} of a multiview model is not ported yet (ROADMAP queue 1, item 6: multiview)"
+        )
+
+
+def _write_image_preds(model: TrainedModel, cfg, data_module, labels_file: Path, what: str) -> Path:
+    """Predict every frame of ``data_module``; write
+    ``image_preds/<labels name>/predictions.csv`` and its metric CSVs.
+    Returns the directory. A metrics failure is logged, as in the JAX
+    package."""
+    from lightning_pose_tpu_torch.metrics import compute_metrics_single
+    from lightning_pose_tpu_torch.utils.predictions import predict_dataset
+
+    preds_dir = model.model_dir / "image_preds" / labels_file.name
+    preds_dir.mkdir(parents=True, exist_ok=True)
+    preds_file = preds_dir / "predictions.csv"
+    # the set column stays: the metrics tell labeled from video predictions
+    # by it (reference predictions.py:220-236)
+    predict_dataset(cfg, data_module, model.predict_fn, model.device, str(preds_file))
+    try:
+        compute_metrics_single(
+            cfg=cfg, labels_file=str(labels_file), preds_file=str(preds_file), data_module=data_module
+        )
+    except Exception as e:
+        logger.warning(f"metrics computation failed ({what}): {e}")
+    return preds_dir
+
+
+def _evaluate_on_suffixed_csv(model: TrainedModel, suffix: str) -> None:
+    """Predict the ``<csv stem><suffix>.csv`` label files after training
+    (the reference's ``_new``/``_test`` evaluation, train.py:110-113,146-246):
+    ``image_preds/<name>/predictions*.csv`` and suffixed legacy copies in
+    the model directory."""
+    from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+    from lightning_pose_tpu_torch.data.factory import get_dataset
+
+    cfg = model.cfg
+    _check_single_view(cfg, f"evaluation on {suffix} label files")
+    csv_paths = _suffixed_csv_paths(cfg, suffix)
+    if csv_paths is None:
+        return
+    logger.info(f"Predicting {suffix.lstrip('_')} images...")
+    cfg2 = cfg.copy()
+    cfg2.data.csv_file = str(csv_paths[0])
+    try:
+        dataset = get_dataset(cfg2, str(cfg.data.data_dir), imgaug_pipeline="default")
+        data_module = BaseDataModule(
+            dataset=dataset,
+            train_batch_size=cfg.training.train_batch_size,
+            val_batch_size=cfg.training.val_batch_size,
+            test_batch_size=cfg.training.test_batch_size,
+            train_probability=cfg.training.train_prob,
+            val_probability=cfg.training.get("val_prob", None),
+            torch_seed=cfg.training.get("rng_seed_data_pt", 42),
+        )
+    except Exception as e:
+        logger.warning(f"could not load {suffix} label files ({e}); skipping")
+        return
+    preds_dir = _write_image_preds(model, cfg2, data_module, csv_paths[0], suffix)
+    # legacy copies: predictions[_<metric>]<suffix>.csv
+    for p_file in preds_dir.glob("predictions*.csv"):
+        shutil.copy(p_file, model.model_dir / f"{p_file.stem}{suffix}.csv")
+
+
+def _evaluate_on_training_dataset(model: TrainedModel) -> None:
+    """Predict all labeled frames; write ``predictions.csv`` and the metric
+    CSVs, and their legacy copies in the model directory (reference
+    train.py:146-246)."""
+    cfg = model.cfg
+    _check_single_view(cfg, "evaluation on the labeled frames")
+    labels_file = Path(cfg.data.csv_file)
+    if not labels_file.is_absolute():
+        labels_file = Path(cfg.data.data_dir) / labels_file
+    preds_dir = _write_image_preds(model, cfg, model.data_module, labels_file, "labeled frames")
+    for p_file in preds_dir.glob("predictions*.csv"):
+        shutil.copy(p_file, model.model_dir / p_file.name)
+
+
+def _predict_test_videos(model: TrainedModel) -> None:
+    """Predict the videos of ``eval.test_videos_directory`` when
+    ``eval.predict_vids_after_training`` is set (reference train.py:248-271).
+    A failure is logged, as in the JAX package."""
+    from lightning_pose_tpu_torch.utils.io import get_videos_in_dir
+    from lightning_pose_tpu_torch.utils.video_predictions import predict_video
+
+    cfg = model.cfg
+    if not cfg.eval.get("predict_vids_after_training", False):
+        return
+    video_dir = cfg.eval.get("test_videos_directory")
+    if not video_dir or not os.path.isdir(str(video_dir)):
+        return
+    _check_single_view(cfg, "test-video prediction")
+    try:
+        for video_file in get_videos_in_dir(str(video_dir)):
+            logger.info(f"predicting video: {video_file}")
+            predict_video(
+                video_file=video_file,
+                cfg=cfg,
+                predict_fn=model.predict_fn,
+                model_dir=str(model.model_dir),
+                device=model.device,
+                data_module=model.data_module,
+                generate_labeled_video=bool(cfg.eval.get("save_vids_after_training", False)),
+            )
+    except Exception as e:
+        logger.warning(f"video prediction failed: {e}")

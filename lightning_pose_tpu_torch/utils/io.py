@@ -27,6 +27,8 @@ __all__ = [
     "check_video_paths",
     "ckpt_path_from_base_path",
     "find_video_files_for_views",
+    "fix_empty_first_row",
+    "get_keypoint_names",
     "get_videos_in_dir",
     "make_dlc_pandas_index",
     "parse_label_csv",
@@ -70,6 +72,25 @@ def _keypoint_level_names(columns: pd.MultiIndex, header_rows: list[int]) -> lis
     name_level = 0 if header_rows in _TWO_ROW_HEADERS else 1
     coord_level = name_level + 1
     return [col[name_level] for col in columns if col[coord_level] == "x"]
+
+
+def get_keypoint_names(
+    cfg=None,
+    csv_file: str | None = None,
+    header_rows: list[int] | None = None,
+) -> list[str]:
+    """Keypoint names from a label CSV's header, else from the config
+    (reference utils/io.py:149)."""
+    header_rows = header_rows or [0, 1, 2]
+    if csv_file is not None and os.path.exists(csv_file):
+        # only the header matters; a handful of rows is enough to build it
+        preview = pd.read_csv(csv_file, header=header_rows, nrows=5)
+        return _keypoint_level_names(preview.columns, header_rows)
+    assert cfg is not None, "cfg must be provided when csv_file is not given"
+    configured = cfg.data.get("keypoint_names", None)
+    if configured:
+        return list(configured)
+    return [f"bp_{n}" for n in range(cfg.data.num_keypoints)]
 
 
 def _split_visibility(table: pd.DataFrame) -> tuple[np.ndarray, np.ndarray]:

@@ -3,35 +3,74 @@ what it uses of ``lightning_pose_tpu/utils/predictions.py``, reference
 lightning_pose/utils/predictions.py:39-327).
 
 Output contract: 3-level (scorer/bodyparts/coords) MultiIndex columns with
-x/y/likelihood per keypoint, one row per video frame, the FILL padding of
-the last batch trimmed. Labeled datasets, context models and multiview
-outputs are not ported yet.
+x/y/likelihood per keypoint. A video gives one row per frame, the FILL
+padding of the last batch trimmed; a labeled dataset gives one row per
+image, indexed by image name, with the train/validation/test ``set``
+column. Context models and multiview outputs are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+import torch
 
 from lightning_pose_tpu_torch.data.video import count_frames
 from lightning_pose_tpu_torch.utils.io import make_dlc_pandas_index
 
-__all__ = ["PredictionHandler"]
+__all__ = ["PredictionHandler", "predict_dataset"]
+
+
+def predict_dataset(
+    cfg,
+    data_module,
+    predict_fn,
+    device: torch.device,
+    preds_file: str | None = None,
+) -> pd.DataFrame:
+    """Predict every frame of a labeled dataset, in CSV order, and write the
+    CSV where ``preds_file`` is given (reference predictions.py:330).
+
+    ``predict_fn(images_uint8, bbox)`` takes a ``(B, h, w, 3)`` uint8 batch
+    and its ``(B, 4)`` bboxes on ``device``."""
+    # every batch is launched before the first result is fetched
+    device_preds, valids = [], []
+    for batch in data_module.full_batches():
+        images = torch.from_numpy(np.ascontiguousarray(batch["images"])).to(device)
+        bbox = torch.from_numpy(np.asarray(batch["bbox"], dtype=np.float32)).to(device)
+        device_preds.append(predict_fn(images, bbox))
+        valids.append(batch["valid"])
+    preds = [(kp.cpu().numpy()[valid], conf.cpu().numpy()[valid])
+             for (kp, conf), valid in zip(device_preds, valids)]
+    df = PredictionHandler(cfg=cfg, data_module=data_module)(preds)
+    if preds_file is not None:
+        df.to_csv(preds_file)
+    return df
 
 
 class PredictionHandler:
-    """Convert stacked (keypoints, confidences) arrays of a video into its
-    prediction dataframe."""
+    """Convert stacked (keypoints, confidences) arrays of a video or of a
+    labeled dataset into its prediction dataframe."""
 
-    def __init__(self, cfg, video_file: str) -> None:
+    def __init__(self, cfg, data_module=None, video_file: str | None = None) -> None:
+        if data_module is None and video_file is None:
+            raise ValueError("must pass either data_module or video_file")
         if cfg.data.get("keypoint_names", None) is None:
             raise ValueError("must include `keypoint_names` field in cfg.data")
+        view_names = cfg.data.get("view_names", None)
+        if view_names and len(view_names) > 1:
+            raise NotImplementedError(
+                "multiview predictions are not ported yet (ROADMAP queue 1, item 6: multiview)"
+            )
         self.cfg = cfg
+        self.data_module = data_module
         self.video_file = video_file
 
     @property
     def frame_count(self) -> int:
-        return count_frames(self.video_file)
+        if self.video_file is not None:
+            return count_frames(self.video_file)
+        return len(self.data_module.dataset)
 
     @property
     def keypoint_names(self) -> list[str]:
@@ -40,10 +79,12 @@ class PredictionHandler:
     def unpack_preds(
         self, preds: list[tuple[np.ndarray, np.ndarray]]
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Stack per-batch (keypoints, confidences) and trim the padding of
-        the last batch (reference predictions.py:95-142)."""
+        """Stack per-batch (keypoints, confidences) and trim the padding of a
+        video's last batch (reference predictions.py:95-142)."""
         keypoints = np.vstack([np.asarray(kp) for kp, _ in preds])
         confs = np.vstack([np.asarray(c) for _, c in preds])
+        if self.video_file is None:
+            return keypoints, confs
         n_frames = self.frame_count
         return keypoints[:n_frames], confs[:n_frames]
 
@@ -65,10 +106,23 @@ class PredictionHandler:
         # float64 to match the reference's output dtype (CSV formatting)
         return triplets.reshape(n_frames, n_keypoints * 3).astype(np.float64)
 
+    def add_split_indices_to_df(self, df: pd.DataFrame) -> pd.DataFrame:
+        """Add the train/validation/test ``set`` column
+        (reference predictions.py:220-236)."""
+        membership = np.full(len(df), "unused", dtype=object)
+        for split_name, attr in (("train", "train_dataset"), ("validation", "val_dataset"), ("test", "test_dataset")):
+            membership[np.asarray(getattr(self.data_module, attr).indices, dtype=int)] = split_name
+        df["set"] = membership
+        return df
+
     def __call__(self, preds: list[tuple[np.ndarray, np.ndarray]]) -> pd.DataFrame:
-        """The video's prediction dataframe (reference predictions.py:262-327)."""
+        """The prediction dataframe (reference predictions.py:262-327)."""
         keypoints, confs = self.unpack_preds(preds)
-        return pd.DataFrame(
+        df = pd.DataFrame(
             self.make_pred_arr_undo_resize(keypoints, confs),
             columns=make_dlc_pandas_index(cfg=self.cfg, keypoint_names=self.keypoint_names),
         )
+        if self.video_file is None:
+            df = self.add_split_indices_to_df(df)
+            df.index = self.data_module.dataset.image_names
+        return df

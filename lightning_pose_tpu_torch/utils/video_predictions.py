@@ -1,10 +1,13 @@
-"""Video inference: decode -> batched forward on the device -> DLC CSV
-(counterpart of ``lightning_pose_tpu/utils/video_predictions.py``).
+"""Video inference: decode -> batched forward on the device -> DLC CSV,
+with the video's metric CSVs and an optional labeled mp4 (counterpart of
+``lightning_pose_tpu/utils/video_predictions.py``).
 
 Frames are decoded on the host by ``data/video.PredictVideoLoader`` into
-fixed-shape uint8 batches, copied to the device through pinned buffers on a
-side stream, and predicted without a host sync per batch; the results are
-fetched once at the end and written by ``utils/predictions.PredictionHandler``.
+fixed-shape uint8 batches (cropped to per-frame bboxes where given), copied
+to the device through pinned buffers on a side stream, and predicted without
+a host sync per batch; the results are fetched once at the end and written
+by ``utils/predictions.PredictionHandler``. The labeled video is drawn with
+OpenCV.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["predict_video"]
+__all__ = ["generate_labeled_video", "predict_video"]
 
 _PINNED_SLOTS = 2
 
@@ -66,18 +69,25 @@ def predict_video(
     predict_fn: Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     model_dir: str,
     device: torch.device,
+    data_module=None,
     preds_file: str | None = None,
-    compute_metrics: bool = False,
+    generate_labeled_video: bool = False,
+    compute_metrics: bool = True,
+    bbox_df=None,
+    progress_file=None,
 ):
-    """Predict one video and write ``video_preds/<stem>.csv`` (or
-    ``preds_file``). ``predict_fn(images_uint8, bbox)`` takes a ``(T, h, w,
-    3)`` uint8 batch and ``(T, 4)`` full-frame bboxes on ``device``. Returns
-    a ``PredictionResult``."""
-    if compute_metrics:
-        raise NotImplementedError(
-            "video metrics need metrics.py, which is not ported yet "
-            "(ROADMAP queue 1, item 10)"
-        )
+    """Predict one video; write ``video_preds/<stem>.csv`` (or ``preds_file``),
+    its metric side CSVs and, with ``generate_labeled_video``, a labeled mp4
+    in ``labeled_videos/`` beside it. Returns a ``PredictionResult``.
+
+    ``predict_fn(images_uint8, bbox)`` takes a ``(T, h, w, 3)`` uint8 batch
+    and its ``(T, 4)`` [x, y, h, w] bboxes on ``device``. ``bbox_df``: an
+    optional per-frame [x, y, h, w] DataFrame: each frame is cropped to its
+    box and the keypoints are mapped back through it (reference
+    dali.py:332-396). ``progress_file``: JSON progress that steps as each
+    batch's result is fetched. A failure of the metrics or of the labeled
+    video is logged and leaves the predictions written, as in the JAX
+    package."""
     import cv2
 
     from lightning_pose_tpu_torch.data.datatypes import PredictionResult
@@ -90,28 +100,165 @@ def predict_video(
         sequence_length=seq_len,
         resize_height=int(cfg.data.image_resize_dims.height),
         resize_width=int(cfg.data.image_resize_dims.width),
+        bbox_df=bbox_df,
     )
-    # keypoints go back to the original resolution through a full-frame bbox
+    # keypoints go back to the original resolution through a full-frame
+    # bbox, or through the per-frame crop bboxes
     cap = cv2.VideoCapture(str(video_file))
     orig_h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
     orig_w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
     cap.release()
-    bbox = torch.tensor(
-        [[0.0, 0.0, orig_h, orig_w]] * seq_len, dtype=torch.float32, device=device
-    )
+    full_bbox = torch.tensor([[0.0, 0.0, orig_h, orig_w]] * seq_len, dtype=torch.float32, device=device)
+    bbox_rows = None if bbox_df is None else bbox_df[["x", "y", "h", "w"]].to_numpy().astype(np.float32)
+
+    def batch_bbox(i: int) -> torch.Tensor:
+        if bbox_rows is None:
+            return full_bbox
+        idx = np.minimum(np.arange(i * seq_len, (i + 1) * seq_len), len(bbox_rows) - 1)
+        return torch.from_numpy(bbox_rows[idx]).to(device)
+
+    progress = None
+    if progress_file is not None:
+        from lightning_pose_tpu_torch.callbacks import JSONInferenceProgressTracker
+
+        progress = JSONInferenceProgressTracker(progress_file, total_batches=len(loader))
 
     t0 = time.time()
-    device_preds = [predict_fn(batch, bbox) for batch in _device_batches(loader, device)]
-    preds = [(kp.cpu().numpy(), conf.cpu().numpy()) for kp, conf in device_preds]
+    device_preds = [predict_fn(batch, batch_bbox(i)) for i, batch in enumerate(_device_batches(loader, device))]
+    # progress steps when a result reaches the host, so that the file tracks
+    # finished work and not queued launches
+    preds = []
+    for kp, conf in device_preds:
+        preds.append((kp.cpu().numpy(), conf.cpu().numpy()))
+        if progress is not None:
+            progress.step()
     elapsed = time.time() - t0
     logger.info(
         f"predicted {loader.frame_count} frames of {Path(video_file).name} in "
         f"{elapsed:.2f}s ({loader.frame_count / max(elapsed, 1e-9):.1f} frames/s)"
     )
 
-    df = PredictionHandler(cfg=cfg, video_file=video_file)(preds)
+    df = PredictionHandler(cfg=cfg, data_module=data_module, video_file=video_file)(preds)
     if preds_file is None:
         preds_file = str(Path(model_dir) / "video_preds" / (Path(video_file).stem + ".csv"))
     os.makedirs(os.path.dirname(preds_file), exist_ok=True)
     df.to_csv(preds_file)
-    return PredictionResult(predictions=df, metrics=None)
+
+    metrics_result = None
+    if compute_metrics:
+        try:
+            from lightning_pose_tpu_torch.metrics import compute_metrics_single
+
+            metrics_result = compute_metrics_single(
+                cfg=cfg, labels_file=None, preds_file=preds_file, data_module=data_module
+            )
+        except Exception as e:
+            logger.warning(f"video metrics computation failed: {e}")
+
+    if generate_labeled_video:
+        labeled_dir = Path(preds_file).parent / "labeled_videos"
+        labeled_dir.mkdir(parents=True, exist_ok=True)
+        try:
+            _create_labeled_video(
+                video_file=video_file,
+                preds_df_file=preds_file,
+                output_mp4=str(labeled_dir / (Path(video_file).stem + "_labeled.mp4")),
+                confidence_thresh=float(cfg.eval.get("confidence_thresh_for_vid", 0.9)),
+                colormap=str(cfg.eval.get("colormap", "cool")),
+            )
+        except Exception as e:
+            logger.warning(f"labeled video generation failed: {e}")
+
+    return PredictionResult(predictions=df, metrics=metrics_result)
+
+
+def generate_labeled_video(
+    video_file: str,
+    preds_df_file: str,
+    output_mp4: str,
+    confidence_thresh: float = 0.9,
+    colormap: str = "cool",
+    dotsize: int = 4,
+) -> None:
+    """Draw a predictions CSV's keypoints on its video (reference
+    predictions.py:714)."""
+    _create_labeled_video(
+        video_file=video_file,
+        preds_df_file=preds_df_file,
+        output_mp4=output_mp4,
+        confidence_thresh=confidence_thresh,
+        colormap=colormap,
+        dotsize=dotsize,
+    )
+
+
+def _make_cmap(n: int, cmap: str) -> np.ndarray:
+    """``(n, 3)`` uint8 RGB colors evenly spaced over a colormap, as
+    matplotlib's ``ScalarMappable(cmap=cmap).to_rgba(np.linspace(0, 1, n))``
+    gives them (reference predictions.py:560-574).
+
+    matplotlib is not a requirement of the port, so that the default
+    labeled video works without it: ``cool`` (the default of
+    ``eval.colormap``) is computed here as matplotlib does, a 256-entry
+    table of the linear segments from cyan to magenta indexed by
+    ``min(int(256 x), 255)``. Another colormap needs matplotlib."""
+    if cmap != "cool":
+        try:
+            import matplotlib.pyplot as plt
+        except ImportError:
+            raise ValueError(f"colormap {cmap!r} needs matplotlib; 'cool' does not") from None
+        colors = plt.cm.ScalarMappable(cmap=cmap).to_rgba(np.linspace(0, 1, n))
+        return (colors[:, :3] * 255).astype(np.uint8)
+    table = np.linspace(0.0, 1.0, 256)
+    idx = np.minimum((np.linspace(0.0, 1.0, n) * 256).astype(int), 255)
+    red = table[idx]
+    rgb = np.stack([red, -red + 1.0, np.ones_like(red)], axis=1)
+    return (rgb * 255).astype(np.uint8)
+
+
+def _create_labeled_video(
+    video_file: str,
+    preds_df_file: str,
+    output_mp4: str,
+    confidence_thresh: float = 0.9,
+    colormap: str = "cool",
+    dotsize: int = 4,
+    resize_dims: tuple[int, int] | None = None,
+) -> None:
+    """Draw the predicted keypoints above ``confidence_thresh`` on each frame
+    with OpenCV and write an mp4 (the reference uses moviepy + cv2,
+    reference predictions.py:576-713)."""
+    import cv2
+    import pandas as pd
+
+    df = pd.read_csv(preds_df_file, header=[0, 1, 2], index_col=0)
+    xyl_mask = df.columns.get_level_values("coords").isin(["x", "y", "likelihood"])
+    arr = df.loc[:, xyl_mask].to_numpy().reshape(df.shape[0], -1, 3)
+    n_keypoints = arr.shape[1]
+    colors = _make_cmap(n_keypoints, colormap)
+
+    cap = cv2.VideoCapture(str(video_file))
+    fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    orig_w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    orig_h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    writer = cv2.VideoWriter(output_mp4, cv2.VideoWriter_fourcc(*"mp4v"), fps, (orig_w, orig_h))
+    # predictions in model-resize coordinates are scaled back to the video's
+    if resize_dims is not None:
+        sx, sy = orig_w / resize_dims[0], orig_h / resize_dims[1]
+    else:
+        sx = sy = 1.0
+    frame_idx = 0
+    while frame_idx < arr.shape[0]:
+        ret, frame = cap.read()
+        if not ret:
+            break
+        for k in range(n_keypoints):
+            x, y, likelihood = arr[frame_idx, k]
+            if np.isnan(x) or likelihood < confidence_thresh:
+                continue
+            color = tuple(int(c) for c in colors[k][::-1])  # BGR
+            cv2.circle(frame, (int(x * sx), int(y * sy)), dotsize, color, -1)
+        writer.write(frame)
+        frame_idx += 1
+    cap.release()
+    writer.release()

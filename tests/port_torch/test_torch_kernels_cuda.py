@@ -153,6 +153,9 @@ def _decode_grads(hm, df, seed=0):
         (2, 5, 32, 32, 3),
         (3, 3, 20, 12, 1),  # H not a multiple of the 16-row chunk; W of 8
         (2, 3, 9, 7, 0),
+        (3, 7, 64, 64, 2),  # 21 maps: no multiple of the cluster or the strip count
+        (2, 5, 64, 64, 3),  # strips of 128 rows walked in chunks
+        (1, 2, 128, 128, 2),  # too many dhm tiles a strip to cut their rows in two
     ],
 )
 def test_decode_backward_kernel_matches_autograd_of_plain(cuda_device, b, k, h, w, df):
@@ -163,6 +166,20 @@ def test_decode_backward_kernel_matches_autograd_of_plain(cuda_device, b, k, h, 
     scale = float(grad_ref.abs().max())
     assert scale > 0 and bool(torch.isfinite(grad).all())
     assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * scale
+
+
+def test_decode_backward_kernel_is_deterministic(cuda_device):
+    """No atomics: two launches on the same inputs give bitwise the same
+    gradient."""
+    hm = _peaked_maps(32, 17, 64, 64, seed=8).to(cuda_device)
+    ops = decode_kernel._device_operands(64, 64, 2, decode_kernel._layout(), cuda_device)
+    lse2 = torch.empty(32 * 17, device=cuda_device)
+    kp, _ = decode_kernel._launch(hm, ops, 2, 1000.0, lse2)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((32, 34)).astype(np.float32)).to(cuda_device)
+    first = decode_kernel._launch_grad(hm, kp, lse2, g, ops, 2, 1000.0)
+    second = decode_kernel._launch_grad(hm, kp, lse2, g, ops, 2, 1000.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
 
 
 def test_decode_backward_on_flat_maps(cuda_device):

@@ -87,7 +87,7 @@ def test_unlabeled_loader_pads_and_refuses(two_videos, tmp_path):
         np.testing.assert_array_equal(window["frames"][13:], np.repeat(window["frames"][12:13], 3, axis=0))
     finally:
         loader.close()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         UnlabeledVideoLoader(two_videos, 8, 32, 32, transfer_format="yuv420")
     with pytest.raises(FileNotFoundError):
         UnlabeledVideoLoader([str(tmp_path / "none.mp4")], 8, 32, 32)
@@ -473,9 +473,9 @@ def test_factories_build_the_semisupervised_module(semisup_data):
 @pytest.mark.parametrize(
     "change, error, match",
     [
-        ({"losses_to_use": ["pca_multiview"]}, NotImplementedError, "item 12"),
-        ({"video_transfer_format": "yuv420"}, NotImplementedError, "item 10"),
-        ({"view_names": ["top", "bot"]}, NotImplementedError, "item 12"),
+        ({"losses_to_use": ["pca_multiview"]}, NotImplementedError, "item 6"),
+        ({"video_transfer_format": "yuv420"}, NotImplementedError, "item 5"),
+        ({"view_names": ["top", "bot"]}, NotImplementedError, "item 6"),
     ],
 )
 def test_factories_refuse_what_is_not_ported(semisup_data, change, error, match):

@@ -132,9 +132,7 @@ def test_unported_options_raise(slice_model_dir, slice_video, tmp_path, override
 def test_unported_entry_points_raise(slice_model_dir, port_model, slice_video):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model.from_dir(slice_model_dir, device="cpu", data_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.predict_on_video_file(slice_video, compute_metrics=True)
-    for method in (port_model.compile, port_model.export, port_model.predict_on_label_csv):
+    for method in (port_model.compile, port_model.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             method()
 
