@@ -61,6 +61,37 @@ Phases, each fatal on failure:
      backward kernel beside its plain version, its bound and the time
      PERF.md records for its first design (BACKWARD_FIRST_DESIGN_MS), and the warp at
      the window's shape (32, 256, 256, 3) with the L2 flushed.
+ 12. the context model (heatmap_mhcrnn: 5-frame stacks, single-frame and
+     CRNN multi-frame heads), ResNet-50, 256 px, 17 keypoints, bf16:
+     a. train(cfg, dir) supervised, 10 steps of 16 stacks with dlc, with its
+        evaluation; launches of the warp (once a step over 80 images), CLAHE
+        (once a step whose seeded draws fire it) and the decode (once a step
+        over both heads' 32 maps, once a validation batch, twice an
+        evaluation batch) each against that count; then the step's ms,
+        frames/s, device busy share (torch.profiler) and peak memory;
+     b. from its directory: predict_on_video_file of a 1000-frame mp4 (11
+        batches of 92 windows; normalize once and decode twice a batch, one
+        finite row per frame), run 3 times: frames/s of the first (cold) run
+        and of the two after it; predict_on_label_csv, predict_frame of a
+        (5, H, W, 3) stack, and fp32 card (TF32 off) vs CPU;
+     c. the directory with mhcrnn_context_mode repeat_center: the backbone
+        takes one image a window (counted by a hook), and the outputs equal
+        adjacent mode's on repeated stacks;
+     d. train(cfg, dir) semi-supervised (pca_singleview + temporal; 16
+        stacks and the 28 windows of a 32-frame window a step), 10 steps:
+        the decode's backward twice a step; the step's ms, busy share and
+        the backward's share of device time;
+     e. each kernel at the shapes of the path whose launches the JSON
+        summary counts, beside its plain version and bound: the warp over
+        a step's 80 stack images (and F.grid_sample), CLAHE at each of 12a's
+        fired steps, the decode at a video batch's 92 windows and its
+        backward at an unlabeled window's 28.
+     Phase 3 also holds the warp over 80 stack images (each stack's field
+     repeated over its 5 frames), CLAHE at 12a's fired steps' planes, and
+     the decode and its backward on a random-init context model's
+     multi-frame maps (28, 17, 64, 64), against their plain versions. Each
+     kernel's entry in the JSON summary names the phase-12 path whose
+     launches it counts and the shape its times were taken at.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
 the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
@@ -124,6 +155,22 @@ DECODE_GRAD_REL_TOL = 1e-3
 # window's shape, as PERF.md records it (H100 80GB HBM3, 700 W); this run
 # does not time that design, it only prints the recorded time beside its own
 BACKWARD_FIRST_DESIGN_MS = 0.7364
+# the context model (heatmap_mhcrnn): train() steps of each configuration,
+# the unlabeled window's 5-frame windows, the frames of the synthetic video
+# (11 batches of 92 windows, not a multiple of 92: the first batch's
+# warm-up a small share) and the runs over it (the first cold, the others
+# warm), the limits of fp32 on
+# the card against the CPU and of repeat_center against adjacent on
+# repeated stacks (fp32, TF32 off: the backbone sees 1 image or 5 copies,
+# the same per-image sums in another cuDNN plan)
+CONTEXT_STEPS = 10
+CONTEXT_FRAMES = 5
+CONTEXT_WINDOWS = WINDOW - 4
+CONTEXT_VIDEO_FRAMES = 1000
+CONTEXT_VIDEO_RUNS = 3
+CONTEXT_SEED = 4
+CONTEXT_TOL_PX = 0.05
+CONTEXT_CONF_TOL = 1e-3
 # one semi-supervised step, card against CPU, fp32, TF32 off: the gradient
 # through the temperature-1000 decode is ill-conditioned in fp32 (on the
 # CPU the port's fp32 gradients are up to 0.7% of a leaf's largest entry
@@ -570,14 +617,12 @@ def semisup_card_vs_cpu(card: str) -> tuple[float, float]:
     return leaf_err, norm_err
 
 
-def semisup_phase(rng, card: str) -> dict:
+def semisup_phase(rng, card: str) -> None:
     """Phase 11: train() of the semi-supervised configuration, prediction
-    from its directory, then the step's times. Returns the decode backward's
-    launches in the train() run and its times."""
+    from its directory, then the step's times."""
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from lightning_pose_tpu_torch.api.model import Model
     from lightning_pose_tpu_torch.losses.factory import get_loss_factories
@@ -677,26 +722,17 @@ def semisup_phase(rng, card: str) -> dict:
             draws = engine.sample(draw_gen, TRAIN_BATCH, field_gen)
             step(state, cache, idxs, valid, draws, window, sample_video_draws(draw_gen, WINDOW, IMAGE, IMAGE, field_gen))
 
-        for _ in range(3):
-            one_step()
-        n = 20
-        step_ms = timed(lambda: [one_step() for _ in range(n)]) * 1e3 / n
-        n_prof = 5
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prof_s = timed(lambda: [one_step() for _ in range(n_prof)])
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and "Optimizer.step" not in e.key]
-        device_us = sum(e.self_device_time_total for e in kernels)
-        grad_us = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key)
-        fwd_us = sum(e.self_device_time_total for e in kernels if "decode_kernel" in e.key and "grad" not in e.key)
-        busy = device_us / (prof_s * 1e6)
+        n, n_prof = 20, 5
+        step_ms, device_ms, kernels, busy = profiled_step(one_step, n, n_prof)
+        step_grad_ms = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key) / n_prof / 1e3
+        fwd_ms = sum(e.self_device_time_total for e in kernels
+                     if "decode_kernel" in e.key and "grad" not in e.key) / n_prof / 1e3
         log(f"phase 11 semi-supervised step (ResNet-50, {IMAGE} px, bf16, {TRAIN_BATCH} labeled with dlc + {WINDOW} "
             f"unlabeled, backbone unfrozen): {step_ms:.3f} ms, {(TRAIN_BATCH + WINDOW) / step_ms * 1e3:.1f} frames/s, "
             f"mean of {n} steps by the host clock with draws sampled in each; torch.profiler over {n_prof} steps: "
-            f"{device_us / 1e3 / n_prof:.3f} ms of device time a step, the device busy {busy:.1%} of "
-            f"{prof_s * 1e3 / n_prof:.3f} ms; the decode's backward {grad_us / n_prof / 1e3:.4f} ms a step "
-            f"({grad_us / max(device_us, 1e-9):.2%} of the device time), its forward {fwd_us / n_prof / 1e3:.4f} ms "
-            f"{card}")
+            f"{device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; the decode's backward "
+            f"{step_grad_ms:.4f} ms a step ({step_grad_ms / max(device_ms, 1e-9):.2%} of the device time), its forward "
+            f"{fwd_ms:.4f} ms {card}")
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         log("phase 11 largest device-time entries a step: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / n_prof / 1e3:.3f} ms" for e in top))
@@ -714,9 +750,7 @@ def semisup_phase(rng, card: str) -> dict:
         plain_ms = cuda_ms(lambda: torch.autograd.grad(kp_plain, x, g, retain_graph=True))
         maps = WINDOW * KEYPOINTS
         flops = decode_grad_flops(maps, hm_h, hm_h, DOWNSAMPLE)
-        n_bytes = (2 * hm.numel() + maps * 5) * 4
-        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        bound = bound_of((2 * hm.numel() + maps * 5) * 4, flops)
         plan = decode_kernel._device_grad_operands(hm_h, hm_h, DOWNSAMPLE, ops.wp, ops.tile_band, dev)
         log(f"phase 11 decode backward at {tuple(hm.shape)} df {DOWNSAMPLE} ({flops / 1e9:.3f} GFLOP banded): kernel "
             f"{grad_ms:.4f} ms back to back, plain (autograd's backward of the plain decode) {plain_ms:.4f} ms; bound "
@@ -738,7 +772,6 @@ def semisup_phase(rng, card: str) -> dict:
         log(f"phase 11 warp at the window's shape {tuple(frames.shape)}, L2 flushed: {warp_ms:.5f} ms; bound "
             f"{warp_bound:.5f} ms (bytes: {warp_bytes / 1e6:.1f} MB, of which the expanded coordinates "
             f"{coords.numel() * 4 / 1e6:.1f} MB), {warp_bound / warp_ms:.1%} of it reached {card}")
-    return {"launches": launches["decode_grad"], "ms": grad_ms, "plain_ms": plain_ms, "bound": bound}
 
 
 def check_image_preds(model_dir: Path, csv_name: str, metrics: list[str]) -> list[str]:
@@ -802,11 +835,10 @@ def label_csv_phase(model_dir: Path, card: str) -> None:
         f"{diff:.3e} px (limit {CARD_VS_CPU_TOL_PX})")
 
 
-def train_phase(rng, card: str) -> dict[str, int]:
+def train_phase(rng, card: str) -> None:
     """Phases 8, 8b and 9: train() of the default model on a synthetic
     labeled set with its evaluation, prediction from the directory it wrote
-    (a video, the labeled CSV), then the train step's times. Returns the
-    warp and CLAHE launches of the train() run."""
+    (a video, the labeled CSV), then the train step's times."""
     import math
 
     import torch
@@ -904,7 +936,468 @@ def train_phase(rng, card: str) -> dict[str, int]:
             f"{step_ms:.3f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} frames/s, mean of {n} steps by the host clock "
             f"with draws sampled in each; the augmentation's apply() alone {aug_ms:.3f} ms per call (CUDA "
             f"events over back-to-back calls with one draw, which count the host's launch gaps) {card}")
-    return launches
+
+
+# -- the context model (heatmap_mhcrnn) ----------------------------------------------
+
+
+def multiframe_maps(rng, dev):
+    """The multi-frame head's maps of a random-init context model (ResNet-50,
+    17 keypoints, the CRNN at Xavier gain 1.0 as flax initialises it) on the
+    28 windows of a 32-frame window, train mode, bf16: ``(28, 17, 64, 64)``
+    fp32 probability maps, far more peaked than the single-frame head's."""
+    import torch
+
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import make_context_windows
+    from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+
+    torch.manual_seed(SEED)
+    model = build_model("heatmap_mhcrnn", "resnet50", KEYPOINTS, DOWNSAMPLE)
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    frames = torch.from_numpy(rng.integers(0, 256, (WINDOW, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+    windows = make_context_windows(normalize_images(frames).permute(0, 3, 1, 2))
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hm_sf, hm_mf = model(windows)
+    peak = lambda hm: float(hm.flatten(2).amax(-1).mean())  # noqa: E731
+    log(f"phase 3 multi-frame maps of a random-init context model {tuple(hm_mf.shape)}: mean peak "
+        f"{peak(hm_mf):.3e} (the single-frame head's {peak(hm_sf):.3e}; a uniform map's {1 / hm_mf[0, 0].numel():.3e})")
+    return hm_mf.float().contiguous()
+
+
+def context_kernel_checks(rng, engine, errors: dict) -> dict:
+    """Phase 3 at the context model's shapes: the warp over 16 stacks (80
+    images, each stack's field repeated over its 5 frames), CLAHE over the
+    15 planes of each stack that phase 12a's draws fire it on, one input a
+    fired step, and the decode and its backward on multi-frame-head maps
+    ``(28, 17, 64, 64)``, each against its plain version. Returns the
+    inputs, for the times."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import decode_kernel, warp_kernel
+
+    dev = torch.device("cuda", 0)
+    draws = forced_draws(engine, TRAIN_BATCH, SEED + 2)
+    _, coords, _, _ = engine.sampling_grid(draws, TRAIN_BATCH, dev)
+    coords = coords.repeat_interleave(CONTEXT_FRAMES, dim=0).contiguous()
+    n_img = TRAIN_BATCH * CONTEXT_FRAMES
+    stacks = torch.from_numpy(rng.uniform(0, 255, (n_img, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    out = warp_kernel.warp(stacks, coords)
+    ref = warp_kernel.warp_plain(stacks, coords)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f"phase 3 warp context stacks {tuple(stacks.shape)}, {TRAIN_BATCH} fields repeated over "
+        f"{CONTEXT_FRAMES} frames: max abs err {err:.3e} gray (limit {GRAY_TOL})")
+    check(bool(torch.isfinite(out).all()) and err <= GRAY_TOL, "warp of context stacks disagrees with its plain version")
+    errors["warp"] = max(errors["warp"], err)
+
+    clahe_inputs = []
+    for n_fired in clahe_fired_stacks(engine, CONTEXT_STEPS):
+        planes = torch.from_numpy(rng.uniform(0, 255, (n_fired * CONTEXT_FRAMES, 3, IMAGE, IMAGE)).astype(np.float32))
+        clip = torch.from_numpy(np.repeat(rng.uniform(1.0, 8.0, n_fired), CONTEXT_FRAMES).astype(np.float32))
+        err, x_lut = check_clahe(planes.to(dev), clip.to(dev), 16)
+        errors["clahe"] = max(errors["clahe"], err)
+        clahe_inputs.append(x_lut)
+
+    hm = multiframe_maps(rng, dev)
+    kp, conf = decode_kernel.decode(hm, DOWNSAMPLE)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm, DOWNSAMPLE)
+    torch.cuda.synchronize()
+    kp_err, conf_err, flips = decode_errors(kp, conf, kp_ref, conf_ref, decode_kernel.GRID_OFFSETS[DOWNSAMPLE])
+    log(f"phase 3 decode multi-frame maps {tuple(hm.shape)}: keypoints max abs err {kp_err:.3e} px (limit "
+        f"{DECODE_KP_TOL_PX}), confidences {conf_err:.3e} (limit {DECODE_CONF_TOL}), windows differing {flips} "
+        f"(limit {DECODE_MAX_WINDOW_FLIPS})")
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), "decode multi-frame maps: non-finite")
+    check(kp_err <= DECODE_KP_TOL_PX and conf_err <= DECODE_CONF_TOL and flips <= DECODE_MAX_WINDOW_FLIPS,
+          "decode of multi-frame maps disagrees with its plain version")
+    errors["decode"] = max(errors["decode"], kp_err)
+    grad, grad_ref = decode_grads(hm, DOWNSAMPLE, seed=SEED + 5)
+    err, scale = float((grad - grad_ref).abs().max()), float(grad_ref.abs().max())
+    log(f"phase 3 decode backward multi-frame maps {tuple(hm.shape)}: max abs err {err:.3e} of a largest entry "
+        f"{scale:.3e} ({err / scale:.2e}, limit {DECODE_GRAD_REL_TOL})")
+    check(bool(torch.isfinite(grad).all()) and scale > 0, "decode backward of multi-frame maps: non-finite or zero")
+    check(err <= DECODE_GRAD_REL_TOL * scale, "decode backward of multi-frame maps disagrees with its plain version")
+    errors["decode_grad"] = max(errors["decode_grad"], err)
+    return {"stacks": stacks, "coords": coords, "hm_mf": hm, "clahe": clahe_inputs}
+
+
+def bound_of(n_bytes: int, flops: int) -> tuple[float, str]:
+    """The least time the card could take for a kernel's work: its bytes at
+    the HBM rate or its FP32 operations at the FP32 rate, the larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def context_times(inputs: dict, card: str) -> dict[str, tuple]:
+    """Phase 12e: each kernel at the shapes the context model's paths give
+    it, beside its plain version, its bound and, for the warp,
+    ``F.grid_sample``: the warp over a step's 80 stack images (phase 12a),
+    CLAHE at each fired step's planes (12a; the mean a launch), with the L2
+    flushed before each launch; the decode at a video batch's 92 windows
+    (12b) and its backward at an unlabeled window's 28 (12d), on
+    multi-frame maps, back to back. Returns name -> (ms, plain_ms,
+    library_ms, (bound_ms, bound_by), shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, warp_kernel
+
+    dev = torch.device("cuda", 0)
+    stacks, coords, hm = inputs["stacks"], inputs["coords"], inputs["hm_mf"]
+    nchw = stacks.permute(0, 3, 1, 2)
+    grid = torch.stack([2 * coords[..., 0] / (IMAGE - 1) - 1, 2 * coords[..., 1] / (IMAGE - 1) - 1], dim=-1)
+    warp_rounds = flushed_rounds({
+        "kernel": lambda: warp_kernel.warp(stacks, coords),
+        "grid_sample": lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+    })
+    warp_plain_ms = flushed_ms(lambda: warp_kernel.warp_plain(stacks, coords), iters=10)
+
+    clahe = [(flushed_ms(lambda: clahe_kernel.clahe_apply(x, lut, 16)),
+              flushed_ms(lambda: clahe_kernel.clahe_apply_plain(x, lut, 16), iters=10),
+              bound_of((x.numel() * 2 + lut.numel()) * 4, 0)[0]) for x, lut in inputs["clahe"]]
+    planes = [x.shape[0] for x, _ in inputs["clahe"]]
+
+    hm_video = hm.repeat(4, 1, 1, 1)[:BATCH - 4].contiguous()  # a video batch's 92 windows
+    n_maps, hm_h, hm_w = hm_video.shape[0] * KEYPOINTS, hm.shape[2], hm.shape[3]
+    dec_ms = cuda_ms(lambda: decode_kernel.decode(hm_video, DOWNSAMPLE), iters=50)
+    dec_plain_ms = cuda_ms(lambda: decode_kernel.decode_plain(hm_video, DOWNSAMPLE))
+    dec_bound = bound_of((hm_video.numel() + n_maps * 3) * 4, decode_flops(n_maps, hm_h, hm_w, DOWNSAMPLE))
+
+    n_maps = hm.shape[0] * KEYPOINTS
+    ops = decode_kernel._device_operands(hm_h, hm_w, DOWNSAMPLE, decode_kernel._layout(), dev)
+    lse2 = torch.empty(n_maps, device=dev)
+    kp, _ = decode_kernel._launch(hm, ops, DOWNSAMPLE, 1000.0, lse2)
+    g = torch.randn(kp.shape, device=dev)
+    grad_ms = cuda_ms(lambda: decode_kernel._launch_grad(hm, kp, lse2, g, ops, DOWNSAMPLE, 1000.0), iters=50)
+    x = hm.clone().requires_grad_()
+    kp_plain, _ = decode_kernel.decode_plain(x, DOWNSAMPLE)
+    grad_plain_ms = cuda_ms(lambda: torch.autograd.grad(kp_plain, x, g, retain_graph=True))
+    grad_bound = bound_of((2 * hm.numel() + n_maps * 5) * 4, decode_grad_flops(n_maps, hm_h, hm_w, DOWNSAMPLE))
+
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    times = {
+        "warp": (float(np.median(warp_rounds["kernel"])), warp_plain_ms, float(np.median(warp_rounds["grid_sample"])),
+                 bound_of((stacks.numel() * 2 + coords.numel()) * 4, 0),
+                 f"{tuple(stacks.shape)} fp32, {TRAIN_BATCH} fields repeated over {CONTEXT_FRAMES} frames"),
+        "clahe": (mean([c[0] for c in clahe]), mean([c[1] for c in clahe]), None, (mean([c[2] for c in clahe]), "bytes"),
+                  f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {planes} in phase 12a's fired steps; the mean a launch"),
+        "decode": (dec_ms, dec_plain_ms, None, dec_bound,
+                   f"{tuple(hm_video.shape)} fp32 multi-frame maps, df {DOWNSAMPLE}"),
+        "decode_grad": (grad_ms, grad_plain_ms, None, grad_bound,
+                        f"{tuple(hm.shape)} fp32 multi-frame maps, df {DOWNSAMPLE}"),
+    }
+    for name, (ms, plain_ms, library_ms, (bound, bound_by), shape) in times.items():
+        lib_text = f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""
+        log(f"phase 12e {name} at the context model's shape {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms"
+            f"{lib_text}; bound {bound:.5f} ms ({bound_by}), {bound / ms:.1%} of it reached {card}")
+    return times
+
+
+def context_config(cfg, name: str):
+    """The context model (heatmap_mhcrnn, adjacent context) in ``cfg``:
+    CONTEXT_STEPS steps, seeded draws, 96-frame prediction sequences (92
+    windows a batch)."""
+    cfg.model.model_type = "heatmap_mhcrnn"
+    cfg.model.model_name = name
+    cfg.training.max_steps = cfg.training.min_steps = CONTEXT_STEPS
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [5, 8]
+    cfg.training.rng_seed_data_pt = CONTEXT_SEED
+    cfg.dali.context.predict.sequence_length = BATCH
+    return cfg
+
+
+def clahe_fired_stacks(engine, steps: int) -> list[int]:
+    """The stacks that CLAHE fires on in each step of phase 12a's train()
+    whose draws (the same seeded generators as train()'s) fire it at all:
+    one CLAHE launch each, over 15 planes a stack."""
+    import torch
+
+    gen = torch.Generator().manual_seed(CONTEXT_SEED)
+    field_gen = torch.Generator("cuda").manual_seed(CONTEXT_SEED)
+    p = engine.spec["clahe"]["p"]
+    fired = [int((engine.sample(gen, TRAIN_BATCH, field_gen).clahe_u < p).sum()) for _ in range(steps)]
+    return [n for n in fired if n]
+
+
+def profiled_step(one_step, n: int = 10, n_prof: int = 5) -> tuple[float, float, list, float]:
+    """The step's mean ms over ``n`` steps by the host clock, then
+    ``torch.profiler`` over ``n_prof``: device ms a step, its device-time
+    entries (the Adam annotation left out: it spans the Adam kernels) and
+    the device's busy share of the profiled time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        one_step()
+    step_ms = timed(lambda: [one_step() for _ in range(n)]) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_s = timed(lambda: [one_step() for _ in range(n_prof)])
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "Optimizer.step" not in e.key]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    return step_ms, device_us / 1e3 / n_prof, kernels, device_us / (prof_s * 1e6)
+
+
+def context_predict_phase(model_dir: Path, video: Path, card: str) -> dict[str, int]:
+    """Phases 12b and 12c from the context model's directory. Returns the
+    normalize and decode launches of the first video run."""
+    import math
+    import shutil
+
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.config import Config
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    model = Model.from_dir(model_dir)
+    model._load()  # the model's load and weights stay out of the counts and the time
+    torch.cuda.synchronize()
+    rates = []
+    for run in range(CONTEXT_VIDEO_RUNS):
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        df = model.predict_on_video_file(video, compute_metrics=False).predictions
+        rates.append(CONTEXT_VIDEO_FRAMES / (time.perf_counter() - t0))
+        if run == 0:
+            video_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    batches = math.ceil((CONTEXT_VIDEO_FRAMES - 4) / (BATCH - 4))
+    check(df.shape == (CONTEXT_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+          f"the context model's video CSV: shape {df.shape} or non-finite values")
+    check(video_launches == {"normalize": batches, "decode": 2 * batches},
+          f"context video launches {video_launches}, {batches} batches of {BATCH - 4} windows")
+    log(f"phase 12b predict_on_video_file (bf16, without metrics): {CONTEXT_VIDEO_FRAMES} frames of a 320x240 mp4 "
+        f"in {batches} batches of {BATCH} frames ({BATCH - 4} windows), one finite row per frame; launches "
+        f"{video_launches} (normalize 1, decode 2 a batch) in the first run; frames/s with the mp4's decode, the "
+        f"model loaded before: {rates[0]:.1f} in the first run (loader threads started, first calls at these "
+        f"shapes), {', '.join(f'{r:.1f}' for r in rates[1:])} in the next {len(rates) - 1} {card}")
+
+    normalize_kernel.launches = decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = model.predict_on_label_csv("CollectedData.csv", output_dir=model_dir / "label_csv_bf16")
+    elapsed = time.perf_counter() - t0
+    csv_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    csv_batches = math.ceil(TRAIN_FRAMES / int(model.cfg.training.test_batch_size))
+    check(csv_launches == {"normalize": csv_batches, "decode": 2 * csv_batches},
+          f"context label CSV launches {csv_launches}, {csv_batches} batches")
+    frame_df = result.predictions
+    check(frame_df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and np.isfinite(frame_df.iloc[:, :-1].to_numpy(float)).all(),
+          f"context predict_on_label_csv: shape {frame_df.shape} or non-finite values")
+    check(result.metrics is not None and result.metrics.pixel_error_df is not None, "no pixel-error metrics")
+    log(f"phase 12b predict_on_label_csv (bf16): {TRAIN_FRAMES} context stacks in {csv_batches} batches, launches "
+        f"{csv_launches}, {elapsed:.2f} s with metrics {card}")
+
+    srng = np.random.default_rng(SEED + 7)
+    stacks = srng.integers(0, 256, (2, CONTEXT_FRAMES, 240, 320, 3), dtype=np.uint8)
+    out = model.predict_frame(stacks[0], bbox=(10, 20, 280, 200))
+    check(out["keypoints"].shape == (KEYPOINTS, 2) and np.isfinite(out["keypoints"]).all()
+          and np.isfinite(out["confidence"]).all(), "predict_frame of a context stack")
+    fp32 = {d: Model.from_dir(model_dir, precision="fp32", device=d) for d in ("cuda", "cpu")}
+    res = {d: [m.predict_frame(st) for st in stacks] for d, m in fp32.items()}
+    kp_diff = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(res["cuda"], res["cpu"]))
+    conf_diff = max(float(np.abs(a["confidence"] - b["confidence"]).max()) for a, b in zip(res["cuda"], res["cpu"]))
+    log(f"phase 12b predict_frame of a (5, 240, 320, 3) stack with a bbox: finite; fp32 card (TF32 off) vs CPU on "
+        f"2 stacks: keypoints max abs diff {kp_diff:.3e} px (limit {CONTEXT_TOL_PX}), confidences {conf_diff:.3e}")
+    check(kp_diff <= CONTEXT_TOL_PX, f"context predict_frame card vs CPU: {kp_diff} px")
+
+    # -- 12c. repeat_center from the same weights ---------------------------------
+    rc_dir = model_dir.parent / "model_repeat_center"
+    shutil.copytree(model_dir, rc_dir, ignore=shutil.ignore_patterns("label_csv_*", "video_preds", "image_preds"))
+    cfg = Config.from_yaml(str(rc_dir / "config.yaml"))
+    cfg.model.mhcrnn_context_mode = "repeat_center"
+    cfg.save(str(rc_dir / "config.yaml"))
+    adjacent, repeat = fp32["cuda"], Model.from_dir(rc_dir, precision="fp32")
+    repeat._load()
+    seen = {"adjacent": 0, "repeat_center": 0}
+    for name, m in (("adjacent", adjacent), ("repeat_center", repeat)):
+        m._predict_step.model.backbone.register_forward_pre_hook(
+            lambda mod, args, name=name: seen.__setitem__(name, seen[name] + args[0].shape[0]))
+    centers = srng.integers(0, 256, (2, 240, 320, 3), dtype=np.uint8)
+    repeated = [np.repeat(c[None], CONTEXT_FRAMES, axis=0) for c in centers]
+    out_a = [adjacent.predict_frame(st) for st in repeated]
+    out_r = [repeat.predict_frame(st) for st in repeated]
+    kp_diff = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(out_a, out_r))
+    conf_diff = max(float(np.abs(a["confidence"] - b["confidence"]).max()) for a, b in zip(out_a, out_r))
+    stack_images = dict(seen)
+    check(stack_images == {"adjacent": 2 * CONTEXT_FRAMES, "repeat_center": 2},
+          f"backbone images on 2 stacks: {stack_images}")
+    check(kp_diff <= CONTEXT_TOL_PX and conf_diff <= CONTEXT_CONF_TOL,
+          f"repeat_center vs adjacent on repeated stacks: {kp_diff} px, confidences {conf_diff}")
+    seen["repeat_center"] = 0
+    df_r = repeat.predict_on_video_file(video, compute_metrics=False).predictions
+    check(df_r.shape == (CONTEXT_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df_r.to_numpy()).all(),
+          "repeat_center video CSV")
+    check(seen["repeat_center"] == batches * (BATCH - 4), f"repeat_center video: backbone saw {seen['repeat_center']}")
+    log(f"phase 12c repeat_center (fp32, TF32 off) from the same weights: the backbone took {stack_images} images for "
+        f"2 stacks and {seen['repeat_center']} for the {CONTEXT_VIDEO_FRAMES}-frame video ({batches} batches of "
+        f"{BATCH - 4} windows; adjacent context takes 5 a window); on repeated stacks against adjacent: keypoints max "
+        f"abs diff {kp_diff:.3e} px (limit {CONTEXT_TOL_PX}), confidences {conf_diff:.3e} (limit {CONTEXT_CONF_TOL})")
+    return video_launches
+
+
+def context_phase(rng, card: str) -> dict[str, int]:
+    """Phases 12a-12d: train() of the context model, supervised then
+    semi-supervised, with prediction from the directory; the launches of
+    each kernel on this slice's paths, each against what the code implies.
+    Returns the launches of each kernel on one path: the warp and CLAHE in
+    12a's train(), normalize and the decode in 12b's first video run, the
+    decode's backward in 12d's train()."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+    dev = torch.device("cuda", 0)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    meta = {"model_type": "heatmap_mhcrnn", "downsample_factor": DOWNSAMPLE}
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    with tempfile.TemporaryDirectory() as tmp:
+        # img0000.png, img0001.png, ...: each labeled frame has real neighbours
+        data = write_labeled_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        for i in range(2):
+            write_unlabeled_video(data, f"session{i}", 120, 240, 320, n_blobs=KEYPOINTS, seed=SEED + i)
+
+        # -- 12a. supervised train() -------------------------------------------
+        cfg = context_config(train_config(data, names), "smokectx")
+        model_dir = Path(tmp) / "model"
+        implied_clahe = len(clahe_fired_stacks(engine, CONTEXT_STEPS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches}
+        eval_normalizes = normalize_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        implied = {"warp": CONTEXT_STEPS, "clahe": implied_clahe,
+                   "decode": CONTEXT_STEPS + val_batches + 2 * eval_batches}
+        log(f"phase 12a context train(): {CONTEXT_STEPS} steps of {TRAIN_BATCH} stacks of {CONTEXT_FRAMES} frames "
+            f"(ResNet-50, {IMAGE} px, dlc, bf16) in {elapsed:.1f} s with set-up and evaluation; launches {launches}, "
+            f"implied {implied} (the warp once a step over {TRAIN_BATCH * CONTEXT_FRAMES} images, CLAHE once a step "
+            f"whose draws fire it, the decode once a step on the {2 * TRAIN_BATCH} maps of both heads, once a "
+            f"validation batch, twice an evaluation batch), normalize {eval_normalizes} for {eval_batches} evaluation "
+            f"batches; train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> "
+            f"{train_logs[-1]['train_heatmap_mse_loss']:.4f}; peak device memory {peak:.2f} GiB {card}")
+        check(launches == implied and implied_clahe >= 1, f"context train() launches {launches}, implied {implied}")
+        slice_launches = {"warp": launches["warp"], "clahe": launches["clahe"]}
+        check(eval_normalizes == eval_batches, f"normalize launched {eval_normalizes} times")
+        check(len(train_logs) == CONTEXT_STEPS and val_logs, "context train() logged too little")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        files = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error"])
+        log(f"phase 12a context train()'s evaluation: image_preds/CollectedData.csv/ {files}")
+
+        spe = trainer.calculate_steps_per_epoch(dm)
+        torch.manual_seed(SEED)
+        model = build_model("heatmap_mhcrnn", "resnet50", KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+        state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+        step = trainer.make_step_fns(meta, get_loss_factories(cfg), engine, cfg, head_sched, bb_sched, spe)[2]
+        cache = trainer._device_cache(dm.dataset, dev)
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+
+        def one_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            step(state, cache, idxs, valid, engine.sample(draw_gen, TRAIN_BATCH, field_gen))
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, device_ms, _, busy = profiled_step(one_step)
+        n_frames = TRAIN_BATCH * CONTEXT_FRAMES
+        log(f"phase 12a context train step (ResNet-50, {IMAGE} px, bf16, {TRAIN_BATCH} stacks = {n_frames} frames, dlc, "
+            f"backbone unfrozen): {step_ms:.3f} ms, {n_frames / step_ms * 1e3:.1f} frames/s "
+            f"({TRAIN_BATCH / step_ms * 1e3:.1f} stacks/s), mean of 10 steps by the host clock; torch.profiler over 5 "
+            f"steps: {device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        del model, state, optimizer, cache
+
+        # -- 12b, 12c. prediction from the directory --------------------------
+        video = write_video(Path(tmp) / "synthetic.mp4", rng, CONTEXT_VIDEO_FRAMES, 240, 320)
+        slice_launches.update(context_predict_phase(model_dir, video, card))
+
+        # -- 12d. semi-supervised train() --------------------------------------
+        cfg = context_config(semisup_config(data, names), "smokectxsemi")
+        semi_dir = Path(tmp) / "semi"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, semi_dir, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        semi_launches = {"warp": warp_kernel.launches, "decode": decode_kernel.launches,
+                         "decode_grad": decode_kernel.grad_launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        train_logs = [h for h in result.history if "train_unsupervised_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        implied = {"warp": 2 * CONTEXT_STEPS, "decode": 3 * CONTEXT_STEPS + val_batches + 2 * eval_batches,
+                   "decode_grad": 2 * CONTEXT_STEPS}
+        pca = [h["train_pca_singleview_loss"] for h in train_logs]
+        temporal = [h["train_temporal_loss"] for h in train_logs]
+        log(f"phase 12d context semi-supervised train(): {CONTEXT_STEPS} steps of {TRAIN_BATCH} stacks + a {WINDOW}-frame "
+            f"window ({CONTEXT_WINDOWS} windows of {CONTEXT_FRAMES}), pca_singleview + temporal, ResNet-50, {IMAGE} px, "
+            f"bf16, in {elapsed:.1f} s with set-up, the PCA fit and evaluation; launches {semi_launches}, implied "
+            f"{implied} (the decode's backward twice a step, one a head); unsupervised loss "
+            f"{train_logs[0]['train_unsupervised_loss']:.3e} -> {train_logs[-1]['train_unsupervised_loss']:.3e}, "
+            f"pca_singleview max {max(pca):.4f}, temporal max {max(temporal):.4f}; peak device memory {peak:.2f} GiB "
+            f"{card}")
+        check(semi_launches == implied, f"context semi-supervised launches {semi_launches}, implied {implied}")
+        check(len(train_logs) == CONTEXT_STEPS and max(pca) > 0 and max(temporal) > 0,
+              "context semi-supervised train() logged too little, or a zero unsupervised loss")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        slice_launches["decode_grad"] = semi_launches["decode_grad"]
+
+        spe = trainer.calculate_steps_per_epoch(dm)
+        factories = get_loss_factories(cfg, dm)
+        dm.close()
+        torch.manual_seed(SEED)
+        model = build_model("heatmap_mhcrnn", "resnet50", KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+        state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+        step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, spe)[2]
+        cache = trainer._device_cache(dm.dataset, dev)
+        window = {
+            "frames": torch.from_numpy(rng.integers(0, 256, (WINDOW, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev),
+            "bbox": torch.tensor([[0.0, 0.0, 240.0, 320.0]] * WINDOW, device=dev),
+        }
+
+        def semi_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            draws = engine.sample(draw_gen, TRAIN_BATCH, field_gen)
+            step(state, cache, idxs, valid, draws, window, sample_video_draws(draw_gen, WINDOW, IMAGE, IMAGE, field_gen))
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, device_ms, kernels, busy = profiled_step(semi_step)
+        grad_ms = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key) / 5e3
+        n_frames = TRAIN_BATCH * CONTEXT_FRAMES + CONTEXT_WINDOWS * CONTEXT_FRAMES
+        log(f"phase 12d context semi-supervised step (ResNet-50, {IMAGE} px, bf16, {TRAIN_BATCH} stacks with dlc + "
+            f"{CONTEXT_WINDOWS} windows of a {WINDOW}-frame window = {n_frames} backbone images, backbone unfrozen): "
+            f"{step_ms:.3f} ms, {n_frames / step_ms * 1e3:.1f} backbone images/s, mean of 10 steps by the host clock; "
+            f"torch.profiler over 5 steps: {device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; the "
+            f"decode's backward {grad_ms:.4f} ms a step over its 2 launches ({grad_ms / device_ms:.2%} of the device "
+            f"time); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log("phase 12d largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+    return slice_launches
+
 
 
 def main() -> int:
@@ -1041,6 +1534,7 @@ def main() -> int:
     errors["clahe"], clahe_inputs = check_clahe(clahe_images, clip, 16)
     clahe_err6, clahe_inputs6 = check_clahe(clahe_images[:2], clip[:2], 16)
     errors["clahe"] = max(errors["clahe"], clahe_err6, check_clahe(clahe_images[:2], clip[:2], 8)[0])
+    context_inputs = context_kernel_checks(rng, engine, errors)
 
     # the engine on the card vs the same call on the CPU, same draws
     frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
@@ -1246,10 +1740,7 @@ def main() -> int:
         "warp": (warp_bytes, 0),
         "clahe": ((clahe_x.numel() * 2 + clahe_lut.numel()) * 4, 0),
     }
-    bounds = {}
-    for name, (n_bytes, flops) in bound_inputs.items():
-        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        bounds[name] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    bounds = {name: bound_of(n_bytes, flops) for name, (n_bytes, flops) in bound_inputs.items()}
     for name, (ms, plain_ms, library_ms) in times.items():
         bound_ms, bound_by = bounds[name]
         lib_text = f", library call {library_ms:.4f} ms" if library_ms is not None else ""
@@ -1276,12 +1767,22 @@ def main() -> int:
     log(f"phase 7 predict step (ResNet-50, 256 px, bf16, batch {BATCH}): {step_ms:.3f} ms, "
         f"{BATCH / step_ms * 1e3:.1f} frames/s {card}")
 
-    launches.update(train_phase(rng, card))
+    train_phase(rng, card)
     semisup_card_vs_cpu(card)
-    semi = semisup_phase(rng, card)
-    launches["decode_grad"] = semi["launches"]
-    times["decode_grad"] = (semi["ms"], semi["plain_ms"], None)
-    bounds["decode_grad"] = semi["bound"]
+    semisup_phase(rng, card)
+    # the kernels line holds each kernel's launches on one of this slice's
+    # paths, the context model's (each earlier path checked its own above),
+    # beside its times at the shapes that path gives it
+    launches = context_phase(rng, card)
+    times.update(context_times(context_inputs, card))
+    times["normalize"] += (bounds["normalize"], f"{tuple(frames_bf16.shape)} uint8 -> bf16")
+    paths = {
+        "normalize": "12b the context model's predict_on_video_file, first run: 1 a batch",
+        "decode": "12b the context model's predict_on_video_file, first run: 2 a batch",
+        "warp": "12a the context model's supervised train(): 1 a step",
+        "clahe": "12a the context model's supervised train(): 1 a step whose draws fire it",
+        "decode_grad": "12d the context model's semi-supervised train(): 2 a step",
+    }
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "lightning_pose_tpu"))
     check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")
 
@@ -1290,12 +1791,14 @@ def main() -> int:
             "name": name,
             **KERNELS[name],
             "launches": launches[name],
+            "path": paths[name],
+            "shape": times[name][4],
             "max_abs_err": errors[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
-            "share": bounds[name][0] / times[name][0],
+            "bound_ms": times[name][3][0],
+            "bound_by": times[name][3][1],
+            "share": times[name][3][0] / times[name][0],
             "library_ms": times[name][2],
         }
         for name in KERNELS

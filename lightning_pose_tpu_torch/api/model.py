@@ -11,9 +11,10 @@ checkpoint through the parameter bridge, and serves predictions:
   and, on request, a labeled mp4
 - ``predict_frame`` -> keypoints of one in-memory frame
 
-Ported so far: the single-view ``heatmap`` model with soft-argmax decode and
-RGB transfer. The other options raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Ported so far: the single-view ``heatmap`` model and the temporal-context
+``heatmap_mhcrnn`` model, with soft-argmax decode and RGB transfer. The
+other options raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ import torch
 from torch import nn
 
 from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
+from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import (
+    HeatmapTrackerMHCRNN,
+    make_context_windows,
+    repeat_center_stack,
+)
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images_fused
 
 logger = logging.getLogger(__name__)
@@ -57,10 +63,14 @@ def compute_dtype_for(precision: str | None) -> torch.dtype:
 
 class PredictStep:
     """uint8 frames and bboxes -> frame-space keypoints and confidences
-    (the single-view heatmap branch of the reference's ``predict_step``).
+    (the single-view branches of the reference's ``predict_step``).
 
     normalize kernel -> tracker in ``compute_dtype`` (bf16 by autocast, with
     fp32 parameters and BatchNorm statistics) -> decode kernel -> bbox remap.
+    For the context model, a ``(T, h, w, 3)`` sequence becomes its ``T - 4``
+    sliding windows and ``(B, 5, h, w, 3)`` stacks go in as they are (both
+    as repeated centers under ``repeat_center``); the two heads' maps are
+    decoded, two decode launches, and merged per keypoint by confidence.
     ``model`` must be in eval mode on the device the inputs come on.
     """
 
@@ -69,18 +79,36 @@ class PredictStep:
         self.height = height
         self.width = width
         self.compute_dtype = compute_dtype
+        self.is_context = isinstance(model, HeatmapTrackerMHCRNN)
 
     @torch.inference_mode()
     def __call__(
         self, images_uint8: torch.Tensor, bbox: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(B, h, w, 3)`` uint8 and ``(B, 4)`` [x, y, h, w] bboxes ->
-        ``(B, 2K)`` keypoints and ``(B, K)`` confidences, float32."""
+        """``(B, h, w, 3)`` uint8 (or context stacks ``(B, 5, h, w, 3)``) and
+        ``(B, 4)`` [x, y, h, w] bboxes -> ``(B', 2K)`` keypoints and
+        ``(B', K)`` confidences, float32; ``B' = B - 4`` for a context
+        model's sequence, whose bboxes are trimmed to the window centers."""
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(images_uint8.device.type, dtype=torch.bfloat16, enabled=bf16):
-            images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
+            if images_uint8.ndim == 5:
+                b, t = images_uint8.shape[:2]
+                frames = images_uint8.reshape(b * t, *images_uint8.shape[2:])
+                images = normalize_images_fused(frames, out_dtype=self.compute_dtype)
+                images = images.reshape(b, t, *images.shape[1:])
+            else:
+                images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
+            if self.is_context:
+                repeat = self.model.context_repeat
+                if images.ndim == 4:
+                    images = make_context_windows(images, repeat_center=repeat)
+                elif repeat:
+                    images = repeat_center_stack(images, time_axis=1)
             heatmaps = self.model(images)
-        keypoints, confidences = self.model.decode(heatmaps)
+        if self.is_context:
+            keypoints, confidences = self.model.decode_heads(heatmaps)
+        else:
+            keypoints, confidences = self.model.decode(heatmaps)
         keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height)
         return keypoints, confidences
 
@@ -215,6 +243,9 @@ class Model:
             imgaug_pipeline="default",
             downsample_factor=int(cfg.data.get("downsample_factor", 2)),
             bbox_path=str(bbox_file) if bbox_file else None,
+            do_context=cfg.model.model_type == "heatmap_mhcrnn",
+            # the context source the model was trained with
+            context_mode=cfg.model.get("mhcrnn_context_mode", "adjacent"),
         )
         data_module = BaseDataModule(
             dataset=dataset,
@@ -314,7 +345,9 @@ class Model:
         """Single-frame inference, no file IO.
 
         Args:
-            frame_rgb: ``(H, W, 3)`` uint8 RGB frame.
+            frame_rgb: ``(H, W, 3)`` uint8 RGB frame; for a context model a
+                ``(T, H, W, 3)`` stack around the frame (T is the context
+                length, 5; the frame is index 2).
             bbox: optional ``(x, y, w, h)`` crop; keypoints are mapped back to
                 the original frame.
 
@@ -329,7 +362,15 @@ class Model:
                 f"frame_rgb must be uint8, got {frame_rgb.dtype}. "
                 "Convert with frame.astype(np.uint8) if values are in [0, 255]."
             )
-        if frame_rgb.ndim != 3 or frame_rgb.shape[-1] != 3:
+        step = self._predict_step
+        if step.is_context:
+            if frame_rgb.ndim != 4 or frame_rgb.shape[-1] != 3:
+                raise ValueError(
+                    "Context model requires frame_rgb of shape (T, H, W, 3) "
+                    "where T is the temporal context length (typically 5). "
+                    f"Use predict_on_video_file for single-frame input; got shape {frame_rgb.shape}"
+                )
+        elif frame_rgb.ndim != 3 or frame_rgb.shape[-1] != 3:
             raise ValueError(
                 f"frame_rgb must be (H, W, 3) for a single-view heatmap model, "
                 f"got shape {frame_rgb.shape}"
@@ -342,19 +383,21 @@ class Model:
                 raise ValueError(f"bbox origin must be non-negative, got x={bx}, y={by}")
             if bw <= 0 or bh <= 0:
                 raise ValueError(f"bbox width and height must be positive, got w={bw}, h={bh}")
-            crop = frame_rgb[by:by + bh, bx:bx + bw]
+            crop = frame_rgb[..., by:by + bh, bx:bx + bw, :]
             if crop.size == 0:
                 raise ValueError(
                     f"bbox (x={bx}, y={by}, w={bw}, h={bh}) produces an empty "
                     f"crop on frame of shape {frame_rgb.shape}"
                 )
-            bbox_row = [bx, by, crop.shape[0], crop.shape[1]]
+            bbox_row = [bx, by, crop.shape[-3], crop.shape[-2]]
         else:
             crop = frame_rgb
-            bbox_row = [0.0, 0.0, frame_rgb.shape[0], frame_rgb.shape[1]]
+            bbox_row = [0.0, 0.0, frame_rgb.shape[-3], frame_rgb.shape[-2]]
 
-        step = self._predict_step
-        image = cv2.resize(crop, (step.width, step.height), interpolation=cv2.INTER_LINEAR)
+        def resize(img: np.ndarray) -> np.ndarray:
+            return cv2.resize(img, (step.width, step.height), interpolation=cv2.INTER_LINEAR)
+
+        image = np.stack([resize(f) for f in crop]) if step.is_context else resize(crop)
         images = torch.from_numpy(image[None]).to(self.device)
         bboxes = torch.tensor([bbox_row], dtype=torch.float32, device=self.device)
         kp, conf = step(images, bboxes)

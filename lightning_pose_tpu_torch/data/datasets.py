@@ -5,8 +5,9 @@ Images are decoded once on the host (cv2), resized to the model's size and
 cached as uint8 arrays; keypoints are rescaled to resized coordinates.
 Augmentation, normalization and the target heatmaps run on the device in
 the train step. Horizontal-flip keypoint swapping (``_left``/``_right``
-pairs) is an index array the augmentation engine consumes. Context stacks
-(the mhcrnn model) are not ported yet.
+pairs) is an index array the augmentation engine consumes. With
+``do_context`` (the context model), a sample's images are the 5-frame stack
+of frames n-2..n+2 of its center frame.
 """
 
 from __future__ import annotations
@@ -69,10 +70,16 @@ class BaseTrackingDataset:
         imgaug_hflip: bool = False,
         cache_images: bool = True,
         uniform_heatmaps_for_nan_keypoints: bool = False,
+        do_context: bool = False,
+        context_mode: str = "adjacent",
     ) -> None:
         self.root_directory = Path(root_directory)
         self.image_resize_height = int(image_resize_height)
         self.image_resize_width = int(image_resize_width)
+        self.do_context = do_context
+        if context_mode not in ("adjacent", "repeat_center"):
+            raise ValueError(f"context_mode must be 'adjacent' or 'repeat_center', got {context_mode!r}")
+        self.context_mode = context_mode
         self.imgaug_pipeline = imgaug_pipeline
         self.imgaug_hflip = imgaug_hflip
         self.cache_images = cache_images
@@ -161,6 +168,27 @@ class BaseTrackingDataset:
             self._image_cache[idx] = out
         return out
 
+    def _load_context(self, idx: int) -> np.ndarray:
+        """The ``(5, H, W, 3)`` uint8 context stack of a center frame: frames
+        n-2..n+2, a missing neighbour replaced by the center. All five crop
+        through the center frame's bbox, so the stack stays registered with
+        the labels. ``context_mode="repeat_center"`` stacks 5 copies of the
+        resized center instead."""
+        if self.context_mode == "repeat_center":
+            resized, _ = self._load_resized(idx)
+            return np.repeat(resized[None], 5, axis=0)
+        center = self.root_directory / self.image_names[idx]
+        frames = []
+        for path in io_utils.get_context_img_paths(center):
+            img = self._load_raw_image(path if path.exists() else center)
+            if self.bboxes is not None:
+                x, y, h, w = self.bboxes[idx]
+                img = img[int(y):int(y + h), int(x):int(x + w)]
+            frames.append(
+                cv2.resize(img, (self.image_resize_width, self.image_resize_height), interpolation=cv2.INTER_LINEAR)
+            )
+        return np.stack(frames, axis=0)
+
     # -- item access --------------------------------------------------------------
 
     def keypoints_resized(self, idx: int) -> np.ndarray:
@@ -196,7 +224,7 @@ class BaseTrackingDataset:
         else:
             bbox = np.array([0.0, 0.0, orig_h, orig_w], dtype=np.float32)
         sample = {
-            "images": img,
+            "images": self._load_context(idx) if self.do_context else img,
             "keypoints": kp.astype(np.float32),
             "visibility": vis,
             "bbox": bbox.astype(np.float32),

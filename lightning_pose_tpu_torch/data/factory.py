@@ -1,8 +1,9 @@
 """Dataset and data-module factories (counterpart of
 ``lightning_pose_tpu/data/factory.py``).
 
-The dispatch on the config for the ported model, the single-view
-``heatmap``, over the port's copies of the datasets and the data module.
+The dispatch on the config for the ported models, the single-view
+``heatmap`` and the context model ``heatmap_mhcrnn`` (5-frame stacks), over
+the port's copies of the datasets and the data module.
 Model types and data layouts not ported yet raise ``NotImplementedError``.
 """
 
@@ -34,7 +35,9 @@ def get_imgaug_pipeline(cfg) -> str | dict:
 
 
 def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
-    """The labeled dataset of a single-view ``heatmap`` config."""
+    """The labeled dataset of a single-view ``heatmap`` or ``heatmap_mhcrnn``
+    config; the latter's samples are context stacks in the configured
+    ``model.mhcrnn_context_mode``."""
     model_type = normalize_model_type(cfg.model.model_type)
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
@@ -57,6 +60,8 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
             cfg.training.get("uniform_heatmaps_for_nan_keypoints", False)
         ),
         downsample_factor=int(cfg.data.get("downsample_factor", 2)),
+        do_context=model_type == "heatmap_mhcrnn",
+        context_mode=cfg.model.get("mhcrnn_context_mode", "adjacent"),
     )
 
 

@@ -118,7 +118,13 @@ class VideoFrameDecoder:
 
 class PredictVideoLoader:
     """Fixed-shape ``(T, h, w, 3)`` uint8 RGB batches for video inference,
-    decoded in background threads while the device computes."""
+    decoded in background threads while the device computes.
+
+    Batch ``k`` holds frames ``[k*step, k*step + T)``, the frames past the
+    end FILL-padded with the last frame. ``step`` is ``T``, or ``T - 4``
+    with ``do_context``: a context model's windows overlap by 4 frames, so
+    every frame but the first and last two is the center of one window.
+    """
 
     def __init__(
         self,
@@ -129,16 +135,23 @@ class PredictVideoLoader:
         prefetch_batches: int = 3,
         decode_threads: int | None = None,
         bbox_df=None,
+        do_context: bool = False,
     ):
         """``decode_threads``: worker decoders sharding the video by window
         (default :func:`default_decode_threads`). ``bbox_df``: optional
         per-frame ``[x, y, h, w]`` DataFrame; each frame is cropped to its
         box (zero outside the frame) before the resize, and the caller maps
-        keypoints back through the same boxes."""
+        keypoints back through the same boxes. ``do_context``: overlapping
+        windows for a context model (``sequence_length`` at least 5)."""
         self.video_file = str(video_file)
         self.seq_len = int(sequence_length)
         self.h = int(resize_height)
         self.w = int(resize_width)
+        self.do_context = do_context
+        if do_context and self.seq_len < 5:
+            raise ValueError(f"context windows need a sequence_length of at least 5, got {self.seq_len}")
+        # context windows step by seq_len - 4 (reference dali.py:636-651)
+        self.step = self.seq_len - 4 if do_context else self.seq_len
         self.prefetch_batches = prefetch_batches
         # fail fast on bad paths instead of iterating zero batches (the
         # reference's DALI filename validation, reference dali.py:449-455)
@@ -157,6 +170,8 @@ class PredictVideoLoader:
         )
 
     def __len__(self) -> int:
+        if self.do_context:
+            return int(np.ceil(max(self.frame_count - 4, 1) / self.step))
         return int(np.ceil(self.frame_count / self.seq_len))
 
     def _convert(self, raw_frames: list[np.ndarray], start_idx: int) -> np.ndarray:
@@ -175,33 +190,41 @@ class PredictVideoLoader:
         decoder = VideoFrameDecoder(self.video_file)
         try:
             # decode raw BGR frames sequentially (the codec is serial), then
-            # convert and resize a whole window in one native call
-            last_frame = None
-            batch = []
-            start = 0
+            # convert and resize a whole window in one native call; a
+            # rolling buffer carries the overlap of context windows over
+            n_batches = len(self)
+            buf: list[np.ndarray] = []
+            start = emitted = 0
             while True:
                 frame = decoder.read_raw()
                 if frame is None:
                     break
-                last_frame = frame
-                batch.append(frame)
-                if len(batch) == self.seq_len:
-                    q.put(self._convert(batch, start))
-                    start += len(batch)
-                    batch = []
-            if batch:
-                # FILL policy: repeat the final frame (reference
-                # dali.py:699-760)
-                while len(batch) < self.seq_len:
-                    batch.append(last_frame)
-                q.put(self._convert(batch, start))
+                buf.append(frame)
+                if len(buf) == self.seq_len:
+                    q.put(self._convert(buf, start))
+                    emitted += 1
+                    buf = buf[self.step:]
+                    start += self.step
+            # the tail: FILL policy, repeat the last decoded frame (reference
+            # dali.py:699-760); context windows pad until every center of
+            # the counted frames has had its window
+            tails = n_batches - emitted if self.do_context else int(bool(buf))
+            for _ in range(tails):
+                window = buf[: self.seq_len] or [
+                    np.zeros((decoder.orig_height, decoder.orig_width, 3), dtype=np.uint8)
+                ]
+                while len(window) < self.seq_len:
+                    window.append(window[-1])
+                q.put(self._convert(window, start))
+                buf = buf[self.step:]
+                start += self.step
         finally:
             decoder.close()
             q.put(None)
 
     def _decode_window(self, decoder: "VideoFrameDecoder", k: int) -> np.ndarray:
-        """Seek-decode window ``k`` ([k*seq_len, (k+1)*seq_len), FILL-padded)."""
-        start = k * self.seq_len
+        """Seek-decode window ``k`` ([k*step, k*step + seq_len), FILL-padded)."""
+        start = k * self.step
         count = min(self.seq_len, max(self.frame_count - start, 0))
         decoder.seek(start)
         raw: list[np.ndarray] = []

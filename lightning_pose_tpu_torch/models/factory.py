@@ -1,8 +1,9 @@
 """Model factory (counterpart of ``lightning_pose_tpu/models/factory.py``).
 
-Only the single-view ``heatmap`` model is ported; the other model types are
-recognised and raise ``NotImplementedError``. Weights are initialised as the
-JAX package's flax modules initialise theirs (:func:`init_like_flax`).
+The single-view ``heatmap`` model and the temporal-context ``heatmap_mhcrnn``
+model are ported; the other model types are recognised and raise
+``NotImplementedError``. Weights are initialised as the JAX package's flax
+modules initialise theirs (:func:`init_like_flax`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from lightning_pose_tpu_torch.models.heatmap_tracker import HeatmapTracker
+from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN
 
 __all__ = [
     "ALLOWED_MODEL_TYPES",
@@ -35,7 +37,6 @@ _MODEL_TYPE_ALIASES = {"heatmap_multiview_transformer": "heatmap_multiview"}
 
 _NOT_PORTED = {
     "regression": "ROADMAP queue 1, item 7: remaining model families",
-    "heatmap_mhcrnn": "ROADMAP queue 1, item 3: context model",
     "heatmap_multiview": "ROADMAP queue 1, item 6: multiview",
 }
 
@@ -63,7 +64,9 @@ def init_like_flax(module: nn.Module) -> nn.Module:
     (a normal of variance ``1/fan_in``, ``fan_in = in_channels * kh * kw``,
     truncated at two standard deviations) and bias zero; BatchNorm scale 1,
     bias 0, statistics 0 and 1. Transposed convs (the heatmap head) keep
-    their Xavier-uniform init. Draws from torch's default generator."""
+    their Xavier-uniform init, and a layer that defines ``reset_like_flax``
+    (the context head's CRNN) re-initialises its own layers after that.
+    Draws from torch's default generator."""
     with torch.no_grad():
         for layer in module.modules():
             if isinstance(layer, nn.Conv2d):
@@ -74,6 +77,9 @@ def init_like_flax(module: nn.Module) -> nn.Module:
                     nn.init.zeros_(layer.bias)
             elif isinstance(layer, nn.BatchNorm2d):
                 layer.reset_parameters()
+    for layer in module.modules():
+        if hasattr(layer, "reset_like_flax"):
+            layer.reset_like_flax()
     return module
 
 
@@ -82,8 +88,10 @@ def build_model(
     backbone: str,
     num_keypoints: int,
     downsample_factor: int = 2,
+    context_repeat: bool = False,
 ) -> nn.Module:
-    """Build a tracker module from explicit settings."""
+    """Build a tracker module from explicit settings. ``context_repeat``
+    (context model only): encode each stack's center frame once."""
     model_type = normalize_model_type(model_type)
     if model_type not in ALLOWED_MODEL_TYPES:
         raise ValueError(
@@ -92,6 +100,15 @@ def build_model(
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"model_type {model_type} is not ported yet ({_NOT_PORTED[model_type]})"
+        )
+    if model_type == "heatmap_mhcrnn":
+        return init_like_flax(
+            HeatmapTrackerMHCRNN(
+                backbone_arch=backbone,
+                num_keypoints=num_keypoints,
+                downsample_factor=downsample_factor,
+                context_repeat=context_repeat,
+            )
         )
     return init_like_flax(
         HeatmapTracker(
@@ -113,4 +130,5 @@ def get_model(cfg, num_keypoints: int | None = None) -> nn.Module:
             "heatmap models on multiview data are not ported yet "
             "(ROADMAP queue 1, item 6: multiview)"
         )
-    return build_model(model_type, cfg.model.backbone, int(num_keypoints), downsample_factor)
+    context_repeat = cfg.model.get("mhcrnn_context_mode", "adjacent") == "repeat_center"
+    return build_model(model_type, cfg.model.backbone, int(num_keypoints), downsample_factor, context_repeat)

@@ -543,13 +543,17 @@ class AugmentationEngine:
         ``(B, K, 2)`` with the given draws; ``visibility (B, K)`` flags ride
         the hflip identity swap with the keypoints.
 
+        Context stacks ``(B, T, H, W, 3)`` take draws for ``B`` stacks
+        (``sample(b)``): each stack's one transform goes to all its T frames,
+        and every per-stack quantity (the sampling field, the motion-blur
+        kernel, the dropout masks, the photometric flags) repeats over them.
+        The keypoints are the center frame's.
+
         Returns ``(images float32 0-255, keypoints)`` plus the visibility when
         one was passed. Keypoints that leave the frame, or were NaN, are NaN.
         """
-        if images.ndim != 4:
-            raise NotImplementedError(
-                "context stacks (B, T, H, W, 3) are not ported yet (ROADMAP queue 1, item 3: context model)"
-            )
+        if images.ndim not in (4, 5):
+            raise ValueError(f"apply takes (B, H, W, 3) images or (B, T, H, W, 3) stacks, got {tuple(images.shape)}")
         if self.identity:
             out = (images.to(torch.float32), keypoints)
             return out if visibility is None else (*out, visibility)
@@ -558,7 +562,16 @@ class AugmentationEngine:
         dev = images.device
         spec, h, w = self.spec, self.h, self.w
         b = images.shape[0]
-        images = images.to(torch.float32)
+        t = images.shape[1] if images.ndim == 5 else 1
+        images = images.to(torch.float32).reshape(b * t, h, w, images.shape[-1])
+
+        def rep(x: torch.Tensor) -> torch.Tensor:
+            """A per-stack quantity, repeated over each stack's frames."""
+            return x.repeat_interleave(t, dim=0) if t > 1 else x
+
+        def frames_of(groups: torch.Tensor) -> torch.Tensor:
+            """The frame indices of the stacks ``groups`` (a CPU tensor)."""
+            return (groups[:, None] * t + torch.arange(t)).flatten() if t > 1 else groups
 
         forward, coords, disp, flip = self.sampling_grid(draws, b, dev)
 
@@ -574,7 +587,8 @@ class AugmentationEngine:
             dy = torch.where(fire, torch.sin(angle), 0.0)
             ksz = int(mb["k"])
             half = (ksz - 1) // 2
-            kern = _motion_blur_kernels(dx, dy, ksz).to(dev, non_blocking=True)
+            kern = rep(_motion_blur_kernels(dx, dy, ksz)).to(dev, non_blocking=True)
+            coords = rep(coords)
             cx = coords[..., 0:1].clamp(0.0, float(w - 1))
             cy = coords[..., 1:2].clamp(0.0, float(h - 1))
             in_bounds = (
@@ -583,13 +597,13 @@ class AugmentationEngine:
             ).to(torch.float32)
             warped = warp(images.contiguous(), torch.cat([cx, cy], dim=-1).contiguous())
             c_ = warped.shape[-1]
-            x_g = warped.permute(0, 3, 1, 2).reshape(1, b * c_, h, w)
+            x_g = warped.permute(0, 3, 1, 2).reshape(1, b * t * c_, h, w)
             x_g = F.pad(x_g, (half, half, half, half), mode="replicate")
-            weight = kern.repeat_interleave(c_, dim=0)[:, None]  # (B*C, 1, k, k)
-            blurred = F.conv2d(x_g, weight, groups=b * c_)
-            warped = blurred.reshape(b, c_, h, w).permute(0, 2, 3, 1) * in_bounds
+            weight = kern.repeat_interleave(c_, dim=0)[:, None]  # (B*T*C, 1, k, k)
+            blurred = F.conv2d(x_g, weight, groups=b * t * c_)
+            warped = blurred.reshape(b * t, c_, h, w).permute(0, 2, 3, 1) * in_bounds
         else:
-            warped = warp(images.contiguous(), coords.contiguous())
+            warped = warp(images.contiguous(), rep(coords).contiguous())
 
         # -- keypoints through the forward matrix --------------------------------
         kp_h = torch.cat([keypoints, torch.ones_like(keypoints[..., :1])], dim=-1)
@@ -617,43 +631,46 @@ class AugmentationEngine:
         out = warped
         if spec["coarse_dropout"] is not None:
             cd = spec["coarse_dropout"]
-            fire = (draws.dropout_u < cd["p"]).to(dev, non_blocking=True)
-            per_ch = (draws.dropout_channel_u < cd["per_channel"]).to(dev, non_blocking=True)
-            mask1 = _coarse_mask(draws.dropout_low.to(dev), h, w, cd["drop"])
-            mask_c = torch.cat(
+            fire = rep(draws.dropout_u < cd["p"]).to(dev, non_blocking=True)
+            per_ch = rep(draws.dropout_channel_u < cd["per_channel"]).to(dev, non_blocking=True)
+            mask1 = rep(_coarse_mask(draws.dropout_low.to(dev), h, w, cd["drop"]))
+            mask_c = rep(torch.cat(
                 [_coarse_mask(low.to(dev), h, w, cd["drop"]) for low in draws.dropout_low_rgb], dim=-1
-            )
+            ))
             drop_mask = torch.where(per_ch[:, None, None, None], mask_c, mask1)
             keep = torch.where(fire[:, None, None, None], drop_mask, True)
             out = out * keep
         if spec["coarse_salt"] is not None:
             cs = spec["coarse_salt"]
-            fire = (draws.salt_u < cs["p"]).to(dev, non_blocking=True)
-            salt = ~_coarse_mask(draws.salt_low.to(dev), h, w, cs["drop"])
+            fire = rep(draws.salt_u < cs["p"]).to(dev, non_blocking=True)
+            salt = rep(~_coarse_mask(draws.salt_low.to(dev), h, w, cs["drop"]))
             out = torch.where(fire[:, None, None, None] & salt, 255.0, out)
         if spec["coarse_pepper"] is not None:
             cp = spec["coarse_pepper"]
-            fire = (draws.pepper_u < cp["p"]).to(dev, non_blocking=True)
-            pepper = ~_coarse_mask(draws.pepper_low.to(dev), h, w, cp["drop"])
+            fire = rep(draws.pepper_u < cp["p"]).to(dev, non_blocking=True)
+            pepper = rep(~_coarse_mask(draws.pepper_low.to(dev), h, w, cp["drop"]))
             out = torch.where(fire[:, None, None, None] & pepper, 0.0, out)
 
-        # the rare ops run on the fired images only; which fired is known on
-        # the host
+        # the rare ops run on the fired stacks' frames only; which fired is
+        # known on the host
         if spec["histeq"] is not None:
-            out = self._on_fired(out, _fired(draws.histeq_u, spec["histeq"]["p"]), _equalize_hist)
+            fired = _fired(draws.histeq_u, spec["histeq"]["p"])
+            out = self._on_fired(out, frames_of(fired), _equalize_hist)
         if spec["clahe"] is not None:
             grid_n = int(spec["clahe"].get("tiles", 16))
             fired = _fired(draws.clahe_u, spec["clahe"]["p"])
-            clip = draws.clahe_clip[fired].to(dev, non_blocking=True)
+            clip = rep(draws.clahe_clip[fired]).to(dev, non_blocking=True)
             out = self._on_fired(
-                out, fired, lambda sub: _equalize_clahe_tiled(sub, clip_limit=clip, grid=grid_n)
+                out, frames_of(fired), lambda sub: _equalize_clahe_tiled(sub, clip_limit=clip, grid=grid_n)
             )
         if spec["emboss"] is not None:
             fired = _fired(draws.emboss_u, spec["emboss"]["p"])
-            alpha = draws.emboss_alpha[fired].to(dev, non_blocking=True)
-            strength = draws.emboss_strength[fired].to(dev, non_blocking=True)
-            out = self._on_fired(out, fired, lambda sub: _emboss(sub, alpha, strength))
+            alpha = rep(draws.emboss_alpha[fired]).to(dev, non_blocking=True)
+            strength = rep(draws.emboss_strength[fired]).to(dev, non_blocking=True)
+            out = self._on_fired(out, frames_of(fired), lambda sub: _emboss(sub, alpha, strength))
 
+        if t > 1:
+            out = out.reshape(b, t, h, w, out.shape[-1])
         if visibility is None:
             return out, kp_new
         return out, kp_new, visibility

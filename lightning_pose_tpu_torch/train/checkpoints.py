@@ -19,6 +19,11 @@ axes and (kh, kw, in, out) <-> (in, out, kh, kw), BatchNorm
 ``scale/bias/mean/var`` <-> ``weight/bias/running_mean/running_var``, and
 flax module names to torchvision's (``layer1_0`` <-> ``layer1.0``,
 ``downsample_conv``/``downsample_bn`` <-> ``downsample.0``/``downsample.1``).
+The context head's names are the same in both packages
+(``head/head_sf/deconv*``, ``head/head_mf/{W_pre, W_f, W_b, H_f_conv,
+H_b_conv, H_f_deconv, H_b_deconv}``); its grouped 2x2 transposed convs
+(``H_*_deconv``, one group per output channel) regroup their kernels
+(``models/heads/heatmap_mhcrnn.grouped_deconv_kernel_from_flax``).
 """
 
 from __future__ import annotations
@@ -263,14 +268,26 @@ def _flax_modules(torch_module: str) -> tuple[str, ...]:
     return tuple(out)
 
 
+# flax ConvTranspose(3x3, stride 2, "SAME") layers, SameConvTranspose2d here
+_DECONVS = ("W_pre", "W_f", "W_b")
+# the CRNN's grouped 2x2 transposed convs, one group per output channel
+_GROUPED_DECONVS = ("H_f_deconv", "H_b_deconv")
+
+
 def _is_deconv(modules: tuple[str, ...]) -> bool:
-    return modules[-1].startswith("deconv")
+    return modules[-1].startswith("deconv") or modules[-1] in _DECONVS
+
+
+def _is_grouped_deconv(modules: tuple[str, ...]) -> bool:
+    return modules[-1] in _GROUPED_DECONVS
 
 
 def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """Map the reference's flax ``params`` and ``batch_stats`` (numpy trees)
     to a torch ``state_dict`` of the port's modules. Each flax leaf makes one
     key; BatchNorm layers also get ``num_batches_tracked = 0``."""
+    from lightning_pose_tpu_torch.models.heads.heatmap_mhcrnn import grouped_deconv_kernel_from_flax
+
     out: dict[str, torch.Tensor] = {}
 
     def put(key: str, value: np.ndarray) -> None:
@@ -284,7 +301,9 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Ten
         if leaf == "kernel":
             if value.ndim != 4:
                 raise ValueError(f"{'/'.join(path)}: expected a 4-d conv kernel")
-            if _is_deconv(modules):  # (kh, kw, in, out) -> (in, out, kh, kw), flipped
+            if _is_grouped_deconv(modules):  # (2, 2, in/G, out) -> (in, out/G, 2, 2), G = out
+                value = grouped_deconv_kernel_from_flax(value, groups=value.shape[3])
+            elif _is_deconv(modules):  # (kh, kw, in, out) -> (in, out, kh, kw), flipped
                 value = np.flip(value, (0, 1)).transpose(2, 3, 0, 1)
             else:  # HWIO -> OIHW
                 value = value.transpose(3, 2, 0, 1)
@@ -306,6 +325,8 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Ten
 def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> tuple[dict, dict]:
     """Inverse of :func:`state_dict_from_flax`: ``(params, batch_stats)``
     numpy trees in the reference's layout."""
+    from lightning_pose_tpu_torch.models.heads.heatmap_mhcrnn import grouped_deconv_kernel_to_flax
+
     params: dict = {}
     batch_stats: dict = {}
     stat_names = {v: k for k, v in _STAT_LEAVES.items()}
@@ -329,7 +350,10 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> tuple[dict, dict]
         elif leaf == "weight" and module in bn_modules:
             put(params, modules + ("scale",), value)
         elif leaf == "weight":
-            if _is_deconv(modules):
+            if _is_grouped_deconv(modules):
+                groups = state_dict[f"{module}.bias"].shape[0]
+                value = grouped_deconv_kernel_to_flax(value, groups=groups)
+            elif _is_deconv(modules):
                 value = np.flip(value.transpose(2, 3, 0, 1), (0, 1))
             else:
                 value = value.transpose(2, 3, 1, 0)

@@ -1,5 +1,6 @@
 """Supervised and semi-supervised training of the single-view heatmap model
-(counterpart of ``lightning_pose_tpu/train/trainer.py``).
+and of the temporal-context model (counterpart of
+``lightning_pose_tpu/train/trainer.py``).
 
 One process, one device. Each step gathers its batch from a device-resident
 copy of the labeled set, augments it on the device (``ops/augment.py``, with
@@ -18,6 +19,13 @@ forward (after the labeled one, so the BatchNorm statistics chain as in the
 JAX package), decoded with gradient (the decode and its backward kernel on
 the card), mapped back through the augmentation and to frame pixels, and
 given to the unsupervised losses at the epoch's anneal weight.
+
+The context model (``heatmap_mhcrnn``) trains on 5-frame stacks: one
+augmentation draw per stack, applied to its 5 frames, and the single-frame
+and multi-frame heads' maps concatenated into a batch of ``2B`` against the
+targets twice. Its unlabeled window is tiled into sliding 5-frame windows
+(or repeated centers), decoded twice with gradient, merged per keypoint by
+confidence, and its transforms and bboxes trimmed to the window centers.
 
 ``train(cfg, model_dir)`` writes the reference's model directory:
 ``config.yaml``, a copy of the label CSV, ``train_status.json``,
@@ -51,6 +59,7 @@ from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
 from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
+from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN, make_context_windows
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
 from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
@@ -175,8 +184,10 @@ def _effective_visibility(kp: torch.Tensor, visibility: torch.Tensor) -> torch.T
 
 
 def _to_nchw(images: torch.Tensor) -> torch.Tensor:
-    """Normalized ``(B, H, W, 3)`` -> ``(B, 3, H, W)``, channels-last."""
-    return normalize_images(images).permute(0, 3, 1, 2)
+    """Normalized ``(B, H, W, 3)`` -> ``(B, 3, H, W)``, channels-last; context
+    stacks ``(B, T, H, W, 3)`` -> ``(B, T, 3, H, W)``."""
+    x = normalize_images(images)
+    return x.permute(0, 3, 1, 2) if x.ndim == 4 else x.permute(0, 1, 4, 2, 3)
 
 
 def unsupervised_loss(
@@ -195,11 +206,25 @@ def unsupervised_loss(
     decoded with gradient, the keypoints mapped back through the forward
     ``transforms (T, 2, 3)`` of the augmentation and from model to frame
     pixels by ``bbox (T, 4)``, then ``factory`` (the unsupervised losses) at
-    ``anneal_weight``. Returns the loss and the factory's logs."""
+    ``anneal_weight``. Returns the loss and the factory's logs.
+
+    The context model takes the window's ``T - 4`` sliding 5-frame windows
+    (repeated centers under ``context_repeat``); both heads' maps are
+    decoded with gradient and merged by confidence, so the gradient reaches
+    each keypoint's chosen head only, and the multi-frame maps go to the
+    losses. Transforms and bboxes are trimmed to the centers."""
     height, width = image_hw
+    is_context = isinstance(model, HeatmapTrackerMHCRNN)
+    if is_context:
+        images = make_context_windows(images, repeat_center=model.context_repeat)
     with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
         heatmaps = model(images)
-    preds, confidences = model.decode(heatmaps)
+    if is_context:
+        preds, confidences = model.decode_heads(heatmaps)
+        heatmaps = heatmaps[1]
+        transforms, bbox = transforms[2:-2], bbox[2:-2]
+    else:
+        preds, confidences = model.decode(heatmaps)
     preds = undo_affine_transform_batch(preds, transforms)
     preds = model_to_frame_batch(preds, bbox, width, height)
     return factory(
@@ -219,7 +244,8 @@ def make_step_fns(
     compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """``(train_step, eval_step, train_step_cached)`` of the single-view
-    heatmap model.
+    heatmap model, or of the context model when ``meta["model_type"]`` is
+    ``heatmap_mhcrnn``.
 
     - ``train_step(state, batch, draws, video_draws=None) -> logs``: augment
       with ``draws`` (``augmenter.sample``; None for an identity pipeline),
@@ -233,7 +259,8 @@ def make_step_fns(
       device-resident labeled cache by index; rows with ``valid`` False are
       padding (visibility 0, NaN keypoints).
 
-    Batches hold ``images (B, H, W, 3)``, ``keypoints (B, K, 2)``,
+    Batches hold ``images (B, H, W, 3)`` (context stacks ``(B, 5, H, W,
+    3)``, labeled at their center), ``keypoints (B, K, 2)``,
     ``visibility (B, K)`` and ``bbox (B, 4)`` on the model's device; an
     unlabeled window holds ``frames (T, H, W, 3)`` and ``bbox (T, 4)``. Logs
     are 0-d tensors, read when the caller needs them.
@@ -247,6 +274,7 @@ def make_step_fns(
     supervised = loss_factories["supervised"]
     unsup = loss_factories.get("unsupervised")
     has_unsup = unsup is not None and len(unsup.loss_instance_dict) > 0
+    is_context = meta["model_type"] == "heatmap_mhcrnn"
 
     def supervised_loss(model, images, keypoints, visibility, bbox, stage):
         with torch.autocast(
@@ -256,6 +284,13 @@ def make_step_fns(
         targets = generate_heatmaps(
             keypoints, height=height, width=width, output_shape=out_shape, visibility=visibility
         )
+        if is_context:
+            # both heads against the same targets: a batch of 2B (reference
+            # heatmap_tracker_mhcrnn.py:154-174)
+            heatmaps = torch.cat(heatmaps, dim=0)
+            targets = torch.cat([targets, targets], dim=0)
+            keypoints = torch.cat([keypoints, keypoints], dim=0)
+            bbox = torch.cat([bbox, bbox], dim=0)
         loss, logs = supervised(
             stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=heatmaps
         )
@@ -390,8 +425,9 @@ def _check_ported(cfg) -> None:
 
 
 def _device_cache(dataset, device: torch.device) -> dict[str, torch.Tensor]:
-    """The whole labeled set on the device: uint8 images, keypoints,
-    visibility flags and bboxes, by dataset index."""
+    """The whole labeled set on the device: uint8 images (``(N, 5, H, W,
+    3)`` context stacks for the context model), keypoints, visibility flags
+    and bboxes, by dataset index."""
     arrays: dict[str, list] = {k: [] for k in _CACHE_KEYS}
     for i in range(len(dataset)):
         sample = dataset[i]
@@ -427,7 +463,7 @@ def train(
     from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
     from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
     from lightning_pose_tpu_torch.losses.factory import get_loss_factories
-    from lightning_pose_tpu_torch.models.factory import get_model
+    from lightning_pose_tpu_torch.models.factory import get_model, normalize_model_type
     from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
     _check_ported(cfg)
@@ -476,7 +512,10 @@ def train(
             hflip=bool(cfg.training.get("imgaug_hflip", False)),
             hflip_swap_indices=dataset.hflip_swap_indices,
         )
-        meta = {"model_type": "heatmap", "downsample_factor": int(cfg.data.get("downsample_factor", 2))}
+        meta = {
+            "model_type": normalize_model_type(cfg.model.model_type),
+            "downsample_factor": int(cfg.data.get("downsample_factor", 2)),
+        }
         _, eval_step, train_step_cached = make_step_fns(
             meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch, COMPUTE_DTYPE
         )
@@ -520,7 +559,7 @@ def train(
         draw_gen = torch.Generator().manual_seed(data_seed)
         field_gen = torch.Generator(device).manual_seed(data_seed)
         logger.info(
-            f"training heatmap/{cfg.model.backbone} for {max_epochs} epochs x "
+            f"training {meta['model_type']}/{cfg.model.backbone} for {max_epochs} epochs x "
             f"{steps_per_epoch} steps on {device}"
         )
 

@@ -3,7 +3,7 @@ copy of what it uses of ``lightning_pose_tpu/utils/io.py``).
 
 DLC 3-row-header CSVs with an optional per-keypoint ``visible`` column
 (values 0/1/2), video path discovery and multi-view grouping by filename,
-best-checkpoint discovery under
+the paths of a labeled frame's context frames, best-checkpoint discovery under
 ``tb_logs/<model_name>/version_*/checkpoints``, and the DLC column index of
 prediction CSVs. All array outputs are numpy.
 """
@@ -28,6 +28,7 @@ __all__ = [
     "ckpt_path_from_base_path",
     "find_video_files_for_views",
     "fix_empty_first_row",
+    "get_context_img_paths",
     "get_keypoint_names",
     "get_videos_in_dir",
     "make_dlc_pandas_index",
@@ -401,3 +402,21 @@ def make_dlc_pandas_index(cfg, keypoint_names: list[str]) -> pd.MultiIndex:
         [[f"{cfg.model.model_type}_tracker"], keypoint_names, ["x", "y", "likelihood"]],
         names=["scorer", "bodyparts", "coords"],
     )
+
+
+def get_context_img_paths(center_img_path: Path) -> list[Path]:
+    """The 5 context-frame paths of a center frame: frame indices n-2..n+2,
+    floored at 0, written with the center's count of digits (reference
+    utils/io.py:497). The index is the first run of digits in the file's
+    stem; every occurrence of that run in the stem is replaced."""
+    center_img_path = Path(center_img_path)
+    match = re.search(r"(\d+)", center_img_path.stem)
+    if match is None:
+        raise ValueError(f"No frame index in filename, can't get context frames: {center_img_path.name}")
+    digits = match.group()
+    center = int(digits)
+    paths = []
+    for index in (max(center + d, 0) for d in range(-2, 3)):
+        stem = center_img_path.stem.replace(digits, str(index).zfill(len(digits)))
+        paths.append(center_img_path.with_name(stem + center_img_path.suffix))
+    return paths

@@ -4,9 +4,10 @@ lightning_pose/utils/predictions.py:39-327).
 
 Output contract: 3-level (scorer/bodyparts/coords) MultiIndex columns with
 x/y/likelihood per keypoint. A video gives one row per frame, the FILL
-padding of the last batch trimmed; a labeled dataset gives one row per
-image, indexed by image name, with the train/validation/test ``set``
-column. Context models and multiview outputs are not ported yet.
+padding of the last batch trimmed and, for a context model, its rows
+shifted to their center frames; a labeled dataset gives one row per image,
+indexed by image name, with the train/validation/test ``set`` column.
+Multiview outputs are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ def predict_dataset(
     """Predict every frame of a labeled dataset, in CSV order, and write the
     CSV where ``preds_file`` is given (reference predictions.py:330).
 
-    ``predict_fn(images_uint8, bbox)`` takes a ``(B, h, w, 3)`` uint8 batch
-    and its ``(B, 4)`` bboxes on ``device``."""
+    ``predict_fn(images_uint8, bbox)`` takes a ``(B, h, w, 3)`` uint8 batch,
+    or ``(B, 5, h, w, 3)`` context stacks, and its ``(B, 4)`` bboxes on
+    ``device``."""
     # every batch is launched before the first result is fetched
     device_preds, valids = [], []
     for batch in data_module.full_batches():
@@ -76,17 +78,47 @@ class PredictionHandler:
     def keypoint_names(self) -> list[str]:
         return list(self.cfg.data.keypoint_names)
 
+    @property
+    def do_context(self) -> bool:
+        if self.data_module is not None:
+            return bool(getattr(self.data_module.dataset, "do_context", False))
+        return self.cfg.model.model_type == "heatmap_mhcrnn"
+
     def unpack_preds(
         self, preds: list[tuple[np.ndarray, np.ndarray]]
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Stack per-batch (keypoints, confidences) and trim the padding of a
-        video's last batch (reference predictions.py:95-142)."""
+        """Stack per-batch (keypoints, confidences), trim the padding of a
+        video's last batch and, for a context model, move each row to its
+        center frame (reference predictions.py:95-142)."""
         keypoints = np.vstack([np.asarray(kp) for kp, _ in preds])
         confs = np.vstack([np.asarray(c) for _, c in preds])
         if self.video_file is None:
             return keypoints, confs
         n_frames = self.frame_count
-        return keypoints[:n_frames], confs[:n_frames]
+        keypoints, confs = keypoints[:n_frames], confs[:n_frames]
+        if self.do_context:
+            # the context model keeps its edge confidences (reference
+            # predictions.py:99-106)
+            keypoints = self.fix_context_preds_confs(keypoints)
+            confs = self.fix_context_preds_confs(confs)
+        return keypoints, confs
+
+    def fix_context_preds_confs(self, rows: np.ndarray) -> np.ndarray:
+        """Move a context model's outputs to their frames (reference
+        predictions.py:144-175). Window output i belongs to frame i + 2, so
+        each frame takes the row two back, the first two frames row 0. With
+        one row per frame, the last two frames reuse row n-3; with fewer rows
+        than frames (a short video), the missing tail repeats row 0, the
+        reference's quirk, kept."""
+        n_frames = self.frame_count
+        shifted = rows[np.maximum(np.arange(len(rows)) - 2, 0)]
+        if len(shifted) == n_frames:
+            shifted[-2:] = shifted[-3]
+        else:
+            shifted = np.concatenate(
+                [shifted, np.broadcast_to(shifted[0], (n_frames - len(shifted), rows.shape[1]))]
+            )
+        return shifted
 
     @staticmethod
     def make_pred_arr_undo_resize(

@@ -81,7 +81,9 @@ def predict_video(
     in ``labeled_videos/`` beside it. Returns a ``PredictionResult``.
 
     ``predict_fn(images_uint8, bbox)`` takes a ``(T, h, w, 3)`` uint8 batch
-    and its ``(T, 4)`` [x, y, h, w] bboxes on ``device``. ``bbox_df``: an
+    and its ``(T, 4)`` [x, y, h, w] bboxes on ``device``; for a context
+    model, ``T`` is ``dali.context.predict.sequence_length``, batches
+    overlap by 4 frames, and ``predict_fn`` gives one row per window. ``bbox_df``: an
     optional per-frame [x, y, h, w] DataFrame: each frame is cropped to its
     box and the keypoints are mapped back through it (reference
     dali.py:332-396). ``progress_file``: JSON progress that steps as each
@@ -94,13 +96,15 @@ def predict_video(
     from lightning_pose_tpu_torch.data.video import PredictVideoLoader
     from lightning_pose_tpu_torch.utils.predictions import PredictionHandler
 
-    seq_len = int(cfg.dali.base.predict.sequence_length)
+    do_context = cfg.model.model_type == "heatmap_mhcrnn"
+    seq_len = int(cfg.dali["context" if do_context else "base"].predict.sequence_length)
     loader = PredictVideoLoader(
         video_file=video_file,
         sequence_length=seq_len,
         resize_height=int(cfg.data.image_resize_dims.height),
         resize_width=int(cfg.data.image_resize_dims.width),
         bbox_df=bbox_df,
+        do_context=do_context,
     )
     # keypoints go back to the original resolution through a full-frame
     # bbox, or through the per-frame crop bboxes
@@ -114,7 +118,7 @@ def predict_video(
     def batch_bbox(i: int) -> torch.Tensor:
         if bbox_rows is None:
             return full_bbox
-        idx = np.minimum(np.arange(i * seq_len, (i + 1) * seq_len), len(bbox_rows) - 1)
+        idx = np.minimum(np.arange(i * loader.step, i * loader.step + seq_len), len(bbox_rows) - 1)
         return torch.from_numpy(bbox_rows[idx]).to(device)
 
     progress = None

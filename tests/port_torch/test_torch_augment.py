@@ -297,8 +297,8 @@ def test_engine_identity_and_contract():
     engine = paug.AugmentationEngine("dlc", 64, 64)
     with pytest.raises(ValueError, match="draws"):
         engine.apply(images, keypoints)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.apply(torch.zeros(2, 5, 64, 64, 3), keypoints)
+    with pytest.raises(ValueError, match="stacks"):
+        engine.apply(torch.zeros(2, 2, 5, 64, 64, 3), keypoints)
     with pytest.raises(NotImplementedError):
         paug.build_spec({"Sharpen": {"p": 0.5}})
 

@@ -563,3 +563,146 @@ def test_one_semisupervised_step_on_card_launches_the_kernels(cuda_device, tmp_p
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
     assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
     assert state.step == 1
+
+
+# -- the context model's shapes --------------------------------------------------------
+
+
+def _multiframe_maps(device, windows=28, k=17, size=256):
+    """The multi-frame head's maps of a random-init context model (resnet18,
+    the CRNN at flax's Xavier gain 1.0) on the sliding windows of a window
+    of random frames, train mode, bf16: ``(windows, k, size/4, size/4)``."""
+    from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import make_context_windows
+    from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+
+    torch.manual_seed(0)
+    model = build_model("heatmap_mhcrnn", "resnet18", k).to(device, memory_format=torch.channels_last).train()
+    frames = _frames((windows + 4, size, size, 3), seed=7).to(device)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        _, hm_mf = model(make_context_windows(normalize_images(frames).permute(0, 3, 1, 2)))
+    return hm_mf.float().contiguous()
+
+
+def test_warp_kernel_over_context_stacks_matches_plain(cuda_device):
+    """16 stacks of 5 frames, each stack's sampling field repeated over its
+    frames (what the engine gives the kernel for context stacks)."""
+    engine = AugmentationEngine("dlc", 256, 256)
+    draws = _forced_draws(engine, 16)
+    _, coords, _, _ = engine.sampling_grid(draws, 16, cuda_device)
+    coords = coords.repeat_interleave(5, dim=0).contiguous()
+    images = _frames((80, 256, 256, 3), seed=8).to(cuda_device, torch.float32)
+    before = warp_kernel.launches
+    out = warp_kernel.warp(images, coords)
+    ref = warp_kernel.warp_plain(images, coords)
+    torch.cuda.synchronize()
+    assert warp_kernel.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+def test_engine_on_context_stacks_on_card_matches_cpu(cuda_device):
+    """The engine on (4, 5, 256, 256, 3) stacks: one warp launch over the 20
+    frames, one CLAHE launch over the fired stacks' frames; card against
+    CPU, same draws."""
+    rng = np.random.default_rng(9)
+    stacks = torch.from_numpy(rng.integers(0, 256, (4, 5, 256, 256, 3), dtype=np.uint8))
+    keypoints = torch.from_numpy(rng.uniform(0, 256, (4, 17, 2)).astype(np.float32))
+    engine = AugmentationEngine("dlc", 256, 256)
+    draws = _forced_draws(engine, 4)
+    before = (warp_kernel.launches, clahe_kernel.launches)
+    out, kp = engine.apply(stacks.to(cuda_device), keypoints.to(cuda_device), None, draws)
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches, clahe_kernel.launches) == (before[0] + 1, before[1] + 1)
+    cpu_draws = type(draws)(**{k: (v.cpu() if v is not None else None) for k, v in vars(draws).items()})
+    ref, ref_kp = engine.apply(stacks, keypoints, None, cpu_draws)
+    assert out.shape == (4, 5, 256, 256, 3)
+    finite = ~torch.isnan(ref_kp)
+    torch.testing.assert_close(kp.cpu()[finite], ref_kp[finite], rtol=0, atol=1e-3)
+    assert float(((out.cpu() - ref).abs() > 0.01).float().mean()) < 1e-3
+
+
+def test_decode_and_backward_on_multiframe_maps_match_plain(cuda_device):
+    """The decode and its backward kernel on the CRNN head's maps at the
+    semi-supervised window's shape (28, 17, 64, 64): probability maps from a
+    gain-1.0 head, more peaked than the single-frame head's."""
+    hm = _multiframe_maps(cuda_device)
+    assert hm.shape == (28, 17, 64, 64)
+    np.testing.assert_allclose(hm.sum(dim=(2, 3)).cpu().numpy(), 1.0, rtol=1e-4)
+    kp, conf = decode_kernel.decode(hm, 2)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm, 2)
+    _assert_decode_close(kp, conf, kp_ref, conf_ref, 2)
+    grad, grad_ref, _, _ = _decode_grads(hm, 2, seed=3)
+    scale = float(grad_ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(grad).all())
+    assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * scale
+
+
+def test_context_predict_step_on_card_matches_cpu(cuda_device):
+    """The context model's predict step, fp32, card (normalize once, decode
+    twice) against the CPU, on a 12-frame sequence (8 windows) and on
+    5-frame stacks."""
+    torch.manual_seed(1)
+    model = build_model("heatmap_mhcrnn", "resnet18", 5).eval()
+    cpu = PredictStep(model, 128, 128, torch.float32)
+    card = PredictStep(build_model("heatmap_mhcrnn", "resnet18", 5), 128, 128, torch.float32)
+    card.model.load_state_dict(model.state_dict())
+    card.model = card.model.eval().to(cuda_device, memory_format=torch.channels_last)
+    for frames in (_frames((12, 128, 128, 3), seed=1), _frames((3, 5, 128, 128, 3), seed=2)):
+        bbox = torch.tensor([[0.0, 0.0, 120.0, 160.0]] * frames.shape[0])
+        before = (normalize_kernel.launches, decode_kernel.launches)
+        kp, conf = card(frames.to(cuda_device), bbox.to(cuda_device))
+        torch.cuda.synchronize()
+        assert (normalize_kernel.launches, decode_kernel.launches) == (before[0] + 1, before[1] + 2)
+        kp_ref, conf_ref = cpu(frames, bbox)
+        assert kp.shape == kp_ref.shape == (frames.shape[0] - 4 if frames.ndim == 4 else 3, 10)
+        torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=KP_TOL_PX)
+        torch.testing.assert_close(conf.cpu(), conf_ref, rtol=0, atol=CONF_TOL)
+
+
+def test_one_context_semisupervised_step_on_card_launches_the_kernels(cuda_device):
+    """A resnet18 context step on the card (bf16): 4 stacks with dlc and an
+    8-frame window (4 windows); the warp twice (stacks, window), the decode
+    forward three times (both heads' labeled maps in one launch, then each
+    head's window maps) and its backward twice; finite losses."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import LossFactory
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.training.max_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    torch.manual_seed(0)
+    model = build_model("heatmap_mhcrnn", "resnet18", 5).to(cuda_device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer)
+    engine = AugmentationEngine("dlc", 128, 128)
+    factories = {
+        "supervised": LossFactory({"heatmap_mse": {"log_weight": 0.0}}),
+        "unsupervised": LossFactory({"temporal": {"log_weight": 0.0}}),
+    }
+    step = trainer.make_step_fns({"model_type": "heatmap_mhcrnn", "downsample_factor": 2}, factories,
+                                 engine, cfg, head_sched, bb_sched, 10)[2]
+    rng = np.random.default_rng(6)
+    cache = {
+        "images": _frames((6, 5, 128, 128, 3), seed=3),
+        "keypoints": torch.from_numpy(rng.uniform(0, 128, (6, 5, 2)).astype(np.float32)),
+        "visibility": torch.full((6, 5), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, 128.0, 128.0]] * 6),
+    }
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    window = {"frames": _frames((8, 128, 128, 3), seed=4).to(cuda_device),
+              "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0]] * 8, device=cuda_device)}
+    gen, field_gen = torch.Generator().manual_seed(2), torch.Generator(cuda_device).manual_seed(2)
+    draws = engine.sample(gen, 4, field_gen)
+    video_draws = sample_video_draws(gen, 8, 128, 128, field_gen)
+    before = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    logs = step(state, cache, torch.arange(4, device=cuda_device), torch.ones(4, dtype=torch.bool, device=cuda_device),
+                draws, window, video_draws)
+    torch.cuda.synchronize()
+    after = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 3, 2)
+    assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
+    assert state.step == 1

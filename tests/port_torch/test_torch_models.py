@@ -162,7 +162,7 @@ def test_resnet50_pose_variants_share_the_architecture():
     assert features == 2048 and model.arch == "resnet50"
 
 
-@pytest.mark.parametrize("model_type", ["regression", "heatmap_mhcrnn", "heatmap_multiview_transformer"])
+@pytest.mark.parametrize("model_type", ["regression", "heatmap_multiview", "heatmap_multiview_transformer"])
 def test_build_model_rejects_unported_types(model_type):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(model_type, "resnet18", 3)

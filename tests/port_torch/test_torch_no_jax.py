@@ -201,3 +201,65 @@ print(json.dumps({{
 """)
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"finite": True, "unsupervised_logged": 2, "jax": []}
+
+
+def test_context_model_paths_run_without_jax(tmp_path):
+    """The context model (heatmap_mhcrnn): semi-supervised train() in
+    repeat_center mode with its evaluation (the labeled stacks, a test
+    video), then, from the directory, in adjacent mode, the video, the
+    labeled CSV and a 5-frame stack."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+from lightning_pose_tpu_torch.config import Config, load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+names = ["a", "b", "c"]
+data = write_labeled_dataset({str(tmp_path / "data")!r}, 10, 130, 140, names, seed=1)
+video = write_unlabeled_video(data, "session0", 9, 96, 128, n_blobs=3, seed=0)
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.model_type = "heatmap_mhcrnn"
+cfg.model.mhcrnn_context_mode = "repeat_center"
+cfg.model.backbone = "resnet18"
+cfg.model.model_name = "nojaxctx"
+cfg.model.losses_to_use = ["pca_singleview", "temporal"]
+cfg.dali.base.train.sequence_length = 6
+cfg.dali.context.predict.sequence_length = 8
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+cfg.training.max_steps = cfg.training.min_steps = 2
+cfg.training.unfreezing_step = 1
+cfg.training.log_every_n_steps = 1
+cfg.training.lr_scheduler_params.multisteplr.milestones = None
+cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+cfg.eval.test_videos_directory = str(data / "videos")
+model_dir = {str(tmp_path / "model")!r}
+result = train(cfg, model_dir, device="cpu")
+saved = Config.from_yaml(model_dir + "/config.yaml")
+saved.model.mhcrnn_context_mode = "adjacent"
+saved.save(model_dir + "/config.yaml")
+model = Model.from_dir(model_dir, precision="fp32", device="cpu")
+csv = model.predict_on_video_file(str(video), output_dir={str(tmp_path / "preds")!r}).predictions
+labeled = model.predict_on_label_csv("CollectedData.csv", compute_metrics=False).predictions
+frame = model.predict_frame(np.zeros((5, 130, 140, 3), dtype=np.uint8))
+print(json.dumps({{
+    "video": list(csv.shape),
+    "labeled": list(labeled.shape),
+    "finite": bool(np.isfinite(frame["keypoints"]).all() and np.isfinite(csv.to_numpy()).all()),
+    "unsupervised_logged": sum("train_unsupervised_loss" in h for h in result.history),
+    "evaluated": sorted(p.split("/")[-1] for p in ["image_preds/CollectedData.csv/predictions.csv",
+                                                    "video_preds/session0.csv"]
+                        if (result.model_dir / p).is_file()),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"video": [9, 9], "labeled": [10, 10], "finite": True, "unsupervised_logged": 2,
+                      "evaluated": ["predictions.csv", "session0.csv"], "jax": []}
