@@ -89,9 +89,38 @@ Phases, each fatal on failure:
      Phase 3 also holds the warp over 80 stack images (each stack's field
      repeated over its 5 frames), CLAHE at 12a's fired steps' planes, and
      the decode and its backward on a random-init context model's
-     multi-frame maps (28, 17, 64, 64), against their plain versions. Each
-     kernel's entry in the JSON summary names the phase-12 path whose
-     launches it counts and the shape its times were taken at.
+     multi-frame maps (28, 17, 64, 64), against their plain versions.
+ 13. the multiview transformer (heatmap_multiview: vits_dino, ViT-S/16, 2
+     views of 17 keypoints, 256 px, bf16; the repo's multiview config
+     uncalibrated), on a synthetic 2-view set and sessions:
+     a. train(cfg, dir) supervised, 10 steps of 16 samples x 2 views with
+        dlc and the patch mask from step 0 (0.1 -> 0.5), with its
+        evaluation (one image_preds directory and legacy copy a view);
+        launches of the warp (once a step over 32 view images), CLAHE (once
+        a step whose draws fire it) and the decode (once a step, validation
+        batch and evaluation batch, 34 maps a sample) against that count;
+        the step's ms, device busy share, peak memory and largest
+        device-time entries (torch.profiler over 5 steps);
+     b. train(cfg, dir) semi-supervised (pca_multiview + temporal; one
+        32-frame 2-view window a step, photometric augmentation only), 10
+        steps, with the 2-view test session predicted in its evaluation:
+        the decode's backward once a step; the step's ms, busy share, the
+        backward's share and the largest entries;
+     c. from 13a's directory: predict_on_video_file_multiview of a 2-view
+        1000-frame 320x240 session (11 batches of (96, 2, 256, 256, 3);
+        normalize and decode once a batch), run 3 times, the first cold;
+     d. predict_on_label_csv_multiview, and predict_frame of one frame a
+        view at fp32 on the card (TF32 off) against the CPU;
+     e. each kernel at the multiview shapes beside its plain version and
+        bound: normalize (96, 2, 256, 256, 3), the warp over 32 view images
+        (and F.grid_sample), CLAHE at 13a's fired steps, the decode at
+        (96, 34, 64, 64) and its backward at (32, 34, 64, 64).
+     Phase 3 also holds the normalize on a (96, 2, 256, 256, 3) batch, the
+     warp over 32 view images, CLAHE at 13a's fired planes, and the decode
+     and its backward on a random-init multiview model's maps against
+     their plain versions. Each kernel's entry in the JSON summary names
+     the phase-13 path whose launches it counts and the shape its times
+     were taken at.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
 the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
@@ -178,6 +207,20 @@ CONTEXT_CONF_TOL = 1e-3
 # parameters' gradient within 1% in the 2-norm
 SEMI_LEAF_REL_TOL = 0.1
 SEMI_NORM_REL_TOL = 1e-2
+# the multiview transformer (heatmap_multiview, the repo's multiview config:
+# ViT-S/16 vits_dino, 2 views, dlc, the patch-mask curriculum, Adam 5e-5):
+# train() steps of each configuration, the patch mask ramping 0.1 -> 0.5
+# over them from step 0, the frames of each view of the synthetic session
+# (11 batches of 96) and the runs over it (the first cold), the limit of
+# fp32 on the card against the CPU
+MV_VIEWS = ["cam0", "cam1"]
+MV_BACKBONE = "vits_dino"
+MV_STEPS = 10
+MV_SEED = 5
+MV_LR = 5e-5
+MV_VIDEO_FRAMES = 1000
+MV_VIDEO_RUNS = 3
+MV_TOL_PX = 0.05
 
 KERNELS = {
     "normalize": {
@@ -1106,16 +1149,18 @@ def context_config(cfg, name: str):
     return cfg
 
 
-def clahe_fired_stacks(engine, steps: int) -> list[int]:
-    """The stacks that CLAHE fires on in each step of phase 12a's train()
-    whose draws (the same seeded generators as train()'s) fire it at all:
-    one CLAHE launch each, over 15 planes a stack."""
+def clahe_fired_stacks(engine, steps: int, seed: int = CONTEXT_SEED, b: int = TRAIN_BATCH) -> list[int]:
+    """The stacks (or view images) that CLAHE fires on in each step of a
+    supervised train() of ``b`` draws a step from ``seed`` (phase 12a: 16
+    stacks, 15 planes each; 13a: 32 view images, 3 planes each), in the
+    steps whose draws (the same seeded host generator as train()'s) fire
+    it at all: one CLAHE launch each."""
     import torch
 
-    gen = torch.Generator().manual_seed(CONTEXT_SEED)
-    field_gen = torch.Generator("cuda").manual_seed(CONTEXT_SEED)
+    gen = torch.Generator().manual_seed(seed)
+    field_gen = torch.Generator("cuda").manual_seed(seed)
     p = engine.spec["clahe"]["p"]
-    fired = [int((engine.sample(gen, TRAIN_BATCH, field_gen).clahe_u < p).sum()) for _ in range(steps)]
+    fired = [int((engine.sample(gen, b, field_gen).clahe_u < p).sum()) for _ in range(steps)]
     return [n for n in fired if n]
 
 
@@ -1399,6 +1444,459 @@ def context_phase(rng, card: str) -> dict[str, int]:
     return slice_launches
 
 
+# -- the multiview transformer (heatmap_multiview) ------------------------------------
+
+
+def multiview_config(data_dir: Path, keypoint_names: list[str], name: str, semi: bool):
+    """The repo's multiview config (scripts/configs/config_default_multiview.yaml)
+    at full width on the synthetic 2-view set: vits_dino, 2 views of 17
+    keypoints at 256 px, batch 16 with dlc, Adam 5e-5, MV_STEPS steps in
+    step mode, the patch mask from step 0 ramping 0.1 -> 0.5 over the steps.
+    ``semi``: pca_multiview + temporal over one 32-frame 2-view window a
+    step, the anneal weight 1 from step 0 and the epsilons 0 as in phase
+    11, and the videos' sessions predicted after training."""
+    cfg = train_config(data_dir, keypoint_names)
+    cfg.data.csv_file = [f"CollectedData_{v}.csv" for v in MV_VIEWS]
+    cfg.data.view_names = list(MV_VIEWS)
+    cfg.data.mirrored_column_matches = list(range(KEYPOINTS))
+    cfg.model.model_type = "heatmap_multiview_transformer"
+    cfg.model.backbone = MV_BACKBONE
+    cfg.model.model_name = name
+    cfg.training.optimizer_params.learning_rate = MV_LR
+    cfg.training.max_steps = cfg.training.min_steps = MV_STEPS
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [5, 8]
+    cfg.training.rng_seed_data_pt = MV_SEED
+    cfg.training.patch_mask = {"init_step": 0, "final_step": MV_STEPS, "init_ratio": 0.1, "final_ratio": 0.5}
+    if semi:
+        cfg.model.losses_to_use = ["pca_multiview", "temporal"]
+        check(int(cfg.dali.base.train.sequence_length) == WINDOW, "the defaults changed")
+        cfg.losses.pca_multiview.epsilon = 0.0
+        cfg.losses.temporal.epsilon = 0.0
+        cfg.losses.temporal.prob_threshold = 0.0
+        cfg.callbacks.anneal_weight.init_val = 1.0
+        cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+        cfg.eval.test_videos_directory = str(Path(data_dir) / "videos")
+    return cfg
+
+
+def multiview_maps(rng, dev):
+    """The maps of a random-init multiview transformer (vits_dino, 2 views,
+    17 keypoints; its head's deconv scaled by 300 so the maps are peaked, as
+    the CPU tests do) on 16 samples of 2 random 256 px views, train mode,
+    bf16: ``(16, 34, 64, 64)`` fp32 probability maps."""
+    import torch
+
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+
+    torch.manual_seed(SEED)
+    model = build_model("heatmap_multiview", MV_BACKBONE, KEYPOINTS, DOWNSAMPLE, num_views=len(MV_VIEWS),
+                        image_size=IMAGE)
+    with torch.no_grad():
+        model.head.deconv0.weight.mul_(300.0)
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    views = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, len(MV_VIEWS), IMAGE, IMAGE, 3), dtype=np.uint8))
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hm = model(normalize_images(views.to(dev)).permute(0, 1, 4, 2, 3))
+    log(f"phase 3 maps of a random-init multiview transformer {tuple(hm.shape)}: mean peak "
+        f"{float(hm.flatten(2).amax(-1).mean()):.3e} (a uniform map's {1 / hm[0, 0].numel():.3e})")
+    return hm.float().contiguous()
+
+
+def multiview_kernel_checks(rng, engine, errors: dict) -> dict:
+    """Phase 3 at the multiview transformer's shapes: the normalize on a
+    ``(96, 2, 256, 256, 3)`` video batch (one launch over both views), the
+    warp over a step's 32 view images, CLAHE over the planes of the view
+    images that phase 13a's draws fire it on (one input a fired step), the
+    decode on a video batch's ``(96, 34, 64, 64)`` maps and its backward on
+    an unlabeled window's ``(32, 34, 64, 64)``, each against its plain
+    version. Returns the inputs, for the times."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel, warp_kernel
+
+    dev = torch.device("cuda", 0)
+    nv = len(MV_VIEWS)
+    frames = torch.from_numpy(rng.integers(0, 256, (BATCH, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+    out = normalize_kernel.normalize(frames, torch.bfloat16)
+    ref = normalize_kernel.normalize_plain(frames, torch.bfloat16)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(out, ref)
+    log(f"phase 3 normalize multiview {tuple(frames.shape)} -> {tuple(out.shape)} bf16: {ulps} bf16 ulps from the "
+        f"plain version (limit {NORMALIZE_MAX_ULP})")
+    check(out.shape == (BATCH, nv, 3, IMAGE, IMAGE) and ulps <= NORMALIZE_MAX_ULP,
+          "normalize of a multiview batch disagrees with its plain version")
+    errors["normalize"] = max(errors["normalize"], float((out.float() - ref.float()).abs().max()))
+
+    n_img = TRAIN_BATCH * nv
+    draws = forced_draws(engine, n_img, SEED + 8)
+    _, coords, _, _ = engine.sampling_grid(draws, n_img, dev)
+    coords = coords.contiguous()
+    images = torch.from_numpy(rng.uniform(0, 255, (n_img, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    errors["warp"] = max(errors["warp"], check_warp(engine, images, draws, f"multiview {TRAIN_BATCH}x{nv} views"))
+
+    clahe_inputs = []
+    for n_fired in clahe_fired_stacks(engine, MV_STEPS, MV_SEED, n_img):
+        planes = torch.from_numpy(rng.uniform(0, 255, (n_fired, 3, IMAGE, IMAGE)).astype(np.float32))
+        clip = torch.from_numpy(rng.uniform(1.0, 8.0, n_fired).astype(np.float32))
+        err, x_lut = check_clahe(planes.to(dev), clip.to(dev), 16)
+        errors["clahe"] = max(errors["clahe"], err)
+        clahe_inputs.append(x_lut)
+
+    hm_window = multiview_maps(rng, dev).repeat(2, 1, 1, 1).contiguous()  # a 32-frame window's maps
+    hm_video = hm_window.repeat(3, 1, 1, 1).contiguous()  # a video batch's 96 frames
+    kp, conf = decode_kernel.decode(hm_video, DOWNSAMPLE)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm_video, DOWNSAMPLE)
+    torch.cuda.synchronize()
+    kp_err, conf_err, flips = decode_errors(kp, conf, kp_ref, conf_ref, decode_kernel.GRID_OFFSETS[DOWNSAMPLE])
+    log(f"phase 3 decode multiview maps {tuple(hm_video.shape)}: keypoints max abs err {kp_err:.3e} px (limit "
+        f"{DECODE_KP_TOL_PX}), confidences {conf_err:.3e} (limit {DECODE_CONF_TOL}), windows differing {flips} "
+        f"(limit {DECODE_MAX_WINDOW_FLIPS})")
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), "decode multiview maps: non-finite")
+    check(kp_err <= DECODE_KP_TOL_PX and conf_err <= DECODE_CONF_TOL and flips <= DECODE_MAX_WINDOW_FLIPS,
+          "decode of multiview maps disagrees with its plain version")
+    errors["decode"] = max(errors["decode"], kp_err)
+    grad, grad_ref = decode_grads(hm_window, DOWNSAMPLE, seed=SEED + 9)
+    err, scale = float((grad - grad_ref).abs().max()), float(grad_ref.abs().max())
+    log(f"phase 3 decode backward multiview maps {tuple(hm_window.shape)}: max abs err {err:.3e} of a largest entry "
+        f"{scale:.3e} ({err / scale:.2e}, limit {DECODE_GRAD_REL_TOL})")
+    check(bool(torch.isfinite(grad).all()) and scale > 0, "decode backward of multiview maps: non-finite or zero")
+    check(err <= DECODE_GRAD_REL_TOL * scale, "decode backward of multiview maps disagrees with its plain version")
+    errors["decode_grad"] = max(errors["decode_grad"], err)
+    return {"frames": frames, "images": images, "coords": coords, "clahe": clahe_inputs,
+            "hm_video": hm_video, "hm_window": hm_window}
+
+
+def multiview_times(inputs: dict, card: str) -> dict[str, tuple]:
+    """Phase 13e: each kernel at the shapes the multiview paths give it,
+    beside its plain version, its bound and, for the warp,
+    ``F.grid_sample``: the normalize on a video batch (13c), the warp over a
+    step's 32 view images and CLAHE at each fired step's planes (13a; the
+    mean a launch), with the L2 flushed before each launch; the decode on a
+    video batch's 96 x 34 maps (13c) and its backward on a window's 32 x 34
+    (13b), back to back. Returns name -> (ms, plain_ms, library_ms,
+    (bound_ms, bound_by), shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+
+    dev = torch.device("cuda", 0)
+    frames, images, coords = inputs["frames"], inputs["images"], inputs["coords"]
+    norm_ms = flushed_ms(lambda: normalize_kernel.normalize(frames, torch.bfloat16))
+    norm_plain_ms = flushed_ms(lambda: normalize_kernel.normalize_plain(frames, torch.bfloat16), iters=10)
+
+    nchw = images.permute(0, 3, 1, 2)
+    grid = torch.stack([2 * coords[..., 0] / (IMAGE - 1) - 1, 2 * coords[..., 1] / (IMAGE - 1) - 1], dim=-1)
+    warp_rounds = flushed_rounds({
+        "kernel": lambda: warp_kernel.warp(images, coords),
+        "grid_sample": lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+    })
+    warp_plain_ms = flushed_ms(lambda: warp_kernel.warp_plain(images, coords), iters=10)
+
+    clahe = [(flushed_ms(lambda: clahe_kernel.clahe_apply(x, lut, 16)),
+              flushed_ms(lambda: clahe_kernel.clahe_apply_plain(x, lut, 16), iters=10),
+              bound_of((x.numel() * 2 + lut.numel()) * 4, 0)[0]) for x, lut in inputs["clahe"]]
+    planes = [x.shape[0] for x, _ in inputs["clahe"]]
+
+    hm_video, hm = inputs["hm_video"], inputs["hm_window"]
+    n_maps, hm_h, hm_w = hm_video.shape[0] * hm_video.shape[1], hm.shape[2], hm.shape[3]
+    dec_ms = cuda_ms(lambda: decode_kernel.decode(hm_video, DOWNSAMPLE), iters=50)
+    dec_plain_ms = cuda_ms(lambda: decode_kernel.decode_plain(hm_video, DOWNSAMPLE))
+    dec_bound = bound_of((hm_video.numel() + n_maps * 3) * 4, decode_flops(n_maps, hm_h, hm_w, DOWNSAMPLE))
+
+    n_maps = hm.shape[0] * hm.shape[1]
+    ops = decode_kernel._device_operands(hm_h, hm_w, DOWNSAMPLE, decode_kernel._layout(), dev)
+    lse2 = torch.empty(n_maps, device=dev)
+    kp, _ = decode_kernel._launch(hm, ops, DOWNSAMPLE, 1000.0, lse2)
+    g = torch.randn(kp.shape, device=dev)
+    grad_ms = cuda_ms(lambda: decode_kernel._launch_grad(hm, kp, lse2, g, ops, DOWNSAMPLE, 1000.0), iters=50)
+    x = hm.clone().requires_grad_()
+    kp_plain, _ = decode_kernel.decode_plain(x, DOWNSAMPLE)
+    grad_plain_ms = cuda_ms(lambda: torch.autograd.grad(kp_plain, x, g, retain_graph=True))
+    grad_bound = bound_of((2 * hm.numel() + n_maps * 5) * 4, decode_grad_flops(n_maps, hm_h, hm_w, DOWNSAMPLE))
+
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    nv = len(MV_VIEWS)
+    times = {
+        "normalize": (norm_ms, norm_plain_ms, None, bound_of(frames.numel() * (1 + 2), 0),
+                      f"{tuple(frames.shape)} uint8 -> bf16, a video batch of {nv} views"),
+        "warp": (float(np.median(warp_rounds["kernel"])), warp_plain_ms, float(np.median(warp_rounds["grid_sample"])),
+                 bound_of((images.numel() * 2 + coords.numel()) * 4, 0),
+                 f"{tuple(images.shape)} fp32, {TRAIN_BATCH} samples x {nv} views, one field an image"),
+        "clahe": (mean([c[0] for c in clahe]), mean([c[1] for c in clahe]), None, (mean([c[2] for c in clahe]), "bytes"),
+                  f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {planes} in phase 13a's fired steps; the mean a launch"),
+        "decode": (dec_ms, dec_plain_ms, None, dec_bound,
+                   f"{tuple(hm_video.shape)} fp32 multiview maps ({nv} views x {KEYPOINTS}), df {DOWNSAMPLE}"),
+        "decode_grad": (grad_ms, grad_plain_ms, None, grad_bound,
+                        f"{tuple(hm.shape)} fp32 multiview maps ({nv} views x {KEYPOINTS}), df {DOWNSAMPLE}"),
+    }
+    for name, (ms, plain_ms, library_ms, (bound, bound_by), shape) in times.items():
+        lib_text = f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""
+        log(f"phase 13e {name} at the multiview shape {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms"
+            f"{lib_text}; bound {bound:.5f} ms ({bound_by}), {bound / ms:.1%} of it reached {card}")
+    return times
+
+
+def check_multiview_preds(model_dir: Path) -> list[str]:
+    """train()'s evaluation of a multiview model: image_preds/<view csv>/
+    predictions.csv and its pixel-error CSV for each view, with their
+    legacy copies predictions_<view>*.csv in the model directory."""
+    import pandas as pd
+
+    found = []
+    for view in MV_VIEWS:
+        preds_dir = model_dir / "image_preds" / f"CollectedData_{view}.csv"
+        files = sorted(f.name for f in preds_dir.glob("*.csv"))
+        check(files == ["predictions.csv", "predictions_pixel_error.csv"], f"{preds_dir}: {files}")
+        df = pd.read_csv(preds_dir / "predictions.csv", header=[0, 1, 2], index_col=0)
+        check(df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and df.columns[-1][0] == "set"
+              and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(), f"{preds_dir}/predictions.csv: {df.shape}")
+        for name in (f"predictions_{view}.csv", f"predictions_{view}_pixel_error.csv"):
+            check((model_dir / name).is_file(), f"the legacy copy {name} is missing")
+        found.append(f"{preds_dir.name}/{{{', '.join(files)}}}")
+    return found
+
+
+def multiview_predict_phase(model_dir: Path, videos: list[Path], card: str) -> dict[str, int]:
+    """Phases 13c and 13d from the supervised multiview directory. Returns
+    the normalize and decode launches of the first video run."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    model = Model.from_dir(model_dir)
+    model._load()  # the model's load and weights stay out of the counts and the time
+    torch.cuda.synchronize()
+    rates = []
+    for run in range(MV_VIDEO_RUNS):
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = model.predict_on_video_file_multiview(videos, compute_metrics=False)
+        rates.append(MV_VIDEO_FRAMES / (time.perf_counter() - t0))
+        if run == 0:
+            video_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    batches = math.ceil(MV_VIDEO_FRAMES / BATCH)
+    for view in MV_VIEWS:
+        df = result.predictions[view]
+        check(df.shape == (MV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"the multiview video CSV of {view}: shape {df.shape} or non-finite values")
+    check(video_launches == {"normalize": batches, "decode": batches},
+          f"multiview video launches {video_launches}, {batches} batches")
+    log(f"phase 13c predict_on_video_file_multiview (bf16, without metrics): {len(MV_VIEWS)} views x "
+        f"{MV_VIDEO_FRAMES} frames of 320x240 mp4s in {batches} batches of ({BATCH}, {len(MV_VIEWS)}, {IMAGE}, "
+        f"{IMAGE}, 3), one finite row per frame and view; launches {video_launches} (normalize 1, decode 1 a batch "
+        f"over {len(MV_VIEWS) * KEYPOINTS} maps a frame) in the first run; frames/s of a view (the session's frames, "
+        f"each decoded in both views) with the mp4s' decode, the model loaded before: {rates[0]:.1f} in the first run "
+        f"(loader threads started, first calls at these shapes), {', '.join(f'{r:.1f}' for r in rates[1:])} in the "
+        f"next {len(rates) - 1} {card}")
+
+    csvs = [f"CollectedData_{v}.csv" for v in MV_VIEWS]
+    normalize_kernel.launches = decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = model.predict_on_label_csv_multiview(csvs)
+    elapsed = time.perf_counter() - t0
+    csv_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    csv_batches = math.ceil(TRAIN_FRAMES / int(model.cfg.training.test_batch_size))
+    check(csv_launches == {"normalize": csv_batches, "decode": csv_batches},
+          f"multiview label CSV launches {csv_launches}, {csv_batches} batches")
+    for view in MV_VIEWS:
+        df = result.predictions[view]
+        check(df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(),
+              f"predict_on_label_csv_multiview {view}: shape {df.shape} or non-finite values")
+        check(result.metrics[view].pixel_error_df is not None, f"no pixel-error metrics for {view}")
+    log(f"phase 13d predict_on_label_csv_multiview (bf16): {TRAIN_FRAMES} frames x {len(MV_VIEWS)} views in "
+        f"{csv_batches} batches, launches {csv_launches}, {elapsed:.2f} s with metrics {card}")
+
+    srng = np.random.default_rng(SEED + 10)
+    frames = srng.integers(0, 256, (2, len(MV_VIEWS), 240, 320, 3), dtype=np.uint8)
+    out = model.predict_frame(frames[0], bbox=(10, 20, 280, 200))
+    check(out["keypoints"].shape == (len(MV_VIEWS) * KEYPOINTS, 2) and np.isfinite(out["keypoints"]).all()
+          and np.isfinite(out["confidence"]).all(), "predict_frame of one frame a view")
+    fp32 = {d: Model.from_dir(model_dir, precision="fp32", device=d) for d in ("cuda", "cpu")}
+    res = {d: [m.predict_frame(f) for f in frames] for d, m in fp32.items()}
+    kp_diff = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(res["cuda"], res["cpu"]))
+    conf_diff = max(float(np.abs(a["confidence"] - b["confidence"]).max()) for a, b in zip(res["cuda"], res["cpu"]))
+    log(f"phase 13d predict_frame of ({len(MV_VIEWS)}, 240, 320, 3), one frame a view, with a bbox: finite; fp32 card "
+        f"(TF32 off) vs CPU on 2 such inputs: keypoints max abs diff {kp_diff:.3e} px (limit {MV_TOL_PX}), "
+        f"confidences {conf_diff:.3e}")
+    check(kp_diff <= MV_TOL_PX, f"multiview predict_frame card vs CPU: {kp_diff} px")
+    return video_launches
+
+
+def multiview_phase(rng, card: str) -> dict[str, int]:
+    """Phases 13a-13d: train() of the multiview transformer, supervised
+    then semi-supervised, with prediction from the directory; the launches
+    of each kernel on these paths, each against what the code implies.
+    Returns the launches of each kernel on one path: the warp and CLAHE in
+    13a's train(), normalize and the decode in 13c's first video run, the
+    decode's backward in 13b's train()."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_multiview_dataset, write_multiview_videos
+
+    dev = torch.device("cuda", 0)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    nv = len(MV_VIEWS)
+    n_img = TRAIN_BATCH * nv
+    meta = {"model_type": "heatmap_multiview", "downsample_factor": DOWNSAMPLE, "num_views": nv}
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_multiview_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, MV_VIEWS, seed=SEED)
+        write_multiview_videos(data, "session0", 120, 240, 320, MV_VIEWS, n_blobs=KEYPOINTS, seed=SEED)
+
+        def train_step_fn(cfg, factories, dm):
+            spe = trainer.calculate_steps_per_epoch(dm)
+            torch.manual_seed(SEED)
+            model = build_model("heatmap_multiview", MV_BACKBONE, KEYPOINTS, DOWNSAMPLE, num_views=nv,
+                                image_size=IMAGE).to(dev, memory_format=torch.channels_last)
+            optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+            state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+            step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, spe)[2]
+            return state, step, trainer._device_cache(dm.dataset, dev)
+
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+
+        # -- 13a. supervised train() -------------------------------------------
+        cfg = multiview_config(data, names, "smokemv", semi=False)
+        model_dir = Path(tmp) / "model"
+        implied_clahe = len(clahe_fired_stacks(engine, MV_STEPS, MV_SEED, n_img))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches}
+        eval_normalizes = normalize_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        implied = {"warp": MV_STEPS, "clahe": implied_clahe, "decode": MV_STEPS + val_batches + eval_batches}
+        log(f"phase 13a multiview train(): {MV_STEPS} steps of {TRAIN_BATCH} samples x {nv} views ({MV_BACKBONE}, "
+            f"{IMAGE} px, {KEYPOINTS} keypoints a view, dlc, the patch mask 0.1 -> 0.5, bf16) in {elapsed:.1f} s with "
+            f"set-up and evaluation; launches {launches}, implied {implied} (the warp once a step over {n_img} view "
+            f"images, CLAHE once a step whose draws fire it, the decode once a step, validation batch and evaluation "
+            f"batch over {nv * KEYPOINTS} maps a sample), normalize {eval_normalizes} for {eval_batches} evaluation "
+            f"batches; train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> "
+            f"{train_logs[-1]['train_heatmap_mse_loss']:.4f}; peak device memory {peak:.2f} GiB {card}")
+        check(launches == implied and implied_clahe >= 1, f"multiview train() launches {launches}, implied {implied}")
+        slice_launches = {"warp": launches["warp"], "clahe": launches["clahe"]}
+        check(eval_normalizes == eval_batches, f"normalize launched {eval_normalizes} times")
+        check(len(train_logs) == MV_STEPS and val_logs, "multiview train() logged too little")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        log(f"phase 13a multiview train()'s evaluation: image_preds/ {'; '.join(check_multiview_preds(model_dir))} "
+            f"and their legacy copies")
+
+        state, step, cache = train_step_fn(cfg, get_loss_factories(cfg), dm)
+
+        def one_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            step(state, cache, idxs, valid, engine.sample(draw_gen, n_img, field_gen), None, None,
+                 trainer.sample_mask_scores(field_gen, n_img, (IMAGE, IMAGE)))
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, device_ms, kernels, busy = profiled_step(one_step)
+        log(f"phase 13a multiview train step ({MV_BACKBONE}, {IMAGE} px, bf16, {TRAIN_BATCH} samples x {nv} views = "
+            f"{n_img} images, dlc, patch mask, backbone unfrozen): {step_ms:.3f} ms, {n_img / step_ms * 1e3:.1f} "
+            f"images/s, mean of 10 steps by the host clock; torch.profiler over 5 steps: {device_ms:.3f} ms of device "
+            f"time a step, the device busy {busy:.1%}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log("phase 13a largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+        del state, step, cache
+
+        # -- 13c, 13d. prediction from the directory ---------------------------
+        videos = [write_video(Path(tmp) / f"long_{v}.mp4", rng, MV_VIDEO_FRAMES, 240, 320) for v in MV_VIEWS]
+        slice_launches.update(multiview_predict_phase(model_dir, videos, card))
+
+        # -- 13b. semi-supervised train() --------------------------------------
+        cfg = multiview_config(data, names, "smokemvsemi", semi=True)
+        semi_dir = Path(tmp) / "semi"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, semi_dir, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        semi_launches = {"warp": warp_kernel.launches, "decode": decode_kernel.launches,
+                         "decode_grad": decode_kernel.grad_launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        train_logs = [h for h in result.history if "train_unsupervised_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        video_batches = math.ceil(120 / BATCH)
+        implied = {"warp": MV_STEPS, "decode": 2 * MV_STEPS + val_batches + eval_batches + video_batches,
+                   "decode_grad": MV_STEPS}
+        pca = [h["train_pca_multiview_loss"] for h in train_logs]
+        temporal = [h["train_temporal_loss"] for h in train_logs]
+        log(f"phase 13b multiview semi-supervised train(): {MV_STEPS} steps of {TRAIN_BATCH} samples x {nv} views + "
+            f"a {WINDOW}-frame {nv}-view window, pca_multiview + temporal, {MV_BACKBONE}, {IMAGE} px, bf16, in "
+            f"{elapsed:.1f} s with set-up, the PCA fit and evaluation (the labeled frames, the 120-frame session in "
+            f"{video_batches} batches); launches {semi_launches}, implied {implied} (the warp on the labeled views "
+            f"only: the window is augmented photometrically); unsupervised loss "
+            f"{train_logs[0]['train_unsupervised_loss']:.3e} -> {train_logs[-1]['train_unsupervised_loss']:.3e}, "
+            f"pca_multiview max {max(pca):.4f}, temporal max {max(temporal):.4f}; peak device memory {peak:.2f} GiB "
+            f"{card}")
+        check(semi_launches == implied, f"multiview semi-supervised launches {semi_launches}, implied {implied}")
+        check(len(train_logs) == MV_STEPS and max(pca) > 0 and max(temporal) > 0,
+              "multiview semi-supervised train() logged too little, or a zero unsupervised loss")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        for view in MV_VIEWS:
+            check((semi_dir / "video_preds" / f"session0_{view}.csv").is_file(), f"no test-video CSV of {view}")
+        slice_launches["decode_grad"] = semi_launches["decode_grad"]
+
+        factories = get_loss_factories(cfg, dm)
+        dm.close()
+        state, step, cache = train_step_fn(cfg, factories, dm)
+        window = {
+            "frames": torch.from_numpy(rng.integers(0, 256, (WINDOW, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev),
+            "bbox": torch.tensor([[0.0, 0.0, 240.0, 320.0] * nv] * WINDOW, device=dev),
+        }
+
+        def semi_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            draws = engine.sample(draw_gen, n_img, field_gen)
+            video_draws = sample_video_draws(draw_gen, WINDOW * nv, IMAGE, IMAGE, field_gen)
+            step(state, cache, idxs, valid, draws, window, video_draws,
+                 trainer.sample_mask_scores(field_gen, n_img, (IMAGE, IMAGE)))
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, device_ms, kernels, busy = profiled_step(semi_step)
+        grad_ms = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key) / 5e3
+        n_frames = n_img + WINDOW * nv
+        log(f"phase 13b multiview semi-supervised step ({MV_BACKBONE}, {IMAGE} px, bf16, {TRAIN_BATCH} samples x {nv} "
+            f"views with dlc + a {WINDOW}-frame window x {nv} views = {n_frames} images, backbone unfrozen): "
+            f"{step_ms:.3f} ms, {n_frames / step_ms * 1e3:.1f} images/s, mean of 10 steps by the host clock; "
+            f"torch.profiler over 5 steps: {device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; the "
+            f"decode's backward {grad_ms:.4f} ms a step ({grad_ms / device_ms:.2%} of the device time); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log("phase 13b largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+    return slice_launches
+
 
 def main() -> int:
     import torch
@@ -1535,6 +2033,7 @@ def main() -> int:
     clahe_err6, clahe_inputs6 = check_clahe(clahe_images[:2], clip[:2], 16)
     errors["clahe"] = max(errors["clahe"], clahe_err6, check_clahe(clahe_images[:2], clip[:2], 8)[0])
     context_inputs = context_kernel_checks(rng, engine, errors)
+    multiview_inputs = multiview_kernel_checks(rng, engine, errors)
 
     # the engine on the card vs the same call on the CPU, same draws
     frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
@@ -1770,18 +2269,19 @@ def main() -> int:
     train_phase(rng, card)
     semisup_card_vs_cpu(card)
     semisup_phase(rng, card)
+    context_phase(rng, card)
+    context_times(context_inputs, card)
     # the kernels line holds each kernel's launches on one of this slice's
-    # paths, the context model's (each earlier path checked its own above),
-    # beside its times at the shapes that path gives it
-    launches = context_phase(rng, card)
-    times.update(context_times(context_inputs, card))
-    times["normalize"] += (bounds["normalize"], f"{tuple(frames_bf16.shape)} uint8 -> bf16")
+    # paths, the multiview transformer's (each earlier path checked its own
+    # above), beside its times at the shapes that path gives it
+    launches = multiview_phase(rng, card)
+    times = multiview_times(multiview_inputs, card)
     paths = {
-        "normalize": "12b the context model's predict_on_video_file, first run: 1 a batch",
-        "decode": "12b the context model's predict_on_video_file, first run: 2 a batch",
-        "warp": "12a the context model's supervised train(): 1 a step",
-        "clahe": "12a the context model's supervised train(): 1 a step whose draws fire it",
-        "decode_grad": "12d the context model's semi-supervised train(): 2 a step",
+        "normalize": "13c the multiview model's predict_on_video_file_multiview, first run: 1 a batch of 2 views",
+        "decode": "13c the multiview model's predict_on_video_file_multiview, first run: 1 a batch over 34 maps a frame",
+        "warp": "13a the multiview model's supervised train(): 1 a step over 32 view images",
+        "clahe": "13a the multiview model's supervised train(): 1 a step whose draws fire it",
+        "decode_grad": "13b the multiview model's semi-supervised train(): 1 a step",
     }
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "lightning_pose_tpu"))
     check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")

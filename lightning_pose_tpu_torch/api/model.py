@@ -9,12 +9,16 @@ checkpoint through the parameter bridge, and serves predictions:
   and its metric CSVs
 - ``predict_on_video_file`` -> ``video_preds/<stem>.csv``, its metric CSVs
   and, on request, a labeled mp4
-- ``predict_frame`` -> keypoints of one in-memory frame
+- ``predict_frame`` -> keypoints of one in-memory frame (one frame a view
+  for a multiview model)
+- ``predict_on_label_csv_multiview`` and ``predict_on_video_file_multiview``
+  -> the same files, one a view, for the multiview transformer
 
-Ported so far: the single-view ``heatmap`` model and the temporal-context
-``heatmap_mhcrnn`` model, with soft-argmax decode and RGB transfer. The
-other options raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Ported so far: the single-view ``heatmap`` model, the temporal-context
+``heatmap_mhcrnn`` model and the multiview transformer
+(``heatmap_multiview``, uncalibrated), with soft-argmax decode and RGB
+transfer. The other options raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import (
     make_context_windows,
     repeat_center_stack,
 )
+from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images_fused
 
 logger = logging.getLogger(__name__)
@@ -63,7 +68,7 @@ def compute_dtype_for(precision: str | None) -> torch.dtype:
 
 class PredictStep:
     """uint8 frames and bboxes -> frame-space keypoints and confidences
-    (the single-view branches of the reference's ``predict_step``).
+    (the reference's ``predict_step``).
 
     normalize kernel -> tracker in ``compute_dtype`` (bf16 by autocast, with
     fp32 parameters and BatchNorm statistics) -> decode kernel -> bbox remap.
@@ -71,6 +76,9 @@ class PredictStep:
     sliding windows and ``(B, 5, h, w, 3)`` stacks go in as they are (both
     as repeated centers under ``repeat_center``); the two heads' maps are
     decoded, two decode launches, and merged per keypoint by confidence.
+    The multiview transformer takes ``(B, V, h, w, 3)`` views, one
+    normalize launch over all of them, and decodes its ``V*K`` maps in one
+    launch; keypoints map to each view's frame through that view's bbox.
     ``model`` must be in eval mode on the device the inputs come on.
     """
 
@@ -80,24 +88,21 @@ class PredictStep:
         self.width = width
         self.compute_dtype = compute_dtype
         self.is_context = isinstance(model, HeatmapTrackerMHCRNN)
+        self.num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
 
     @torch.inference_mode()
     def __call__(
         self, images_uint8: torch.Tensor, bbox: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(B, h, w, 3)`` uint8 (or context stacks ``(B, 5, h, w, 3)``) and
-        ``(B, 4)`` [x, y, h, w] bboxes -> ``(B', 2K)`` keypoints and
-        ``(B', K)`` confidences, float32; ``B' = B - 4`` for a context
-        model's sequence, whose bboxes are trimmed to the window centers."""
+        """``(B, h, w, 3)`` uint8 (context stacks ``(B, 5, h, w, 3)``,
+        multiview ``(B, V, h, w, 3)``) and ``(B, 4)`` [x, y, h, w] bboxes
+        (``(B, 4V)`` multiview) -> ``(B', 2K)`` keypoints and ``(B', K)``
+        confidences, float32 (``K`` over all views); ``B' = B - 4`` for a
+        context model's sequence, whose bboxes are trimmed to the window
+        centers."""
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(images_uint8.device.type, dtype=torch.bfloat16, enabled=bf16):
-            if images_uint8.ndim == 5:
-                b, t = images_uint8.shape[:2]
-                frames = images_uint8.reshape(b * t, *images_uint8.shape[2:])
-                images = normalize_images_fused(frames, out_dtype=self.compute_dtype)
-                images = images.reshape(b, t, *images.shape[1:])
-            else:
-                images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
+            images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
             if self.is_context:
                 repeat = self.model.context_repeat
                 if images.ndim == 4:
@@ -109,7 +114,7 @@ class PredictStep:
             keypoints, confidences = self.model.decode_heads(heatmaps)
         else:
             keypoints, confidences = self.model.decode(heatmaps)
-        keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height)
+        keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height, num_views=self.num_views)
         return keypoints, confidences
 
 
@@ -219,8 +224,8 @@ class Model:
         ``add_train_val_test_set``: the seeded training splits give the
         ``set`` column; otherwise every frame is ``train``."""
         if self.config.is_multi_view():
-            raise NotImplementedError(
-                "multiview label CSVs are not ported yet (ROADMAP queue 1, item 6: multiview)"
+            raise ValueError(
+                "this is a multiview model; use predict_on_label_csv_multiview with one CSV per view"
             )
         self._load()
         from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
@@ -297,6 +302,8 @@ class Model:
         ``bbox_file`` (a per-frame x, y, h, w CSV) or ``bbox_df`` crops each
         frame to its box; ``progress_file`` writes the App's progress JSON.
         Returns a ``PredictionResult``."""
+        if self.config.is_multi_view():
+            raise ValueError("this is a multiview model; use predict_on_video_file_multiview")
         self._video_transfer_format()
         self._load()
         from lightning_pose_tpu_torch.utils.video_predictions import predict_video
@@ -323,6 +330,104 @@ class Model:
             progress_file=progress_file,
         )
 
+    def predict_on_video_file_multiview(
+        self,
+        video_file_per_view: list[str | Path],
+        compute_metrics: bool = True,
+        generate_labeled_video: bool = False,
+        output_dir: str | Path | None = None,
+        progress_file: str | Path | None = None,
+    ):
+        """Predict one session, one video a view in ``data.view_names``
+        order, frame-synchronized; write ``video_preds/<stem>.csv`` for each
+        view (or into ``output_dir``) with its metric CSVs and, on request,
+        labeled mp4s (reference model.py:1225). Returns a
+        ``MultiviewPredictionResult``."""
+        if not self.config.is_multi_view():
+            raise ValueError("this is a single-view model; use predict_on_video_file")
+        view_names = list(self.cfg.data.view_names)
+        if len(video_file_per_view) != len(view_names):
+            raise ValueError(f"got {len(video_file_per_view)} videos for {len(view_names)} views")
+        self._video_transfer_format()
+        self._load()
+        from lightning_pose_tpu_torch.utils.video_predictions import predict_video_multiview
+
+        return predict_video_multiview(
+            video_file_per_view=[str(v) for v in video_file_per_view],
+            view_names=view_names,
+            cfg=self.cfg,
+            predict_fn=self._predict_step,
+            model_dir=str(self.model_dir),
+            device=self.device,
+            generate_labeled_video=generate_labeled_video,
+            compute_metrics=compute_metrics,
+            output_dir=str(output_dir) if output_dir else None,
+            progress_file=progress_file,
+        )
+
+    def predict_on_label_csv_multiview(
+        self,
+        csv_file_per_view: list[str | Path],
+        data_dir: str | Path | None = None,
+        compute_metrics: bool = True,
+        add_train_val_test_set: bool = False,
+    ):
+        """Predict every frame of per-view label CSVs (``data.view_names``
+        order); write ``image_preds/<csv name>/predictions.csv`` and its
+        metric CSVs for each view (reference model.py:1052). Returns a
+        ``MultiviewPredictionResult``. ``add_train_val_test_set`` as in
+        :meth:`predict_on_label_csv`."""
+        if not self.config.is_multi_view():
+            raise ValueError("this is a single-view model; use predict_on_label_csv")
+        view_names = list(self.cfg.data.view_names)
+        if len(csv_file_per_view) != len(view_names):
+            raise ValueError(f"got {len(csv_file_per_view)} CSVs for {len(view_names)} views")
+        self._load()
+        from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+        from lightning_pose_tpu_torch.data.datasets_multiview import MultiviewHeatmapDataset
+        from lightning_pose_tpu_torch.data.datatypes import MultiviewPredictionResult
+        from lightning_pose_tpu_torch.utils.predictions import predict_dataset
+
+        cfg = self.cfg.copy()
+        if not add_train_val_test_set:
+            cfg.training.train_prob = 1
+            cfg.training.val_prob = 0
+            cfg.training.train_frames = 1
+        data_dir = str(data_dir or cfg.data.data_dir)
+        cfg.data.csv_file = [str(c) for c in csv_file_per_view]
+        dataset = MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline="default")
+        data_module = BaseDataModule(
+            dataset=dataset,
+            train_batch_size=cfg.training.train_batch_size,
+            val_batch_size=cfg.training.val_batch_size,
+            test_batch_size=cfg.training.test_batch_size,
+            train_probability=cfg.training.train_prob,
+            val_probability=cfg.training.get("val_prob", None),
+            torch_seed=cfg.training.get("rng_seed_data_pt", 42),
+        )
+        view_to_df = predict_dataset(cfg, data_module, self._predict_step, self.device)
+        out, out_metrics = {}, {}
+        for view, csv_file in zip(view_names, cfg.data.csv_file):
+            df = view_to_df[view]
+            out_dir = self.image_preds_dir() / Path(csv_file).name
+            out_dir.mkdir(parents=True, exist_ok=True)
+            preds_file = out_dir / "predictions.csv"
+            df.to_csv(preds_file)
+            out[view] = df
+            if compute_metrics:
+                from lightning_pose_tpu_torch.metrics import compute_metrics_single
+
+                labels_file = Path(csv_file)
+                if not labels_file.is_absolute():
+                    labels_file = Path(data_dir) / labels_file
+                try:
+                    out_metrics[view] = compute_metrics_single(
+                        cfg=cfg, labels_file=str(labels_file), preds_file=str(preds_file), data_module=data_module
+                    )
+                except Exception as e:
+                    logger.warning(f"metrics failed ({view}): {e}")
+        return MultiviewPredictionResult(predictions=out, metrics=out_metrics or None)
+
     def _video_transfer_format(self) -> str:
         """Resolve ``cfg.eval.video_transfer_format``: ``auto`` is ``rgb`` off
         the TPU."""
@@ -347,12 +452,15 @@ class Model:
         Args:
             frame_rgb: ``(H, W, 3)`` uint8 RGB frame; for a context model a
                 ``(T, H, W, 3)`` stack around the frame (T is the context
-                length, 5; the frame is index 2).
-            bbox: optional ``(x, y, w, h)`` crop; keypoints are mapped back to
-                the original frame.
+                length, 5; the frame is index 2); for a multiview model
+                ``(V, H, W, 3)``, one frame a view in ``data.view_names``
+                order.
+            bbox: optional ``(x, y, w, h)`` crop (the same for every view);
+                keypoints are mapped back to the original frame.
 
         Returns:
-            ``{"keypoints": (K, 2) float32 (x, y), "confidence": (K,) float32}``.
+            ``{"keypoints": (K, 2) float32 (x, y), "confidence": (K,) float32}``,
+            view-major for a multiview model.
         """
         self._load()
         import cv2
@@ -363,7 +471,13 @@ class Model:
                 "Convert with frame.astype(np.uint8) if values are in [0, 255]."
             )
         step = self._predict_step
-        if step.is_context:
+        if step.num_views > 1:
+            if frame_rgb.ndim != 4 or frame_rgb.shape[0] != step.num_views or frame_rgb.shape[-1] != 3:
+                raise ValueError(
+                    f"Multiview model requires frame_rgb of shape ({step.num_views}, H, W, 3), "
+                    f"one frame per view in cfg order; got shape {frame_rgb.shape}"
+                )
+        elif step.is_context:
             if frame_rgb.ndim != 4 or frame_rgb.shape[-1] != 3:
                 raise ValueError(
                     "Context model requires frame_rgb of shape (T, H, W, 3) "
@@ -397,9 +511,9 @@ class Model:
         def resize(img: np.ndarray) -> np.ndarray:
             return cv2.resize(img, (step.width, step.height), interpolation=cv2.INTER_LINEAR)
 
-        image = np.stack([resize(f) for f in crop]) if step.is_context else resize(crop)
+        image = np.stack([resize(f) for f in crop]) if crop.ndim == 4 else resize(crop)
         images = torch.from_numpy(image[None]).to(self.device)
-        bboxes = torch.tensor([bbox_row], dtype=torch.float32, device=self.device)
+        bboxes = torch.tensor([bbox_row * step.num_views], dtype=torch.float32, device=self.device)
         kp, conf = step(images, bboxes)
         return {
             "keypoints": kp[0].reshape(-1, 2).cpu().numpy().astype(np.float32),

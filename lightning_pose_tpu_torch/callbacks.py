@@ -1,5 +1,12 @@
-"""Training and inference progress files (counterpart of the JSON progress
-pieces of ``lightning_pose_tpu/callbacks.py``, whose module imports JAX)."""
+"""Training and inference progress files, and the multiview transformer's
+patch masking (counterpart of ``lightning_pose_tpu/callbacks.py``, whose
+module imports JAX).
+
+Patch masking (the reference's PatchMasker, "simulated occlusions") zeroes a
+curriculum fraction of each view image's 16x16 patches in the train step,
+after augmentation and before normalization, so a masked patch normalizes
+to ``-mean / std``.
+"""
 
 from __future__ import annotations
 
@@ -8,7 +15,60 @@ import os
 import time
 from pathlib import Path
 
-__all__ = ["JSONInferenceProgressTracker", "JSONTrainingProgressTracker", "write_status"]
+import numpy as np
+import torch
+
+__all__ = [
+    "JSONInferenceProgressTracker",
+    "JSONTrainingProgressTracker",
+    "PATCH_SIZE",
+    "apply_patch_mask",
+    "patch_mask_ratio",
+    "write_status",
+]
+
+# the side of a masked patch: the ported ViTs' patch size
+PATCH_SIZE = 16
+
+
+def patch_mask_ratio(
+    step: int,
+    init_ratio: float = 0.0,
+    final_ratio: float = 0.5,
+    start_step: int = 0,
+    end_step: int = 1,
+) -> float:
+    """The masked fraction at ``step``: 0 before ``start_step``, then
+    ``init_ratio`` ramping linearly to ``final_ratio`` at ``end_step``. In
+    float32, as the JAX package computes it, so that the count of masked
+    patches floors the same."""
+    if step < start_step:
+        return 0.0
+    span = np.float32(max(end_step - start_step, 1))
+    frac = np.clip(np.float32(step - start_step) / span, np.float32(0.0), np.float32(1.0))
+    return float(np.float32(init_ratio) + frac * np.float32(final_ratio - init_ratio))
+
+
+def apply_patch_mask(images: torch.Tensor, ratio: float, scores: torch.Tensor) -> torch.Tensor:
+    """Zero ``floor(ratio * P)`` of the ``P`` PATCH_SIZE-square patches of
+    each ``(N, H, W, C)`` image: the patches of the lowest ``scores`` ``(N,
+    P)`` (uniform draws, patches row-major), thresholded at the order
+    statistic as the JAX package does, so its scores give its mask."""
+    n, h, w, _ = images.shape
+    gh, gw = h // PATCH_SIZE, w // PATCH_SIZE
+    num_patches = gh * gw
+    n_mask = int(np.floor(np.float32(ratio) * np.float32(num_patches)))
+    if n_mask <= 0:
+        return images
+    if n_mask >= num_patches:
+        return images * 0
+    thresh = torch.sort(scores, dim=-1).values[:, n_mask]
+    keep = (scores >= thresh[:, None]).reshape(n, gh, gw)
+    # nearest-neighbour from the patch grid to the pixels
+    rows = torch.div(torch.arange(h, device=images.device) * gh, h, rounding_mode="floor")
+    cols = torch.div(torch.arange(w, device=images.device) * gw, w, rounding_mode="floor")
+    keep = keep[:, rows][:, :, cols]
+    return images * keep[..., None].to(images.dtype)
 
 
 def _atomic_write_json(path: Path, payload: dict) -> None:

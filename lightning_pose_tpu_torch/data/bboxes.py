@@ -44,9 +44,19 @@ def model_to_frame_batch(
     bbox: torch.Tensor,
     model_width: float,
     model_height: float,
+    num_views: int = 1,
 ) -> torch.Tensor:
-    """model -> frame over a flat ``(B, 2K)`` layout, single view
-    (reference bboxes.py:220)."""
+    """model -> frame over a flat ``(B, 2K)`` layout (reference
+    bboxes.py:220). With ``num_views > 1`` the keypoints are view-major, K/V
+    per view, and ``bbox`` is ``(B, 4 * num_views)``: view ``v`` maps through
+    columns ``[4v, 4v + 4)``."""
     num_targets = model_keypoints.shape[1]
-    kp = model_to_norm(model_keypoints.reshape(-1, num_targets // 2, 2), model_width, model_height)
-    return norm_to_frame(kp, bbox).reshape(-1, num_targets)
+    num_keypoints = num_targets // 2
+    kp = model_to_norm(model_keypoints.reshape(-1, num_keypoints, 2), model_width, model_height)
+    if num_views > 1:
+        per_view = num_keypoints // num_views
+        bbox = _maybe_trim_context(kp, bbox)
+        kp = norm_to_frame(kp.reshape(-1, per_view, 2), bbox.reshape(-1, 4))
+    else:
+        kp = norm_to_frame(kp, bbox)
+    return kp.reshape(-1, num_targets)

@@ -14,7 +14,7 @@ from typing import TypedDict
 import numpy as np
 import pandas as pd
 
-__all__ = ["BaseLabeledExampleDict", "HeatmapLabeledBatchDict", "PredictionResult"]
+__all__ = ["BaseLabeledExampleDict", "HeatmapLabeledBatchDict", "MultiviewPredictionResult", "PredictionResult"]
 
 class BaseLabeledExampleDict(TypedDict, total=False):
     """One labeled example (reference datatypes.py:112)."""
@@ -45,8 +45,7 @@ class HeatmapLabeledBatchDict(TypedDict, total=False):
 class PredictionResult:
     """Result of a prediction call (reference datatypes.py:34-76).
 
-    ``metrics`` is None: the port computes no metrics yet (``metrics.py``
-    is not ported).
+    ``metrics`` holds the metric dataframes (``metrics.py``), or None.
     """
 
     predictions: pd.DataFrame
@@ -75,4 +74,22 @@ class PredictionResult:
             "temporal_norm": _metric(getattr(m, "temporal_norm_df", None)) if m else None,
             "pca_singleview_error": _metric(getattr(m, "pca_sv_df", None)) if m else None,
             "pca_multiview_error": _metric(getattr(m, "pca_mv_df", None)) if m else None,
+        }
+
+
+@dataclass
+class MultiviewPredictionResult:
+    """Per-view prediction dataframes (reference datatypes.py:79-100)."""
+
+    predictions: dict[str, pd.DataFrame]
+    metrics: dict[str, object] | None = field(default=None)
+
+    def to_dict(self) -> dict:
+        """Per-view :meth:`PredictionResult.to_dict` outputs, keyed by view
+        name (reference datatypes.py:85-100)."""
+        return {
+            view: PredictionResult(
+                predictions=df, metrics=self.metrics.get(view) if self.metrics else None
+            ).to_dict()
+            for view, df in self.predictions.items()
         }

@@ -2,8 +2,9 @@
 ``lightning_pose_tpu/data/factory.py``).
 
 The dispatch on the config for the ported models, the single-view
-``heatmap`` and the context model ``heatmap_mhcrnn`` (5-frame stacks), over
-the port's copies of the datasets and the data module.
+``heatmap``, the context model ``heatmap_mhcrnn`` (5-frame stacks) and the
+multiview transformer ``heatmap_multiview`` (one label CSV a view), over the
+port's copies of the datasets and the data module.
 Model types and data layouts not ported yet raise ``NotImplementedError``.
 """
 
@@ -11,8 +12,10 @@ from __future__ import annotations
 
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
 from lightning_pose_tpu_torch.data.datasets import HeatmapDataset
+from lightning_pose_tpu_torch.data.datasets_multiview import MultiviewHeatmapDataset
 from lightning_pose_tpu_torch.models.factory import (
     _NOT_PORTED,
+    MULTIVIEW_HEATMAP_ITEM,
     check_if_semi_supervised,
     normalize_model_type,
 )
@@ -34,20 +37,20 @@ def get_imgaug_pipeline(cfg) -> str | dict:
     return aug.to_dict(resolve=True) if hasattr(aug, "to_dict") else dict(aug)
 
 
-def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset:
+def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset | MultiviewHeatmapDataset:
     """The labeled dataset of a single-view ``heatmap`` or ``heatmap_mhcrnn``
-    config; the latter's samples are context stacks in the configured
-    ``model.mhcrnn_context_mode``."""
+    config (the latter's samples are context stacks in the configured
+    ``model.mhcrnn_context_mode``), or of a multiview transformer config."""
     model_type = normalize_model_type(cfg.model.model_type)
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"datasets of model_type {model_type} are not ported yet ({_NOT_PORTED[model_type]})"
         )
     view_names = cfg.data.get("view_names") or []
+    if model_type == "heatmap_multiview":
+        return MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline=imgaug_pipeline or get_imgaug_pipeline(cfg))
     if len(view_names) > 1:
-        raise NotImplementedError(
-            "multiview datasets are not ported yet (ROADMAP queue 1, item 6: multiview)"
-        )
+        raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
     return HeatmapDataset(
         root_directory=data_dir,
         csv_path=cfg.data.csv_file,

@@ -7,7 +7,9 @@ labeled batch and one unlabeled video window. Here the labeled batches come
 from the data module's index batches, as in supervised training, and the
 train loop takes one window a step from :attr:`unlabeled_loader`; the
 window's augmentation and normalization run on the device in the train
-step. Single view, one process: the stream is shard 0 of 1.
+step. One process: the stream is shard 0 of 1. A multiview transformer
+config reads frame-synchronized sessions, one video a view, found by their
+view names in the video directory.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from __future__ import annotations
 import logging
 
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
-from lightning_pose_tpu_torch.data.video import UnlabeledVideoLoader
-from lightning_pose_tpu_torch.utils.io import check_video_paths
+from lightning_pose_tpu_torch.data.video import MultiviewUnlabeledVideoLoader, UnlabeledVideoLoader
+from lightning_pose_tpu_torch.models.factory import MULTIVIEW_HEATMAP_ITEM, normalize_model_type
+from lightning_pose_tpu_torch.utils.io import check_video_paths, find_video_files_for_views
 
 logger = logging.getLogger(__name__)
 
@@ -30,15 +33,25 @@ class UnlabeledDataModule(BaseDataModule):
 
     def __init__(self, cfg, video_dir: str, **kwargs) -> None:
         view_names = cfg.data.get("view_names", None)
-        if view_names and len(view_names) > 1:
+        multiview = bool(view_names) and len(view_names) > 1
+        if multiview and normalize_model_type(cfg.model.model_type) != "heatmap_multiview":
             raise NotImplementedError(
-                "multiview unlabeled video is not ported yet (ROADMAP queue 1, item 6: multiview)"
+                f"multiview unlabeled video for {cfg.model.model_type} models is not ported yet "
+                f"({MULTIVIEW_HEATMAP_ITEM})"
             )
         super().__init__(**kwargs)
         self.cfg = cfg
         self.video_dir = video_dir
         seq_len = int(cfg.dali.base.train.sequence_length)
         seed = int(cfg.training.get("rng_seed_data_pt", 0)) + 123456
+        height, width = int(cfg.data.image_resize_dims.height), int(cfg.data.image_resize_dims.width)
+        if multiview:
+            sessions = find_video_files_for_views(video_dir, list(view_names))
+            self.unlabeled_loader = MultiviewUnlabeledVideoLoader(
+                sessions=sessions, sequence_length=seq_len, resize_height=height, resize_width=width, seed=seed,
+            )
+            logger.info(f"multiview unlabeled stream: {len(sessions)} session(s), sequence_length={seq_len}")
+            return
         # auto: rgb, as in the JAX package off the TPU
         fmt = str(cfg.training.get("video_transfer_format", "auto")).lower()
         if fmt == "auto":
@@ -47,8 +60,8 @@ class UnlabeledDataModule(BaseDataModule):
         self.unlabeled_loader = UnlabeledVideoLoader(
             video_files=list(video_files),
             sequence_length=seq_len,
-            resize_height=int(cfg.data.image_resize_dims.height),
-            resize_width=int(cfg.data.image_resize_dims.width),
+            resize_height=height,
+            resize_width=width,
             seed=seed,
             shard_id=0,
             transfer_format=fmt,

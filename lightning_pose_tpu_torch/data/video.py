@@ -17,8 +17,11 @@ dali.py:519-562,699-760):
   counter-keyed generator, decoded by worker threads and emitted in order.
 
 With a per-frame bbox table the predict loader crops each native-resolution
-frame to its box before the resize (reference dali.py:332-396). Context
-windows and the yuv420 transfer are not ported yet.
+frame to its box before the resize (reference dali.py:332-396). The
+multiview loaders read one video a view, frame-synchronized: ``(T, V, h, w,
+3)`` batches for prediction, and for training random windows whose sessions
+and starts come from the JAX package's own generator sequence. The yuv420
+transfer is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from lightning_pose_tpu_torch import native
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "MultiviewPredictVideoLoader",
+    "MultiviewUnlabeledVideoLoader",
     "PredictVideoLoader",
     "UnlabeledVideoLoader",
     "VideoFrameDecoder",
@@ -318,6 +323,137 @@ class PredictVideoLoader:
             if item is None:
                 break
             yield item
+
+
+class MultiviewPredictVideoLoader:
+    """Frame-synchronized ``(T, V, h, w, 3)`` batches over one video a view
+    (reference dali.py:483-506): one :class:`PredictVideoLoader` a view,
+    zipped. The views must have the same frame count."""
+
+    def __init__(self, video_files: list[str], sequence_length: int, resize_height: int, resize_width: int):
+        self.video_files = [str(v) for v in video_files]
+        self.loaders = [PredictVideoLoader(v, sequence_length, resize_height, resize_width) for v in self.video_files]
+        counts = [ld.frame_count for ld in self.loaders]
+        if len(set(counts)) != 1:
+            raise RuntimeError(
+                f"multiview videos have mismatched frame counts: {dict(zip(self.video_files, counts))}"
+            )
+        self.frame_count = counts[0]
+
+    def __len__(self) -> int:
+        return len(self.loaders[0])
+
+    def __iter__(self):
+        for windows in zip(*self.loaders):
+            yield np.stack(windows, axis=1)
+
+
+class MultiviewUnlabeledVideoLoader:
+    """Frame-synchronized random windows for semi-supervised training of a
+    multiview model: ``next()`` gives ``{"frames": (T, V, h, w, 3) uint8 RGB,
+    "bbox": (T, 4V) float32}``, the same start frame in each view of one
+    session (a list of one video a view), the full-frame bbox of each view.
+
+    Window ``k``'s session and start are the k-th draws of
+    ``np.random.default_rng(seed + shard_id)``, in the JAX package's order
+    (a session, then a start), so both packages read the same windows. One
+    background thread decodes ahead, the views of a window in parallel.
+    Call :meth:`close` to stop it.
+    """
+
+    def __init__(
+        self,
+        sessions: list[list[str]],
+        sequence_length: int,
+        resize_height: int,
+        resize_width: int,
+        seed: int = 123456,
+        shard_id: int = 0,
+        prefetch_batches: int = 2,
+    ):
+        from concurrent.futures import ThreadPoolExecutor
+
+        if not sessions:
+            raise ValueError("no multiview unlabeled sessions found")
+        self.sessions = [[str(v) for v in views] for views in sessions]
+        self.seq_len = int(sequence_length)
+        self.h = int(resize_height)
+        self.w = int(resize_width)
+        self.frame_counts = []
+        for views in self.sessions:
+            counts = [count_frames(v) for v in views]
+            if len(set(counts)) != 1:
+                raise RuntimeError(f"multiview session has mismatched frame counts: {dict(zip(views, counts))}")
+            self.frame_counts.append(counts[0])
+        self._rng = np.random.default_rng(int(seed) + int(shard_id))
+        self._decoders: dict[str, VideoFrameDecoder] = {}
+        self._pool = ThreadPoolExecutor(max_workers=max(len(v) for v in self.sessions))
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, int(prefetch_batches)))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+
+    def _decode_view(self, path: str, start: int) -> tuple[np.ndarray, np.ndarray]:
+        if path not in self._decoders:
+            self._decoders[path] = VideoFrameDecoder(path, self.h, self.w)
+        decoder = self._decoders[path]
+        decoder.seek(start)
+        frames = []
+        for _ in range(self.seq_len):
+            frame = decoder.read()
+            if frame is None:
+                break
+            frames.append(frame)
+        if not frames:  # container metadata overstated the frame count
+            frames = [np.zeros((self.h, self.w, 3), dtype=np.uint8)]
+        while len(frames) < self.seq_len:
+            frames.append(frames[-1])
+        bbox = np.tile(
+            np.array([0.0, 0.0, decoder.orig_height, decoder.orig_width], dtype=np.float32), (self.seq_len, 1)
+        )
+        return np.stack(frames), bbox
+
+    def _window(self) -> dict:
+        s = int(self._rng.integers(len(self.sessions)))
+        start = int(self._rng.integers(max(self.frame_counts[s] - self.seq_len, 1)))
+        results = list(self._pool.map(lambda path: self._decode_view(path, start), self.sessions[s]))
+        return {
+            "frames": np.stack([r[0] for r in results], axis=1),
+            "bbox": np.concatenate([r[1] for r in results], axis=1),
+        }
+
+    def _produce(self) -> None:
+        try:
+            while not self._stop.is_set():
+                item = self._window()
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as exc:  # surface a decode failure to the consumer
+            self._queue.put(exc)
+
+    def __next__(self) -> dict:
+        while True:
+            if self._stop.is_set():
+                raise StopIteration
+            try:
+                item = self._queue.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if isinstance(item, Exception):
+                self._stop.set()
+                raise RuntimeError("multiview unlabeled-video decode failed") from item
+            return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        self._pool.shutdown(wait=True)
+        for decoder in self._decoders.values():
+            decoder.close()
 
 
 class UnlabeledVideoLoader:

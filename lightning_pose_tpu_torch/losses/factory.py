@@ -5,13 +5,18 @@
 sums ``anneal_weight * weight * loss`` over its losses, the heatmap losses
 exempt from the anneal weight (reference factory.py:272-279). The PCA
 losses are fitted on the data module's train split when the factory is
-built. Multiview losses and other model types raise ``NotImplementedError``.
+built. ``pca_multiview`` is ported for the multiview transformer: flat
+per-view keypoint indices in ``data.mirrored_column_matches`` expand to one
+list a view, ``data.num_keypoints`` apart. The supervised 3D losses, the
+mirrored ``pca_multiview`` of a single-view model and other model types
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from lightning_pose_tpu_torch.losses.losses import (
@@ -23,6 +28,7 @@ from lightning_pose_tpu_torch.losses.losses import (
     TemporalLoss,
     UnimodalLoss,
 )
+from lightning_pose_tpu_torch.models.factory import MULTIVIEW_HEATMAP_ITEM, normalize_model_type
 
 __all__ = ["LossFactory", "get_loss_classes", "get_loss_factories"]
 
@@ -37,6 +43,7 @@ def get_loss_classes() -> dict[str, type]:
         "heatmap_kl": HeatmapKLLoss,
         "heatmap_js": HeatmapJSLoss,
         "pca_singleview": PCALoss,
+        "pca_multiview": PCALoss,
         "temporal": TemporalLoss,
         "temporal_heatmap_mse": TemporalHeatmapLoss,
         "temporal_heatmap_kl": TemporalHeatmapLoss,
@@ -57,8 +64,10 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
     supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
     unsupervised: dict[str, dict] = {}
     for loss_name in [name for name in (cfg.model.get("losses_to_use") or []) if name]:
-        if loss_name == "pca_multiview":
-            raise NotImplementedError("the multiview PCA loss is not ported yet (ROADMAP queue 1, item 6: multiview)")
+        if loss_name == "pca_multiview" and normalize_model_type(cfg.model.model_type) != "heatmap_multiview":
+            raise NotImplementedError(
+                f"pca_multiview with a {cfg.model.model_type} model is not ported yet ({MULTIVIEW_HEATMAP_ITEM})"
+            )
         params = dict(cfg.losses[loss_name].to_dict(resolve=True))
         params["loss_name"] = loss_name
         if loss_name.startswith("unimodal") or loss_name.startswith("temporal_heatmap"):
@@ -69,6 +78,18 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
             params["original_image_width"] = width
             params["downsampled_image_height"] = height // 2**df
             params["downsampled_image_width"] = width // 2**df
+        elif loss_name == "pca_multiview":
+            view_names = cfg.data.get("view_names", None)
+            matches = cfg.data.mirrored_column_matches
+            if view_names and len(view_names) > 1 and isinstance(matches[0], int):
+                # one list a view, data.num_keypoints apart (reference
+                # factory.py:159-176)
+                num_keypoints = cfg.data.num_keypoints
+                params["mirrored_column_matches"] = [
+                    (v * num_keypoints + np.array(matches, dtype=int)).tolist() for v in range(len(view_names))
+                ]
+            else:
+                params["mirrored_column_matches"] = matches
         elif loss_name == "pca_singleview":
             if cfg.data.get("view_names", None) and len(cfg.data.view_names) > 1:
                 raise NotImplementedError(
@@ -92,7 +113,8 @@ class LossFactory:
         unknown = sorted(set(losses_params_dict) - set(classes))
         if unknown:
             raise NotImplementedError(
-                f"losses {unknown} are not ported yet (ROADMAP queue 1, items 6-7: multiview, remaining model families)"
+                f"losses {unknown} are not ported yet (ROADMAP queue 1, items 6b-7: calibration and 3D, "
+                "remaining model families)"
             )
         self.loss_instance_dict: dict[str, Any] = {}
         for loss_name, params in losses_params_dict.items():

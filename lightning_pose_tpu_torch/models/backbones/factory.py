@@ -1,8 +1,9 @@
 """Backbone registry and constructor (counterpart of
 ``lightning_pose_tpu/models/backbones/factory.py``).
 
-The names and strides are the reference's. Only the ResNet family is ported
-so far; the other names are recognised and raise ``NotImplementedError``.
+The names and strides are the reference's. Ported: the ResNet family and
+the plain ViTs (``vits_dino``, ``vitb_dino``, ``vitb_imagenet``); the other
+names are recognised and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -10,13 +11,16 @@ from __future__ import annotations
 from torch import nn
 
 from lightning_pose_tpu_torch.models.backbones.resnet import RESNET_CONFIGS, ResNet
+from lightning_pose_tpu_torch.models.backbones.vit import VIT_CONFIGS, ViT
 
 __all__ = [
     "ALLOWED_BACKBONES",
     "ALLOWED_CONVNET_BACKBONES",
     "ALLOWED_TRANSFORMER_BACKBONES",
+    "ALLOWED_TRANSFORMER_BACKBONES_MULTIVIEW",
     "BACKBONE_STRIDES",
     "build_backbone",
+    "make_transformer_module",
 ]
 
 ALLOWED_CONVNET_BACKBONES = [
@@ -50,6 +54,16 @@ ALLOWED_TRANSFORMER_BACKBONES = [
     "vitt_sam2",
 ]
 
+ALLOWED_TRANSFORMER_BACKBONES_MULTIVIEW = [
+    "vits_dino",
+    "vits_dinov2",
+    "vits_dinov3",
+    "vitb_dino",
+    "vitb_dinov2",
+    "vitb_dinov3",
+    "vitb_imagenet",
+]
+
 ALLOWED_BACKBONES = ALLOWED_CONVNET_BACKBONES + ALLOWED_TRANSFORMER_BACKBONES
 
 # feature-map stride (input size / feature-map size); sets the number of
@@ -61,6 +75,25 @@ BACKBONE_STRIDES: dict[str, int] = {
     "vits_sam2": 32,
     "vitt_sam2": 32,
 }
+
+
+def make_transformer_module(backbone_arch: str, image_size: int = 256) -> tuple[ViT, int]:
+    """The module of a transformer backbone name and its feature count. The
+    plain ViT names (DINO, ImageNet) are ported; the position-embedding grid
+    is ``image_size / 16``, as in the JAX package."""
+    if backbone_arch.endswith(("_dinov2", "_dinov3", "_sam", "_sam2")):
+        raise NotImplementedError(
+            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
+        )
+    size_key = backbone_arch.split("_")[0]
+    if size_key not in VIT_CONFIGS:
+        raise NotImplementedError(f'"{backbone_arch}" transformer not supported yet')
+    embed_dim, depth, num_heads, patch = VIT_CONFIGS[size_key]
+    module = ViT(
+        embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch,
+        pretrained_grid=int(image_size) // patch,
+    )
+    return module, embed_dim
 
 
 def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.Module, int]:
@@ -78,8 +111,11 @@ def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.
             f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
         )
     if backbone_arch.startswith("vit"):
+        # the multiview transformer builds its ViT through
+        # make_transformer_module; single-view trackers take convnets only
         raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, items 6-7: multiview, remaining model families)"
+            f"single-view models with the {backbone_arch} backbone are not ported yet "
+            "(ROADMAP queue 1, item 7: remaining model families)"
         )
     # all resnet50_* pose variants share the resnet50 architecture
     arch = "resnet50" if backbone_arch.startswith("resnet50_") else backbone_arch

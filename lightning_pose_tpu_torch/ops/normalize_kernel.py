@@ -15,9 +15,11 @@ tensor cores, which is why it is Triton and not CUDA C++. The TPU gate on
 alignment (``W*3 % 128``, ``rows % 8``) is gone: the mask covers the ragged
 last block.
 
-The output is written ``(B, H, W, 3)`` contiguous and returned as the
-``(B, 3, H, W)`` permutation, which is a channels-last tensor: the first
-convolution reads it without a copy.
+The output is written ``(..., H, W, 3)`` contiguous and returned as the
+``(..., 3, H, W)`` permutation: for ``(B, H, W, 3)`` frames a channels-last
+tensor, which the first convolution reads without a copy; multiview
+``(B, V, H, W, 3)`` batches go through as they are, one launch over all
+views.
 """
 
 from __future__ import annotations
@@ -47,8 +49,9 @@ def normalize_plain(
     images_uint8: torch.Tensor, out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     """Plain PyTorch version: the reference formula ``(x/255 - mean)/std``
-    in fp32, cast to ``out_dtype``, as ``(B, 3, H, W)`` channels-last."""
-    return normalize_images(images_uint8).to(out_dtype).permute(0, 3, 1, 2)
+    in fp32, cast to ``out_dtype``, as ``(..., 3, H, W)`` (channels-last for
+    4-d input)."""
+    return normalize_images(images_uint8).to(out_dtype).movedim(-1, -3)
 
 
 def _scale_bias() -> tuple[list[float], list[float]]:
@@ -89,7 +92,8 @@ def _get_kernel():
 def normalize(
     images_uint8: torch.Tensor, out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """uint8 ``(B, H, W, 3)`` -> normalized ``(B, 3, H, W)`` channels-last.
+    """uint8 ``(..., H, W, 3)`` (frames ``(B, H, W, 3)``, or multiview
+    ``(B, V, H, W, 3)``) -> normalized ``(..., 3, H, W)``.
 
     A CUDA tensor runs the Triton kernel; a CPU tensor runs
     :func:`normalize_plain`. Anything else raises.
@@ -97,9 +101,9 @@ def normalize(
     global launches
     if images_uint8.dtype != torch.uint8:
         raise TypeError(f"normalize takes uint8 frames, got {images_uint8.dtype}")
-    if images_uint8.ndim != 4 or images_uint8.shape[-1] != 3:
+    if images_uint8.ndim < 4 or images_uint8.shape[-1] != 3:
         raise ValueError(
-            f"normalize takes (B, H, W, 3) frames, got {tuple(images_uint8.shape)}"
+            f"normalize takes (..., H, W, 3) frames, got {tuple(images_uint8.shape)}"
         )
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"normalize writes bf16 or fp32, not {out_dtype}")
@@ -108,7 +112,7 @@ def normalize(
     if images_uint8.device.type != "cuda":
         raise ValueError(f"normalize runs on cpu or cuda, not {images_uint8.device}")
     if not images_uint8.is_contiguous():
-        raise ValueError("normalize needs contiguous (B, H, W, 3) frames")
+        raise ValueError("normalize needs contiguous (..., H, W, 3) frames")
     n = images_uint8.numel()
     if n >= 2**31:
         raise ValueError(f"normalize indexes with int32; {n} elements is too many")
@@ -122,4 +126,4 @@ def normalize(
                 images_uint8, out, n, *scale, *bias, BLOCK=_BLOCK, num_warps=8,
             )
         launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out.movedim(-1, -3)

@@ -28,7 +28,7 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 def normalize_images_fused(
     images_uint8: torch.Tensor, out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """uint8 ``(B, H, W, 3)`` frames -> normalized ``(B, 3, H, W)`` in
+    """uint8 ``(..., H, W, 3)`` frames -> normalized ``(..., 3, H, W)`` in
     ``out_dtype``, stored channels-last so the first convolution takes it
     without a copy. On a CUDA tensor this is the Triton normalize kernel
     (``ops/normalize_kernel.py``)."""

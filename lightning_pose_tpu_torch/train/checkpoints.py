@@ -24,6 +24,12 @@ The context head's names are the same in both packages
 H_b_conv, H_f_deconv, H_b_deconv}``); its grouped 2x2 transposed convs
 (``H_*_deconv``, one group per output channel) regroup their kernels
 (``models/heads/heatmap_mhcrnn.grouped_deconv_kernel_from_flax``).
+The ViT's names are the same in both packages too (``patch_embed``,
+``cls_token``, ``pos_embed``, ``block{i}/{ln1, ln2, attn, mlp}``, ``ln``, and
+the multiview model's ``view_embeddings``): a ``Dense`` kernel ``(in, out)``
+is a ``Linear`` weight ``(out, in)``, the attention's ``DenseGeneral``
+kernels keep their 3-d flax shapes, and a LayerNorm's ``scale`` is its
+``weight``. A BatchNorm is a module with batch statistics.
 """
 
 from __future__ import annotations
@@ -282,13 +288,33 @@ def _is_grouped_deconv(modules: tuple[str, ...]) -> bool:
     return modules[-1] in _GROUPED_DECONVS
 
 
+# parameters that are not layer weights: the ViT's tokens and embeddings
+_EMBEDDINGS = ("cls_token", "pos_embed", "view_embeddings")
+
+
+def _kernel_from_flax(modules: tuple[str, ...], value: np.ndarray, path: tuple[str, ...]) -> np.ndarray:
+    from lightning_pose_tpu_torch.models.heads.heatmap_mhcrnn import grouped_deconv_kernel_from_flax
+
+    if value.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+        return value.T
+    if value.ndim == 3:  # the attention's DenseGeneral keeps its flax shape
+        return value
+    if value.ndim != 4:
+        raise ValueError(f"{'/'.join(path)}: expected a 2-d, 3-d or 4-d kernel")
+    if _is_grouped_deconv(modules):  # (2, 2, in/G, out) -> (in, out/G, 2, 2), G = out
+        return grouped_deconv_kernel_from_flax(value, groups=value.shape[3])
+    if _is_deconv(modules):  # (kh, kw, in, out) -> (in, out, kh, kw), flipped
+        return np.flip(value, (0, 1)).transpose(2, 3, 0, 1)
+    return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """Map the reference's flax ``params`` and ``batch_stats`` (numpy trees)
     to a torch ``state_dict`` of the port's modules. Each flax leaf makes one
     key; BatchNorm layers also get ``num_batches_tracked = 0``."""
-    from lightning_pose_tpu_torch.models.heads.heatmap_mhcrnn import grouped_deconv_kernel_from_flax
-
     out: dict[str, torch.Tensor] = {}
+    stats = _flatten(batch_stats)
+    bn_modules = {path[:-1] for path in stats}
 
     def put(key: str, value: np.ndarray) -> None:
         if key in out:
@@ -299,22 +325,16 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Ten
         modules, leaf = path[:-1], path[-1]
         prefix = _torch_module(modules)
         if leaf == "kernel":
-            if value.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 4-d conv kernel")
-            if _is_grouped_deconv(modules):  # (2, 2, in/G, out) -> (in, out/G, 2, 2), G = out
-                value = grouped_deconv_kernel_from_flax(value, groups=value.shape[3])
-            elif _is_deconv(modules):  # (kh, kw, in, out) -> (in, out, kh, kw), flipped
-                value = np.flip(value, (0, 1)).transpose(2, 3, 0, 1)
-            else:  # HWIO -> OIHW
-                value = value.transpose(3, 2, 0, 1)
-            put(f"{prefix}.weight", value)
+            put(f"{prefix}.weight", _kernel_from_flax(modules, value, path))
         elif leaf in _PARAM_LEAVES:
             put(f"{prefix}.{_PARAM_LEAVES[leaf]}", value)
-            if leaf == "scale":
+            if leaf == "scale" and modules in bn_modules:
                 put(f"{prefix}.num_batches_tracked", np.zeros((), dtype=np.int64))
+        elif leaf in _EMBEDDINGS:
+            put(f"{prefix}.{leaf}" if prefix else leaf, value)
         else:
             raise ValueError(f"unknown flax parameter {'/'.join(path)}")
-    for path, value in _flatten(batch_stats).items():
+    for path, value in stats.items():
         modules, leaf = path[:-1], path[-1]
         if leaf not in _STAT_LEAVES:
             raise ValueError(f"unknown flax batch statistic {'/'.join(path)}")
@@ -330,9 +350,6 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> tuple[dict, dict]
     params: dict = {}
     batch_stats: dict = {}
     stat_names = {v: k for k, v in _STAT_LEAVES.items()}
-    bn_modules = {
-        key.rsplit(".", 1)[0] for key in state_dict if key.endswith(".running_mean")
-    }
 
     def put(tree: dict, path: tuple[str, ...], value: np.ndarray) -> None:
         for name in path[:-1]:
@@ -340,17 +357,23 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> tuple[dict, dict]
         tree[path[-1]] = np.ascontiguousarray(value)
 
     for key, tensor in state_dict.items():
-        module, leaf = key.rsplit(".", 1)
+        module, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         value = tensor.detach().cpu().numpy()
-        modules = _flax_modules(module)
+        modules = _flax_modules(module) if module else ()
         if leaf == "num_batches_tracked":
             continue
         if leaf in stat_names:
             put(batch_stats, modules + (stat_names[leaf],), value)
-        elif leaf == "weight" and module in bn_modules:
+        elif leaf in _EMBEDDINGS:
+            put(params, modules + (leaf,), value)
+        elif leaf == "weight" and value.ndim == 1:  # BatchNorm or LayerNorm
             put(params, modules + ("scale",), value)
         elif leaf == "weight":
-            if _is_grouped_deconv(modules):
+            if value.ndim == 2:
+                value = value.T
+            elif value.ndim == 3:
+                pass
+            elif _is_grouped_deconv(modules):
                 groups = state_dict[f"{module}.bias"].shape[0]
                 value = grouped_deconv_kernel_to_flax(value, groups=groups)
             elif _is_deconv(modules):

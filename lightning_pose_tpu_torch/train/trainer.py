@@ -27,6 +27,15 @@ targets twice. Its unlabeled window is tiled into sliding 5-frame windows
 (or repeated centers), decoded twice with gradient, merged per keypoint by
 confidence, and its transforms and bboxes trimmed to the window centers.
 
+The multiview transformer (``heatmap_multiview``) trains on ``(B, V, H, W,
+3)`` view batches: the views fold into the batch for the augmentation
+engine (one draw per view image), the patch-mask curriculum
+(``training.patch_mask``) zeroes patches of the augmented images before
+normalization, and the model's ``V*K`` maps go against view-major targets.
+Its unlabeled window is ``(T, V, H, W, 3)`` frame-synchronized views,
+augmented photometrically only (so the views stay geometrically consistent);
+keypoints map to each view's frame through that view's bbox columns.
+
 ``train(cfg, model_dir)`` writes the reference's model directory:
 ``config.yaml``, a copy of the label CSV, ``train_status.json``,
 ``tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
@@ -34,9 +43,11 @@ confidence, and its transforms and bboxes trimmed to the window centers.
 its event files. ``Model.from_dir(model_dir)`` of either package predicts
 from it. Unless ``skip_evaluation``, it then reloads the best checkpoint and
 evaluates as the JAX package does: ``image_preds/<csv>/predictions.csv``
-with its metric CSVs and legacy copies in the model directory, the same for
-the ``_new`` and ``_test`` label files where they exist, and the test videos
-into ``video_preds/`` when ``eval.predict_vids_after_training`` is set.
+with its metric CSVs and legacy copies in the model directory (one a view,
+``predictions_<view>*.csv``, for a multiview model), the same for the
+``_new`` and ``_test`` label files where they exist, and the test videos (a
+multiview model's sessions, one CSV a view) into ``video_preds/`` when
+``eval.predict_vids_after_training`` is set.
 """
 
 from __future__ import annotations
@@ -55,11 +66,13 @@ import torch
 from torch import nn
 
 from lightning_pose_tpu_torch.api.model import PredictStep, resolve_device
+from lightning_pose_tpu_torch.callbacks import PATCH_SIZE, apply_patch_mask, patch_mask_ratio
 from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
 from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN, make_context_windows
+from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
 from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
@@ -75,6 +88,7 @@ __all__ = [
     "make_optimizer",
     "make_step_fns",
     "run_validation_epoch",
+    "sample_mask_scores",
     "train",
     "unsupervised_loss",
 ]
@@ -122,6 +136,40 @@ def _resolve_schedule_cfg(cfg, steps_per_epoch: int) -> dict:
         unfreeze_epoch=unfreeze_epoch,
         unfreeze_step=unfreeze_step,
     )
+
+
+def _patch_mask_schedule(cfg, steps_per_epoch: int) -> tuple[float, float, int, int] | None:
+    """The patch-mask curriculum as ``(init_ratio, final_ratio, start_step,
+    end_step)``, or None when absent or off (``final_ratio`` 0). The
+    reference's ``training.patch_mask`` with ``init_epoch``/``final_epoch``
+    (steps = ceil(epochs * steps_per_epoch)) or ``init_step``/``final_step``
+    (defaults 700/5000); ``callbacks.patch_masking`` with
+    ``start_epoch``/``end_epoch`` is the JAX package's older name."""
+    pm = cfg.training.get("patch_mask", None)
+    if pm is not None:
+        init_ratio = float(pm.get("init_ratio", 0.1))
+        final_ratio = float(pm.get("final_ratio", 0.5))
+        if final_ratio == 0.0:
+            return None
+        if pm.get("init_epoch") is not None or pm.get("final_epoch") is not None:
+            start = math.ceil(float(pm.get("init_epoch", 0)) * steps_per_epoch)
+            end = math.ceil(float(pm.get("final_epoch", 1)) * steps_per_epoch)
+        else:
+            start = int(pm.get("init_step", 700))
+            end = int(pm.get("final_step", 5000))
+        return init_ratio, final_ratio, start, max(end, 1)
+    legacy = cfg.callbacks.get("patch_masking", None)
+    if legacy is not None:
+        final_ratio = float(legacy.get("final_ratio", 0.5))
+        if final_ratio == 0.0:
+            return None
+        return (
+            float(legacy.get("init_ratio", 0.0)),
+            final_ratio,
+            int(legacy.get("start_epoch", 0)) * steps_per_epoch,
+            max(int(legacy.get("end_epoch", 1)) * steps_per_epoch, 1),
+        )
+    return None
 
 
 def make_optimizer(
@@ -177,6 +225,13 @@ class TrainState:
     step: int = 0
 
 
+def sample_mask_scores(generator: torch.Generator, n: int, image_hw: tuple[int, int]) -> torch.Tensor:
+    """Uniform ``(n, patches)`` patch-mask scores for ``n`` images, on the
+    generator's device."""
+    num_patches = (image_hw[0] // PATCH_SIZE) * (image_hw[1] // PATCH_SIZE)
+    return torch.rand((n, num_patches), generator=generator, device=generator.device)
+
+
 def _effective_visibility(kp: torch.Tensor, visibility: torch.Tensor) -> torch.Tensor:
     """Keypoints that augmentation pushed out of the frame (NaN with
     visibility 2) drop to 0; labels that were NaN keep the dataset's flag."""
@@ -185,7 +240,8 @@ def _effective_visibility(kp: torch.Tensor, visibility: torch.Tensor) -> torch.T
 
 def _to_nchw(images: torch.Tensor) -> torch.Tensor:
     """Normalized ``(B, H, W, 3)`` -> ``(B, 3, H, W)``, channels-last; context
-    stacks ``(B, T, H, W, 3)`` -> ``(B, T, 3, H, W)``."""
+    stacks ``(B, T, H, W, 3)`` and multiview ``(B, V, H, W, 3)`` ->
+    ``(B, T, 3, H, W)``."""
     x = normalize_images(images)
     return x.permute(0, 3, 1, 2) if x.ndim == 4 else x.permute(0, 1, 4, 2, 3)
 
@@ -212,9 +268,13 @@ def unsupervised_loss(
     (repeated centers under ``context_repeat``); both heads' maps are
     decoded with gradient and merged by confidence, so the gradient reaches
     each keypoint's chosen head only, and the multi-frame maps go to the
-    losses. Transforms and bboxes are trimmed to the centers."""
+    losses. Transforms and bboxes are trimmed to the centers.
+
+    The multiview transformer takes ``images (T, V, 3, H, W)`` and ``bbox
+    (T, 4V)``; its ``V*K`` keypoints map to each view's frame."""
     height, width = image_hw
     is_context = isinstance(model, HeatmapTrackerMHCRNN)
+    num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
     if is_context:
         images = make_context_windows(images, repeat_center=model.context_repeat)
     with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
@@ -226,7 +286,7 @@ def unsupervised_loss(
     else:
         preds, confidences = model.decode(heatmaps)
     preds = undo_affine_transform_batch(preds, transforms)
-    preds = model_to_frame_batch(preds, bbox, width, height)
+    preds = model_to_frame_batch(preds, bbox, width, height, num_views=num_views)
     return factory(
         stage="train", anneal_weight=anneal_weight,
         keypoints_pred=preds, heatmaps_pred=heatmaps, confidences=confidences,
@@ -244,26 +304,34 @@ def make_step_fns(
     compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """``(train_step, eval_step, train_step_cached)`` of the single-view
-    heatmap model, or of the context model when ``meta["model_type"]`` is
-    ``heatmap_mhcrnn``.
+    heatmap model, of the context model when ``meta["model_type"]`` is
+    ``heatmap_mhcrnn``, or of the multiview transformer when it is
+    ``heatmap_multiview`` (``meta["num_views"]`` views).
 
-    - ``train_step(state, batch, draws, video_draws=None) -> logs``: augment
-      with ``draws`` (``augmenter.sample``; None for an identity pipeline),
-      one optimizer step; ``state.step`` advances. With unsupervised losses
-      and an ``unlabeled`` window in the batch, the window is augmented with
-      ``video_draws`` (``ops/video_augment.sample_video_draws``), geometric
-      only with the ``dlc`` pipelines, and its loss is added.
+    - ``train_step(state, batch, draws, video_draws=None, mask_scores=None)
+      -> logs``: augment with ``draws`` (``augmenter.sample``, one draw per
+      image, per view image for the multiview model; None for an identity
+      pipeline), one optimizer step; ``state.step`` advances. With
+      unsupervised losses and an ``unlabeled`` window in the batch, the
+      window is augmented with ``video_draws``
+      (``ops/video_augment.sample_video_draws``, one noise field per frame
+      and view), geometric only with the ``dlc`` pipelines and never for
+      the multiview model, and its loss is added. The multiview model's
+      patch mask, when the config sets one, takes ``mask_scores``: uniform
+      ``(B*V, patches)`` scores (:func:`sample_mask_scores`).
     - ``eval_step(state, batch, stage) -> (logs, preds, confidences)``.
     - ``train_step_cached(state, cache, idxs, valid, draws, unlabeled=None,
-      video_draws=None) -> logs``: the batch is gathered from a
-      device-resident labeled cache by index; rows with ``valid`` False are
-      padding (visibility 0, NaN keypoints).
+      video_draws=None, mask_scores=None) -> logs``: the batch is gathered
+      from a device-resident labeled cache by index; rows with ``valid``
+      False are padding (visibility 0, NaN keypoints).
 
     Batches hold ``images (B, H, W, 3)`` (context stacks ``(B, 5, H, W,
-    3)``, labeled at their center), ``keypoints (B, K, 2)``,
-    ``visibility (B, K)`` and ``bbox (B, 4)`` on the model's device; an
-    unlabeled window holds ``frames (T, H, W, 3)`` and ``bbox (T, 4)``. Logs
-    are 0-d tensors, read when the caller needs them.
+    3)``, labeled at their center; multiview ``(B, V, H, W, 3)``),
+    ``keypoints (B, K, 2)``, ``visibility (B, K)`` and ``bbox (B, 4)``
+    (multiview: ``K`` over all views, view-major, and ``bbox (B, 4V)``) on
+    the model's device; an unlabeled window holds ``frames (T, H, W, 3)``
+    and ``bbox (T, 4)`` (multiview ``(T, V, H, W, 3)`` and ``(T, 4V)``).
+    Logs are 0-d tensors, read when the caller needs them.
     """
     height = int(cfg.data.image_resize_dims.height)
     width = int(cfg.data.image_resize_dims.width)
@@ -275,6 +343,9 @@ def make_step_fns(
     unsup = loss_factories.get("unsupervised")
     has_unsup = unsup is not None and len(unsup.loss_instance_dict) > 0
     is_context = meta["model_type"] == "heatmap_mhcrnn"
+    is_multiview = meta["model_type"] == "heatmap_multiview"
+    num_views = int(meta.get("num_views", 1) or 1)
+    patch_mask = _patch_mask_schedule(cfg, steps_per_epoch) if is_multiview else None
 
     def supervised_loss(model, images, keypoints, visibility, bbox, stage):
         with torch.autocast(
@@ -296,15 +367,37 @@ def make_step_fns(
         )
         with torch.no_grad():
             preds, confidences = model.decode(heatmaps.detach())
-            preds = model_to_frame_batch(preds, bbox, width, height)
-            kp_frame = model_to_frame_batch(keypoints.reshape(keypoints.shape[0], -1), bbox, width, height)
+            preds = model_to_frame_batch(preds, bbox, width, height, num_views=num_views)
+            kp_frame = model_to_frame_batch(
+                keypoints.reshape(keypoints.shape[0], -1), bbox, width, height, num_views=num_views
+            )
             rmse, _ = rmse_loss(keypoints_targ=kp_frame, keypoints_pred=preds)
         logs = {k: v.detach() for k, v in logs.items()}
         logs[f"{stage}_supervised_loss"] = loss.detach()
         logs[f"{stage}_supervised_rmse"] = rmse
         return loss, logs, preds, confidences
 
-    def train_step(state: TrainState, batch: dict, draws: Draws | None, video_draws: VideoDraws | None = None) -> dict:
+    def augment_views(state: TrainState, batch: dict, draws: Draws | None, mask_scores: torch.Tensor | None):
+        """The multiview batch's views folded into the batch: augmented one
+        draw a view image, patch-masked, and unfolded again."""
+        b = batch["images"].shape[0]
+        images, keypoints, vis = augmenter.apply(
+            batch["images"].reshape(b * num_views, *batch["images"].shape[2:]),
+            batch["keypoints"].reshape(b * num_views, -1, 2),
+            batch["visibility"].reshape(b * num_views, -1),
+            draws,
+        )
+        if patch_mask is not None:
+            ratio = patch_mask_ratio(state.step, *patch_mask)
+            if ratio > 0:
+                if mask_scores is None:
+                    raise ValueError("the patch mask needs its scores (trainer.sample_mask_scores)")
+                images = apply_patch_mask(images, ratio, mask_scores)
+        return (images.reshape(b, num_views, *images.shape[1:]), keypoints.reshape(b, -1, 2),
+                vis.reshape(b, -1))
+
+    def train_step(state: TrainState, batch: dict, draws: Draws | None, video_draws: VideoDraws | None = None,
+                   mask_scores: torch.Tensor | None = None) -> dict:
         aw = anneal_weight(
             state.step // steps_per_epoch,
             init_val=float(anneal_cfg.init_val),
@@ -312,9 +405,12 @@ def make_step_fns(
             final_val=float(anneal_cfg.final_val),
             freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
         )
-        images, keypoints, vis = augmenter.apply(
-            batch["images"], batch["keypoints"], batch["visibility"], draws
-        )
+        if is_multiview:
+            images, keypoints, vis = augment_views(state, batch, draws, mask_scores)
+        else:
+            images, keypoints, vis = augmenter.apply(
+                batch["images"], batch["keypoints"], batch["visibility"], draws
+            )
         visibility = _effective_visibility(keypoints, vis)
         state.model.train()
         total, logs, _, _ = supervised_loss(
@@ -324,7 +420,17 @@ def make_step_fns(
             if video_draws is None:
                 raise ValueError("an unlabeled window needs its draws (ops/video_augment.sample_video_draws)")
             ul = batch["unlabeled"]
-            frames, transforms = augment_video_sequence(ul["frames"], video_draws, apply_geometric=augmenter.is_dlc)
+            if is_multiview:
+                # photometric only, one draw for all views and frames
+                t = ul["frames"].shape[0]
+                frames, transforms = augment_video_sequence(
+                    ul["frames"].reshape(t * num_views, *ul["frames"].shape[2:]), video_draws, apply_geometric=False
+                )
+                frames, transforms = frames.reshape(t, num_views, *frames.shape[1:]), transforms[:t]
+            else:
+                frames, transforms = augment_video_sequence(
+                    ul["frames"], video_draws, apply_geometric=augmenter.is_dlc
+                )
             loss_unsup, logs_unsup = unsupervised_loss(
                 state.model, _to_nchw(frames), transforms, ul["bbox"], unsup, aw, (height, width), compute_dtype
             )
@@ -351,14 +457,15 @@ def make_step_fns(
         return logs, preds, confidences
 
     def train_step_cached(state, cache: dict, idxs: torch.Tensor, valid: torch.Tensor, draws,
-                          unlabeled: dict | None = None, video_draws: VideoDraws | None = None):
+                          unlabeled: dict | None = None, video_draws: VideoDraws | None = None,
+                          mask_scores: torch.Tensor | None = None):
         batch = {k: v.index_select(0, idxs) for k, v in cache.items()}
         batch["visibility"] = torch.where(valid[:, None], batch["visibility"], 0)
         # NaN pad-row labels so the logged pixel RMSE ignores them
         batch["keypoints"] = torch.where(valid[:, None, None], batch["keypoints"], float("nan"))
         if unlabeled is not None:
             batch["unlabeled"] = unlabeled
-        return train_step(state, batch, draws, video_draws)
+        return train_step(state, batch, draws, video_draws, mask_scores)
 
     return train_step, eval_step, train_step_cached
 
@@ -491,7 +598,9 @@ def train(
         loss_factories = get_loss_factories(cfg, data_module)
 
         # -- model, optimizer, augmentation
-        model = get_model(cfg, num_keypoints=dataset.num_keypoints)
+        # a multiview model's head is shared by the views: it takes one
+        # view's keypoint count
+        model = get_model(cfg, num_keypoints=getattr(dataset, "num_keypoints_per_view", dataset.num_keypoints))
         if cfg.model.get("checkpoint"):
             if ckpt_utils.warm_start(model, str(cfg.model.checkpoint)):
                 logger.info(f"warm-started from {cfg.model.checkpoint}")
@@ -512,10 +621,13 @@ def train(
             hflip=bool(cfg.training.get("imgaug_hflip", False)),
             hflip_swap_indices=dataset.hflip_swap_indices,
         )
+        num_views = len(dataset.view_names) if hasattr(dataset, "view_names") else 1
         meta = {
             "model_type": normalize_model_type(cfg.model.model_type),
             "downsample_factor": int(cfg.data.get("downsample_factor", 2)),
+            "num_views": num_views,
         }
+        masking = meta["model_type"] == "heatmap_multiview" and _patch_mask_schedule(cfg, steps_per_epoch) is not None
         _, eval_step, train_step_cached = make_step_fns(
             meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch, COMPUTE_DTYPE
         )
@@ -572,11 +684,16 @@ def train(
             if steps_this_epoch <= 0:
                 break
             for idxs, valid in data_module.train_index_batches(epoch, steps=steps_this_epoch):
-                draws = None if augmenter.identity else augmenter.sample(draw_gen, len(idxs), field_gen)
+                n_images = len(idxs) * num_views
+                draws = None if augmenter.identity else augmenter.sample(draw_gen, n_images, field_gen)
+                mask_scores = sample_mask_scores(field_gen, n_images, (height, width)) if masking else None
                 unlabeled = video_draws = None
                 if unlabeled_loader is not None:
                     unlabeled = _window_on_device(next(unlabeled_loader), device)
-                    video_draws = sample_video_draws(draw_gen, *unlabeled["frames"].shape[:3], field_gen)
+                    frames = unlabeled["frames"]
+                    video_draws = sample_video_draws(
+                        draw_gen, math.prod(frames.shape[:-3]), *frames.shape[-3:-1], field_gen
+                    )
                 logs = train_step_cached(
                     state,
                     cache,
@@ -585,6 +702,7 @@ def train(
                     draws,
                     unlabeled,
                     video_draws,
+                    mask_scores,
                 )
                 if state.step % log_every == 0:
                     record = {
@@ -696,35 +814,42 @@ def _suffixed_csv_paths(cfg, suffix: str) -> list[Path] | None:
     return out
 
 
-def _check_single_view(cfg, what: str) -> None:
-    view_names = cfg.data.get("view_names", None)
-    if not isinstance(cfg.data.csv_file, str) or (view_names and len(view_names) > 1):
-        raise NotImplementedError(
-            f"{what} of a multiview model is not ported yet (ROADMAP queue 1, item 6: multiview)"
-        )
+def _labels_files(cfg, csv_files) -> list[Path]:
+    """Absolute paths of a ``csv_file`` setting, one a view."""
+    paths = [Path(c) for c in ([csv_files] if isinstance(csv_files, (str, Path)) else csv_files)]
+    return [p if p.is_absolute() else Path(cfg.data.data_dir) / p for p in paths]
 
 
-def _write_image_preds(model: TrainedModel, cfg, data_module, labels_file: Path, what: str) -> Path:
-    """Predict every frame of ``data_module``; write
-    ``image_preds/<labels name>/predictions.csv`` and its metric CSVs.
-    Returns the directory. A metrics failure is logged, as in the JAX
-    package."""
+def _write_image_preds(
+    model: TrainedModel, cfg, data_module, labels_files: list[Path], suffix: str, what: str
+) -> None:
+    """Predict every frame of ``data_module``; for each view's labels file,
+    write ``image_preds/<labels name>/predictions.csv`` and its metric CSVs,
+    and copy them into the model directory as
+    ``predictions[_<view>][_<metric>]<suffix>.csv``. A metrics failure is
+    logged, as in the JAX package."""
     from lightning_pose_tpu_torch.metrics import compute_metrics_single
     from lightning_pose_tpu_torch.utils.predictions import predict_dataset
 
-    preds_dir = model.model_dir / "image_preds" / labels_file.name
-    preds_dir.mkdir(parents=True, exist_ok=True)
-    preds_file = preds_dir / "predictions.csv"
     # the set column stays: the metrics tell labeled from video predictions
     # by it (reference predictions.py:220-236)
-    predict_dataset(cfg, data_module, model.predict_fn, model.device, str(preds_file))
-    try:
-        compute_metrics_single(
-            cfg=cfg, labels_file=str(labels_file), preds_file=str(preds_file), data_module=data_module
-        )
-    except Exception as e:
-        logger.warning(f"metrics computation failed ({what}): {e}")
-    return preds_dir
+    result = predict_dataset(cfg, data_module, model.predict_fn, model.device)
+    views = list(result.items()) if isinstance(result, dict) else [(None, result)]
+    for (view, df), labels_file in zip(views, labels_files):
+        preds_dir = model.model_dir / "image_preds" / labels_file.name
+        preds_dir.mkdir(parents=True, exist_ok=True)
+        preds_file = preds_dir / "predictions.csv"
+        df.to_csv(preds_file)
+        try:
+            compute_metrics_single(
+                cfg=cfg, labels_file=str(labels_file), preds_file=str(preds_file), data_module=data_module
+            )
+        except Exception as e:
+            logger.warning(f"metrics computation failed ({what}{f', {view}' if view else ''}): {e}")
+        for p_file in preds_dir.glob("predictions*.csv"):
+            view_part = f"_{view}" if view else ""
+            name = f"predictions{view_part}{p_file.stem[len('predictions'):]}{suffix}.csv"
+            shutil.copy(p_file, model.model_dir / name)
 
 
 def _evaluate_on_suffixed_csv(model: TrainedModel, suffix: str) -> None:
@@ -736,13 +861,13 @@ def _evaluate_on_suffixed_csv(model: TrainedModel, suffix: str) -> None:
     from lightning_pose_tpu_torch.data.factory import get_dataset
 
     cfg = model.cfg
-    _check_single_view(cfg, f"evaluation on {suffix} label files")
     csv_paths = _suffixed_csv_paths(cfg, suffix)
     if csv_paths is None:
         return
     logger.info(f"Predicting {suffix.lstrip('_')} images...")
     cfg2 = cfg.copy()
-    cfg2.data.csv_file = str(csv_paths[0])
+    multiview = not isinstance(cfg.data.csv_file, str)
+    cfg2.data.csv_file = [str(p) for p in csv_paths] if multiview else str(csv_paths[0])
     try:
         dataset = get_dataset(cfg2, str(cfg.data.data_dir), imgaug_pipeline="default")
         data_module = BaseDataModule(
@@ -757,32 +882,26 @@ def _evaluate_on_suffixed_csv(model: TrainedModel, suffix: str) -> None:
     except Exception as e:
         logger.warning(f"could not load {suffix} label files ({e}); skipping")
         return
-    preds_dir = _write_image_preds(model, cfg2, data_module, csv_paths[0], suffix)
-    # legacy copies: predictions[_<metric>]<suffix>.csv
-    for p_file in preds_dir.glob("predictions*.csv"):
-        shutil.copy(p_file, model.model_dir / f"{p_file.stem}{suffix}.csv")
+    _write_image_preds(model, cfg2, data_module, csv_paths, suffix, suffix)
 
 
 def _evaluate_on_training_dataset(model: TrainedModel) -> None:
     """Predict all labeled frames; write ``predictions.csv`` and the metric
-    CSVs, and their legacy copies in the model directory (reference
-    train.py:146-246)."""
+    CSVs, one set a view, and their legacy copies in the model directory
+    (reference train.py:146-246)."""
     cfg = model.cfg
-    _check_single_view(cfg, "evaluation on the labeled frames")
-    labels_file = Path(cfg.data.csv_file)
-    if not labels_file.is_absolute():
-        labels_file = Path(cfg.data.data_dir) / labels_file
-    preds_dir = _write_image_preds(model, cfg, model.data_module, labels_file, "labeled frames")
-    for p_file in preds_dir.glob("predictions*.csv"):
-        shutil.copy(p_file, model.model_dir / p_file.name)
+    _write_image_preds(
+        model, cfg, model.data_module, _labels_files(cfg, cfg.data.csv_file), "", "labeled frames"
+    )
 
 
 def _predict_test_videos(model: TrainedModel) -> None:
     """Predict the videos of ``eval.test_videos_directory`` when
-    ``eval.predict_vids_after_training`` is set (reference train.py:248-271).
-    A failure is logged, as in the JAX package."""
-    from lightning_pose_tpu_torch.utils.io import get_videos_in_dir
-    from lightning_pose_tpu_torch.utils.video_predictions import predict_video
+    ``eval.predict_vids_after_training`` is set (reference train.py:248-271);
+    a multiview model predicts each session's views together. A failure is
+    logged, as in the JAX package."""
+    from lightning_pose_tpu_torch.utils.io import find_video_files_for_views, get_videos_in_dir
+    from lightning_pose_tpu_torch.utils.video_predictions import predict_video, predict_video_multiview
 
     cfg = model.cfg
     if not cfg.eval.get("predict_vids_after_training", False):
@@ -790,8 +909,22 @@ def _predict_test_videos(model: TrainedModel) -> None:
     video_dir = cfg.eval.get("test_videos_directory")
     if not video_dir or not os.path.isdir(str(video_dir)):
         return
-    _check_single_view(cfg, "test-video prediction")
+    save_videos = bool(cfg.eval.get("save_vids_after_training", False))
+    view_names = cfg.data.get("view_names", None)
     try:
+        if view_names and len(view_names) > 1:
+            for session in find_video_files_for_views(str(video_dir), list(view_names)):
+                logger.info(f"predicting multiview session: {session}")
+                predict_video_multiview(
+                    video_file_per_view=[str(v) for v in session],
+                    view_names=list(view_names),
+                    cfg=cfg,
+                    predict_fn=model.predict_fn,
+                    model_dir=str(model.model_dir),
+                    device=model.device,
+                    generate_labeled_video=save_videos,
+                )
+            return
         for video_file in get_videos_in_dir(str(video_dir)):
             logger.info(f"predicting video: {video_file}")
             predict_video(
@@ -801,7 +934,7 @@ def _predict_test_videos(model: TrainedModel) -> None:
                 model_dir=str(model.model_dir),
                 device=model.device,
                 data_module=model.data_module,
-                generate_labeled_video=bool(cfg.eval.get("save_vids_after_training", False)),
+                generate_labeled_video=save_videos,
             )
     except Exception as e:
         logger.warning(f"video prediction failed: {e}")

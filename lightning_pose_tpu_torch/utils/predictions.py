@@ -7,7 +7,9 @@ x/y/likelihood per keypoint. A video gives one row per frame, the FILL
 padding of the last batch trimmed and, for a context model, its rows
 shifted to their center frames; a labeled dataset gives one row per image,
 indexed by image name, with the train/validation/test ``set`` column.
-Multiview outputs are not ported yet.
+Multiview outputs (a labeled multiview dataset, or a frame-synchronized
+multiview video) give one dataframe a view: the rows' ``2K`` keypoint
+columns per view side by side, in ``view_names`` order.
 """
 
 from __future__ import annotations
@@ -28,13 +30,14 @@ def predict_dataset(
     predict_fn,
     device: torch.device,
     preds_file: str | None = None,
-) -> pd.DataFrame:
+) -> pd.DataFrame | dict[str, pd.DataFrame]:
     """Predict every frame of a labeled dataset, in CSV order, and write the
-    CSV where ``preds_file`` is given (reference predictions.py:330).
+    CSV where ``preds_file`` is given (reference predictions.py:330); a
+    multiview dataset gives one dataframe a view, written by the caller.
 
     ``predict_fn(images_uint8, bbox)`` takes a ``(B, h, w, 3)`` uint8 batch,
-    or ``(B, 5, h, w, 3)`` context stacks, and its ``(B, 4)`` bboxes on
-    ``device``."""
+    ``(B, 5, h, w, 3)`` context stacks or ``(B, V, h, w, 3)`` views, and its
+    ``(B, 4)`` (``(B, 4V)``) bboxes on ``device``."""
     # every batch is launched before the first result is fetched
     device_preds, valids = [], []
     for batch in data_module.full_batches():
@@ -46,6 +49,8 @@ def predict_dataset(
              for (kp, conf), valid in zip(device_preds, valids)]
     df = PredictionHandler(cfg=cfg, data_module=data_module)(preds)
     if preds_file is not None:
+        if isinstance(df, dict):
+            raise ValueError("a multiview dataset gives one dataframe a view; write them by view")
         df.to_csv(preds_file)
     return df
 
@@ -59,11 +64,6 @@ class PredictionHandler:
             raise ValueError("must pass either data_module or video_file")
         if cfg.data.get("keypoint_names", None) is None:
             raise ValueError("must include `keypoint_names` field in cfg.data")
-        view_names = cfg.data.get("view_names", None)
-        if view_names and len(view_names) > 1:
-            raise NotImplementedError(
-                "multiview predictions are not ported yet (ROADMAP queue 1, item 6: multiview)"
-            )
         self.cfg = cfg
         self.data_module = data_module
         self.video_file = video_file
@@ -147,14 +147,33 @@ class PredictionHandler:
         df["set"] = membership
         return df
 
-    def __call__(self, preds: list[tuple[np.ndarray, np.ndarray]]) -> pd.DataFrame:
-        """The prediction dataframe (reference predictions.py:262-327)."""
-        keypoints, confs = self.unpack_preds(preds)
+    def _assemble_df(self, keypoints: np.ndarray, confs: np.ndarray, image_names=None) -> pd.DataFrame:
+        """One view's dataframe: interleaved columns and, for a labeled
+        dataset, the ``set`` column and the image-name index."""
         df = pd.DataFrame(
             self.make_pred_arr_undo_resize(keypoints, confs),
             columns=make_dlc_pandas_index(cfg=self.cfg, keypoint_names=self.keypoint_names),
         )
         if self.video_file is None:
             df = self.add_split_indices_to_df(df)
-            df.index = self.data_module.dataset.image_names
+            df.index = image_names
         return df
+
+    def __call__(
+        self, preds: list[tuple[np.ndarray, np.ndarray]], is_multiview_video: bool = False
+    ) -> pd.DataFrame | dict[str, pd.DataFrame]:
+        """The prediction dataframe, or one a view for multiview outputs
+        (reference predictions.py:262-327)."""
+        keypoints, confs = self.unpack_preds(preds)
+        view_names = self.cfg.data.get("view_names", None)
+        if not (view_names and len(view_names) > 1 and (self.video_file is None or is_multiview_video)):
+            names = self.data_module.dataset.image_names if self.video_file is None else None
+            return self._assemble_df(keypoints, confs, names)
+        n_kp = len(self.keypoint_names)
+        out = {}
+        for i, view in enumerate(view_names):
+            names = self.data_module.dataset.image_names_by_view[view] if self.video_file is None else None
+            out[view] = self._assemble_df(
+                keypoints[:, 2 * n_kp * i : 2 * n_kp * (i + 1)], confs[:, n_kp * i : n_kp * (i + 1)], names
+            )
+        return out

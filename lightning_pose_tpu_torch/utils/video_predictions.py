@@ -7,7 +7,8 @@ fixed-shape uint8 batches (cropped to per-frame bboxes where given), copied
 to the device through pinned buffers on a side stream, and predicted without
 a host sync per batch; the results are fetched once at the end and written
 by ``utils/predictions.PredictionHandler``. The labeled video is drawn with
-OpenCV.
+OpenCV. A multiview model predicts a session's views together, from
+frame-synchronized ``(T, V, h, w, 3)`` batches, into one CSV a view.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["generate_labeled_video", "predict_video"]
+__all__ = ["generate_labeled_video", "predict_video", "predict_video_multiview"]
 
 _PINNED_SLOTS = 2
 
@@ -174,6 +175,103 @@ def predict_video(
             logger.warning(f"labeled video generation failed: {e}")
 
     return PredictionResult(predictions=df, metrics=metrics_result)
+
+
+def _frame_size(video_file: str) -> tuple[int, int]:
+    import cv2
+
+    cap = cv2.VideoCapture(str(video_file))
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)), int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    finally:
+        cap.release()
+
+
+def predict_video_multiview(
+    video_file_per_view: list[str],
+    view_names: list[str],
+    cfg,
+    predict_fn: Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
+    model_dir: str,
+    device: torch.device,
+    generate_labeled_video: bool = False,
+    compute_metrics: bool = True,
+    output_dir: str | None = None,
+    progress_file=None,
+):
+    """Predict one session, one video a view, frame-synchronized; write
+    ``video_preds/<stem>.csv`` for each view's video (or into
+    ``output_dir``), its metric CSVs and, with ``generate_labeled_video``,
+    a labeled mp4 a view (reference model.py:1225). Returns a
+    ``MultiviewPredictionResult``.
+
+    ``predict_fn(images_uint8, bbox)`` takes a ``(T, V, h, w, 3)`` batch and
+    its ``(T, 4V)`` full-frame bboxes on ``device``. A failure of the
+    metrics or of a labeled video is logged, as in the JAX package."""
+    from lightning_pose_tpu_torch.data.datatypes import MultiviewPredictionResult
+    from lightning_pose_tpu_torch.data.video import MultiviewPredictVideoLoader
+    from lightning_pose_tpu_torch.utils.predictions import PredictionHandler
+
+    seq_len = int(cfg.dali.base.predict.sequence_length)
+    loader = MultiviewPredictVideoLoader(
+        [str(v) for v in video_file_per_view],
+        sequence_length=seq_len,
+        resize_height=int(cfg.data.image_resize_dims.height),
+        resize_width=int(cfg.data.image_resize_dims.width),
+    )
+    bbox = torch.tensor(
+        [[c for v in video_file_per_view for c in (0.0, 0.0, *_frame_size(v))]] * seq_len,
+        dtype=torch.float32, device=device,
+    )
+    progress = None
+    if progress_file is not None:
+        from lightning_pose_tpu_torch.callbacks import JSONInferenceProgressTracker
+
+        progress = JSONInferenceProgressTracker(progress_file, total_batches=len(loader))
+
+    t0 = time.time()
+    device_preds = [predict_fn(batch, bbox) for batch in _device_batches(loader, device)]
+    preds = []
+    for kp, conf in device_preds:
+        preds.append((kp.cpu().numpy(), conf.cpu().numpy()))
+        if progress is not None:
+            progress.step()
+    elapsed = time.time() - t0
+    logger.info(
+        f"predicted {loader.frame_count} frames x {len(view_names)} views in {elapsed:.2f}s "
+        f"({loader.frame_count / max(elapsed, 1e-9):.1f} frames/s)"
+    )
+
+    view_to_df = PredictionHandler(cfg=cfg, video_file=str(video_file_per_view[0]))(preds, is_multiview_video=True)
+    preds_dir = Path(output_dir) if output_dir else Path(model_dir) / "video_preds"
+    preds_dir.mkdir(parents=True, exist_ok=True)
+    out, out_metrics = {}, {}
+    for view, video_file in zip(view_names, video_file_per_view):
+        df = view_to_df[view]
+        preds_file = preds_dir / (Path(video_file).stem + ".csv")
+        df.to_csv(preds_file)
+        out[view] = df
+        if compute_metrics:
+            try:
+                from lightning_pose_tpu_torch.metrics import compute_metrics_single
+
+                out_metrics[view] = compute_metrics_single(cfg=cfg, labels_file=None, preds_file=str(preds_file))
+            except Exception as e:
+                logger.warning(f"video metrics failed ({view}): {e}")
+        if generate_labeled_video:
+            labeled_dir = preds_dir / "labeled_videos"
+            labeled_dir.mkdir(parents=True, exist_ok=True)
+            try:
+                _create_labeled_video(
+                    video_file=str(video_file),
+                    preds_df_file=str(preds_file),
+                    output_mp4=str(labeled_dir / (Path(video_file).stem + "_labeled.mp4")),
+                    confidence_thresh=float(cfg.eval.get("confidence_thresh_for_vid", 0.9)),
+                    colormap=str(cfg.eval.get("colormap", "cool")),
+                )
+            except Exception as e:
+                logger.warning(f"labeled video failed ({view}): {e}")
+    return MultiviewPredictionResult(predictions=out, metrics=out_metrics or None)
 
 
 def generate_labeled_video(

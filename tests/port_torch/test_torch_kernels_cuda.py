@@ -706,3 +706,157 @@ def test_one_context_semisupervised_step_on_card_launches_the_kernels(cuda_devic
     assert tuple(a - b for a, b in zip(after, before)) == (2, 3, 2)
     assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
     assert state.step == 1
+
+
+# -- the multiview transformer's shapes ------------------------------------------------
+
+
+def _multiview_model(keypoints=17, image=256, head_scale=300.0):
+    """A random-init multiview transformer (vits_dino, 2 views), its head's
+    deconv scaled so that the maps are peaked."""
+    torch.manual_seed(0)
+    model = build_model("heatmap_multiview", "vits_dino", keypoints, num_views=2, image_size=image)
+    with torch.no_grad():
+        model.head.deconv0.weight.mul_(head_scale)
+    return model
+
+
+@pytest.mark.parametrize("shape", [(96, 2, 256, 256, 3), (3, 2, 64, 96, 3)])
+def test_normalize_kernel_on_multiview_batches_matches_plain(cuda_device, shape):
+    """One launch over all views of ``(B, V, H, W, 3)``; ``(B, V, 3, H, W)``
+    out, within 1 bf16 ulp of the plain version, and reshapeable to the
+    model's ``(B*V, 3, H, W)`` channels-last view without a copy."""
+    frames = _frames(shape, seed=11).to(cuda_device)
+    before = normalize_kernel.launches
+    out = normalize_kernel.normalize(frames, torch.bfloat16)
+    ref = normalize_kernel.normalize_plain(frames, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert normalize_kernel.launches == before + 1
+    assert out.shape == ref.shape == (shape[0], shape[1], 3, shape[2], shape[3])
+    assert _bf16_ulps(out, ref) <= 1
+    flat = out.reshape(shape[0] * shape[1], 3, shape[2], shape[3])
+    assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_warp_kernel_over_view_images_matches_plain(cuda_device):
+    """16 samples x 2 views folded into 32 images, one field each (one draw
+    per view image)."""
+    engine = AugmentationEngine("dlc", 256, 256)
+    draws = _forced_draws(engine, 32)
+    _, coords, _, _ = engine.sampling_grid(draws, 32, cuda_device)
+    images = _frames((32, 256, 256, 3), seed=12).to(cuda_device, torch.float32)
+    out = warp_kernel.warp(images, coords.contiguous())
+    ref = warp_kernel.warp_plain(images, coords.contiguous())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+def test_decode_and_backward_on_multiview_maps_match_plain(cuda_device):
+    """The decode and its backward on a multiview model's (32, 34, 64, 64)
+    maps (2 views x 17 keypoints), against the plain decode and autograd of
+    it."""
+    model = _multiview_model().to(cuda_device).eval()
+    views = _frames((32, 2, 256, 256, 3), seed=13).to(cuda_device)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hm = model(normalize_kernel.normalize(views, torch.bfloat16)).float().contiguous()
+    assert hm.shape == (32, 34, 64, 64)
+    kp, conf = decode_kernel.decode(hm, 2)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm, 2)
+    _assert_decode_close(kp, conf, kp_ref, conf_ref, 2)
+    grad, grad_ref, _, _ = _decode_grads(hm, 2, seed=4)
+    scale = float(grad_ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(grad).all())
+    assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * scale
+
+
+def test_multiview_forward_with_grad_on_cuda_gives_keypoints_with_a_gradient(cuda_device):
+    """vits_dino on 2 views at 256 px in bf16 under grad: the decode kernel
+    and its backward launch once each, and every ViT parameter but the
+    unused CLS token gets a finite gradient."""
+    model = _multiview_model().to(cuda_device, memory_format=torch.channels_last).train()
+    views = _frames((2, 2, 256, 256, 3), seed=14).to(cuda_device)
+    before = (decode_kernel.launches, decode_kernel.grad_launches)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        hm = model(normalize_kernel.normalize(views, torch.bfloat16))
+    kp, _ = model.decode(hm)
+    assert kp.grad_fn is not None and kp.shape == (2, 68)
+    kp.sum().backward()
+    torch.cuda.synchronize()
+    assert (decode_kernel.launches - before[0], decode_kernel.grad_launches - before[1]) == (1, 1)
+    for name, p in model.named_parameters():
+        if name == "backbone.cls_token":
+            assert p.grad is None
+        else:
+            assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
+def test_multiview_predict_step_on_card_matches_cpu(cuda_device):
+    """The multiview predict step, fp32, card (normalize once over both
+    views, decode once over 2 x 5 maps) against the CPU; each view's
+    keypoints through its own bbox."""
+    model = _multiview_model(keypoints=5, image=128).eval()
+    cpu = PredictStep(model, 128, 128, torch.float32)
+    card_model = _multiview_model(keypoints=5, image=128)
+    card_model.load_state_dict(model.state_dict())
+    card = PredictStep(card_model.eval().to(cuda_device, memory_format=torch.channels_last), 128, 128, torch.float32)
+    frames = _frames((3, 2, 128, 128, 3), seed=15)
+    bbox = torch.tensor([[0.0, 0.0, 120.0, 160.0, 5.0, 7.0, 90.0, 100.0]] * 3)
+    before = (normalize_kernel.launches, decode_kernel.launches)
+    kp, conf = card(frames.to(cuda_device), bbox.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (normalize_kernel.launches, decode_kernel.launches) == (before[0] + 1, before[1] + 1)
+    kp_ref, conf_ref = cpu(frames, bbox)
+    assert kp.shape == kp_ref.shape == (3, 20)
+    torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=KP_TOL_PX)
+    torch.testing.assert_close(conf.cpu(), conf_ref, rtol=0, atol=CONF_TOL)
+
+
+def test_one_multiview_semisupervised_step_on_card_launches_the_kernels(cuda_device):
+    """A vits_dino multiview step on the card (bf16, 128 px): 4 samples x 2
+    views with dlc and the patch mask, and an 8-frame 2-view window
+    (photometric only): the warp once (the view images), the decode forward
+    twice (labeled, window) and its backward once; finite losses."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import LossFactory
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.training.max_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    cfg.training.patch_mask = {"init_step": 0, "final_step": 4, "init_ratio": 0.2, "final_ratio": 0.5}
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    model = _multiview_model(keypoints=5, image=128).to(cuda_device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer)
+    engine = AugmentationEngine("dlc", 128, 128)
+    factories = {
+        "supervised": LossFactory({"heatmap_mse": {"log_weight": 0.0}}),
+        "unsupervised": LossFactory({"temporal": {"log_weight": 0.0}}),
+    }
+    meta = {"model_type": "heatmap_multiview", "downsample_factor": 2, "num_views": 2}
+    step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, 10)[2]
+    rng = np.random.default_rng(7)
+    cache = {
+        "images": _frames((6, 2, 128, 128, 3), seed=16),
+        "keypoints": torch.from_numpy(rng.uniform(0, 128, (6, 10, 2)).astype(np.float32)),
+        "visibility": torch.full((6, 10), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, 128.0, 128.0] * 2] * 6),
+    }
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    window = {"frames": _frames((8, 2, 128, 128, 3), seed=17).to(cuda_device),
+              "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0] * 2] * 8, device=cuda_device)}
+    gen, field_gen = torch.Generator().manual_seed(2), torch.Generator(cuda_device).manual_seed(2)
+    draws = engine.sample(gen, 8, field_gen)
+    video_draws = sample_video_draws(gen, 16, 128, 128, field_gen)
+    scores = trainer.sample_mask_scores(field_gen, 8, (128, 128))
+    before = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    logs = step(state, cache, torch.arange(4, device=cuda_device), torch.ones(4, dtype=torch.bool, device=cuda_device),
+                draws, window, video_draws, scores)
+    torch.cuda.synchronize()
+    after = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 2, 1)
+    assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
+    assert state.step == 1

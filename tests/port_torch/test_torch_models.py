@@ -164,5 +164,8 @@ def test_resnet50_pose_variants_share_the_architecture():
 
 @pytest.mark.parametrize("model_type", ["regression", "heatmap_multiview", "heatmap_multiview_transformer"])
 def test_build_model_rejects_unported_types(model_type):
+    # the multiview transformer is ported with the plain ViTs; its DINOv2
+    # backbone is not
+    backbone = "resnet18" if model_type == "regression" else "vits_dinov2"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(model_type, "resnet18", 3)
+        build_model(model_type, backbone, 3, num_views=2)

@@ -66,6 +66,8 @@ def test_no_port_module_names_jax_or_the_jax_package():
     assert len(files) >= 30
     names = {str(f.relative_to(REPO / "lightning_pose_tpu_torch")) for f in files}
     assert {"data/unlabeled.py", "utils/pca.py", "ops/video_augment.py", "ops/decode_kernel.py"} <= names
+    assert {"models/backbones/vit.py", "models/heatmap_tracker_multiview.py", "data/datasets_multiview.py",
+            "ops/interpolate.py"} <= names
     assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
@@ -93,10 +95,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print(len(names), len(blocked))
+new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate"}
+print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
-    count, n_blocked = out.split()
-    assert int(count) >= 30 and n_blocked == "0"
+    count, n_blocked, n_new = out.split()
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "4"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -263,3 +266,79 @@ print(json.dumps({{
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"video": [9, 9], "labeled": [10, 10], "finite": True, "unsupervised_logged": 2,
                       "evaluated": ["predictions.csv", "session0.csv"], "jax": []}
+
+
+def test_multiview_paths_run_without_jax(tmp_path):
+    """The multiview transformer (a small ViT through ``VIT_CONFIGS``):
+    semi-supervised train() with pca_multiview + temporal and the patch
+    mask, with its evaluation (the labeled views, a 2-view test session),
+    then, from the directory, the session, the labeled CSVs and one frame a
+    view."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.models.backbones import vit
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_multiview_dataset, write_multiview_videos
+
+vit.VIT_CONFIGS["vits"] = (64, 2, 2, 16)
+names, views = ["a", "b", "c"], ["top", "side"]
+data = write_multiview_dataset({str(tmp_path / "data")!r}, 10, 100, 120, names, views, seed=1)
+videos = write_multiview_videos(data, "session0", 9, 96, 128, views, n_blobs=3, seed=0)
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.csv_file = [f"CollectedData_{{v}}.csv" for v in views]
+cfg.data.view_names = views
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.mirrored_column_matches = [0, 1, 2]
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.model_type = "heatmap_multiview_transformer"
+cfg.model.backbone = "vits_dino"
+cfg.model.model_name = "nojaxmv"
+cfg.model.losses_to_use = ["pca_multiview", "temporal"]
+cfg.dali.base.train.sequence_length = 4
+cfg.dali.base.predict.sequence_length = 8
+cfg.training.train_batch_size = 4
+cfg.training.patch_mask = {{"init_step": 0, "final_step": 2, "init_ratio": 0.1, "final_ratio": 0.5}}
+cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+cfg.training.max_steps = cfg.training.min_steps = 2
+cfg.training.unfreezing_step = 1
+cfg.training.log_every_n_steps = 1
+cfg.training.lr_scheduler_params.multisteplr.milestones = None
+cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+cfg.eval.test_videos_directory = str(data / "videos")
+model_dir = {str(tmp_path / "model")!r}
+result = train(cfg, model_dir, device="cpu")
+model = Model.from_dir(model_dir, precision="fp32", device="cpu")
+session = model.predict_on_video_file_multiview([str(v) for v in videos], output_dir={str(tmp_path / "preds")!r})
+labeled = model.predict_on_label_csv_multiview(cfg.data.csv_file, compute_metrics=False).predictions
+frame = model.predict_frame(np.zeros((2, 100, 120, 3), dtype=np.uint8))
+print(json.dumps({{
+    "video": {{v: list(df.shape) for v, df in session.predictions.items()}},
+    "labeled": {{v: list(df.shape) for v, df in labeled.items()}},
+    "frame": list(frame["keypoints"].shape),
+    "finite": bool(np.isfinite(frame["keypoints"]).all()),
+    "unsupervised_logged": sum("train_unsupervised_loss" in h for h in result.history),
+    "evaluated": sorted(p for p in ["image_preds/CollectedData_top.csv/predictions.csv",
+                                    "image_preds/CollectedData_side.csv/predictions.csv",
+                                    "video_preds/session0_top.csv", "video_preds/session0_side.csv"]
+                        if (result.model_dir / p).is_file()),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {
+        "video": {"top": [9, 9], "side": [9, 9]},
+        "labeled": {"top": [10, 10], "side": [10, 10]},
+        "frame": [6, 2],
+        "finite": True,
+        "unsupervised_logged": 2,
+        "evaluated": ["image_preds/CollectedData_side.csv/predictions.csv",
+                      "image_preds/CollectedData_top.csv/predictions.csv",
+                      "video_preds/session0_side.csv", "video_preds/session0_top.csv"],
+        "jax": [],
+    }
