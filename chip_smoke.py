@@ -118,9 +118,44 @@ Phases, each fatal on failure:
      Phase 3 also holds the normalize on a (96, 2, 256, 256, 3) batch, the
      warp over 32 view images, CLAHE at 13a's fired planes, and the decode
      and its backward on a random-init multiview model's maps against
-     their plain versions. Each kernel's entry in the JSON summary names
-     the phase-13 path whose launches it counts and the shape its times
-     were taken at.
+     their plain versions.
+ 14. the rest of single-view training, at full width (256 px, 17
+     keypoints, batch 16, dlc, bf16), from files in the published key
+     layouts with seeded random values (torchvision ResNet-50, the same in
+     an MMPose container, torchvision EfficientNet-B0, HF ViT-S/16 with a
+     14 x 14 position grid):
+     a. the MMPose file loaded into resnet50_animal_ap10k on the card and
+        held to the file tensor by tensor; train() of RESUME_STEPS steps
+        from it, twice (the run-to-run spread, cuDNN deterministic), and
+        of half as many steps resumed with training.resume to RESUME_STEPS
+        in the same version directory: the same step, epoch and LRs, the
+        largest parameter difference (bitwise, or within twice the
+        spread); the -last.ckpt's size and write times; train() with
+        training.profiler, whose trace must name the warp and CLAHE
+        kernels, the backbone frozen so that its conv kernels stay the
+        file's;
+     b. EfficientNet-B0 heatmap train() from the torchvision file with its
+        evaluation (launches of the warp, CLAHE and the decode against
+        what the code implies), the step's ms, busy share and memory,
+        predict_on_video_file of a 1000-frame mp4 (11 batches of 96) in 2
+        runs, and predict_frame fp32 card vs CPU;
+     c. the regression model (ResNet-50): supervised train() (no decode;
+        every likelihood 1.0), semi-supervised train() with temporal on
+        the outputs (the warp twice a step), the steps' ms and busy
+        shares, predict_on_video_file (likelihoods 1.0) and predict_frame
+        fp32 card vs CPU;
+     d. the multiview transformer (vits_dino, 2 views) from the HF file:
+        the position grid resized 14 -> 16, 4 steps of train();
+     e. each kernel at phase 14's shapes beside its plain version and
+        bound: normalize (96, 256, 256, 3), the warp over 16 images (and
+        F.grid_sample), CLAHE at 14b's fired steps, the decode on
+        EfficientNet-B0 maps (96, 17, 64, 64).
+     Phase 3 also holds CLAHE at 14b's fired planes, the warp at a 16-image
+     batch and the decode on a random-init EfficientNet-B0 model's maps
+     against their plain versions. Each kernel's entry in the JSON summary
+     names the path whose launches it counts (14b's; the decode's
+     backward runs on no path of phase 14 and keeps 13b's) and the shape
+     its times were taken at.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
 the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
@@ -221,6 +256,19 @@ MV_LR = 5e-5
 MV_VIDEO_FRAMES = 1000
 MV_VIDEO_RUNS = 3
 MV_TOL_PX = 0.05
+
+# the rest of single-view training (phase 14): train() steps of the resume
+# comparison (4 an epoch; the interrupted run stops at half of them) and of
+# the EfficientNet and regression configurations, the frames of their
+# synthetic video and the runs over it (the first cold), the limit of fp32
+# on the card against the CPU
+RESUME_STEPS = 16
+SV_STEPS = 10
+SV_VIDEO_FRAMES = 1000
+SV_VIDEO_RUNS = 2
+SV_TOL_PX = 0.05
+# the device of phase 14's paths (the checks of phase 3 are the card's)
+DEVICE = "cuda"
 
 KERNELS = {
     "normalize": {
@@ -1898,6 +1946,547 @@ def multiview_phase(rng, card: str) -> dict[str, int]:
     return slice_launches
 
 
+# -- the rest of single-view training: pretrained files, resume, EfficientNet, regression --
+
+
+def write_pretrained_files(directory: Path) -> dict[str, Path]:
+    """The published key layouts with seeded random values (no pretrained
+    weights ship with the repo and none can be downloaded): torchvision
+    ResNet-50 raw and in an MMPose ``{"state_dict": {"backbone.*"}}``
+    container, torchvision EfficientNet-B0, HF ``ViTModel`` ViT-S/16 with a
+    14 x 14 position grid."""
+    import torch
+
+    from lightning_pose_tpu_torch.utils.synthetic import (
+        hf_vit_state_dict,
+        torchvision_efficientnet_state_dict,
+        torchvision_resnet_state_dict,
+    )
+
+    resnet = torchvision_resnet_state_dict("resnet50", seed=SEED + 20)
+    files = {
+        "torchvision_resnet50": (resnet, directory / "resnet50_torchvision.pth"),
+        "mmpose_resnet50": ({"state_dict": {f"backbone.{k}": v for k, v in resnet.items()}},
+                            directory / "resnet50_mmpose.pth"),
+        "torchvision_efficientnet_b0": (torchvision_efficientnet_state_dict("b0", seed=SEED + 21),
+                                        directory / "efficientnet_b0_torchvision.pth"),
+        "hf_vits16": (hf_vit_state_dict(384, 12, grid=14, seed=SEED + 22), directory / "vits16_hf.pth"),
+    }
+    for state, path in files.values():
+        torch.save(state, path)
+    log("phase 14 pretrained files (published key layouts, seeded random values): " + "; ".join(
+        f"{name} {path.name} {path.stat().st_size / 1e6:.1f} MB" for name, (_, path) in files.items()))
+    return {name: path for name, (_, path) in files.items()}
+
+
+def profiled_seed(engine, steps: int) -> int:
+    """The first data seed from TRAIN_SEED on whose draws CLAHE fires in the
+    first ``steps`` steps of a train() of TRAIN_BATCH images a step."""
+    seed = TRAIN_SEED
+    while not clahe_fired_stacks(engine, steps, seed, TRAIN_BATCH):
+        seed += 1
+    return seed
+
+
+def resume_config(data: Path, names: list[str], files: dict, steps: int, name: str):
+    """Phase 14a: the default model from the MMPose file, ``steps`` steps
+    in step mode (4 an epoch), the backbone unfrozen at step 2, a milestone
+    at 3/8 of RESUME_STEPS (within the interrupted run), validation and a
+    -last.ckpt every epoch, no evaluation."""
+    cfg = train_config(data, names)
+    cfg.model.backbone = "resnet50_animal_ap10k"
+    cfg.model.backbone_checkpoint = str(files["mmpose_resnet50"])
+    cfg.model.model_name = name
+    cfg.training.max_steps = cfg.training.min_steps = steps
+    cfg.training.unfreezing_step = 2
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [RESUME_STEPS * 3 // 8]
+    return cfg
+
+
+def resume_phase(data: Path, names: list[str], files: dict, tmp: Path, card: str) -> None:
+    """Phase 14a: the pretrained load checked tensor by tensor; an
+    uninterrupted run of RESUME_STEPS steps (twice: the run-to-run spread);
+    a run of half as many steps resumed to RESUME_STEPS in its directory;
+    the -last.ckpt's size and write time; a profiled run."""
+    import torch
+
+    from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint, load_torch_checkpoint
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.train import checkpoints as ckpt_utils
+    from lightning_pose_tpu_torch.train import trainer
+
+    dev = torch.device(DEVICE)
+    model = build_model("heatmap", "resnet50_animal_ap10k", KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+    skipped = load_backbone_checkpoint(model.backbone, "resnet50_animal_ap10k", str(files["mmpose_resnet50"]), IMAGE)
+    file_state = load_torch_checkpoint(str(files["mmpose_resnet50"]))
+    own = model.backbone.state_dict()
+    compared = [k for k in file_state if k in own and not k.endswith("num_batches_tracked")]
+    unequal = [k for k in compared if not torch.equal(own[k].cpu(), file_state[k])]
+    check(not unequal and len(compared) == len(own) - len([k for k in own if k.endswith("num_batches_tracked")]),
+          f"the loaded backbone differs from the MMPose file: {unequal[:5]}")
+    check(sorted(skipped) == sorted(k for k in file_state if k not in compared), f"skipped keys {skipped[:5]}")
+    log(f"phase 14a the MMPose ResNet-50 file into resnet50_animal_ap10k on the card: {len(compared)} tensors equal to "
+        f"the file's, bit for bit; skipped {len(skipped)} (fc and the batch counters)")
+    del model
+
+    # deterministic cuDNN for the comparison; torch flags max-pool's
+    # backward as nondeterministic on CUDA, so two runs may still differ
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    for label, steps, name, resume in (("uninterrupted", RESUME_STEPS, "resumea", False),
+                                       ("uninterrupted again", RESUME_STEPS, "resumeb", False),
+                                       ("first half", RESUME_STEPS // 2, "resumec", False),
+                                       ("resumed", RESUME_STEPS, "resumec", True)):
+        cfg = resume_config(data, names, files, steps, name)
+        cfg.training.resume = resume
+        model_dir = tmp / name
+        saves = []
+        save_module = ckpt_utils.save_module
+
+        def timed_save(path, *args, **kwargs):
+            t0 = time.perf_counter()
+            save_module(path, *args, **kwargs)
+            saves.append((path, time.perf_counter() - t0))
+
+        ckpt_utils.save_module = timed_save
+        warp_kernel.launches = 0
+        try:
+            t0 = time.perf_counter()
+            result = trainer.train(cfg, model_dir, skip_evaluation=True, device=DEVICE)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            ckpt_utils.save_module = save_module
+        versions = sorted(p.name for p in (model_dir / "tb_logs" / name).iterdir())
+        lasts = list((model_dir / "tb_logs" / name / "version_0" / "checkpoints").glob("*-last.ckpt"))
+        check(versions == ["version_0"] and len(lasts) == 1, f"{label}: versions {versions}, last ckpts {lasts}")
+        ckpt = ckpt_utils.load_checkpoint(str(lasts[0]))
+        steps_run = [h["step"] for h in result.history if "lr-head" in h]
+        check(warp_kernel.launches == len(steps_run), f"{label}: warp {warp_kernel.launches} for {len(steps_run)} steps")
+        last_saves = [s for p, s in saves if str(p).endswith("-last.ckpt")]
+        runs[label] = {"ckpt": ckpt, "history": {h["step"]: h for h in result.history if "lr-head" in h}}
+        log(f"phase 14a {label} train(): steps {steps_run[0]}-{steps_run[-1]} in {elapsed:.1f} s, ends at epoch "
+            f"{ckpt['epoch']} step {ckpt['step']}; {lasts[0].name} {lasts[0].stat().st_size / 1e6:.1f} MB (weights, "
+            f"statistics, Adam's moments, the generators' states), written {len(last_saves)} times in "
+            f"{', '.join(f'{s:.3f}' for s in last_saves)} s {card}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+    a, b, r = (runs[k]["ckpt"] for k in ("uninterrupted", "uninterrupted again", "resumed"))
+    check(a["step"] == r["step"] == RESUME_STEPS and a["epoch"] == r["epoch"], "the resumed run ends elsewhere")
+    for step in range(RESUME_STEPS // 2 + 1, RESUME_STEPS + 1):
+        ha, hr = runs["uninterrupted"]["history"][step], runs["resumed"]["history"][step]
+        check(ha["lr-head"] == hr["lr-head"] and ha["lr-backbone"] == hr["lr-backbone"], f"step {step}: LRs differ")
+    check(sorted(runs["resumed"]["history"]) == list(range(RESUME_STEPS // 2 + 1, RESUME_STEPS + 1)),
+          "the resumed run took other steps")
+
+    def max_diff(x, y) -> float:
+        fx, fy = ckpt_utils._flatten(x["params"]), ckpt_utils._flatten(y["params"])
+        return max(float(np.abs(fx[k].astype(np.float64) - fy[k]).max()) for k in fx)
+
+    spread, resumed_diff = max_diff(a, b), max_diff(a, r)
+    bitwise = resumed_diff == 0.0
+    # without bitwise runs, the resumed run may part from the uninterrupted
+    # one by no more than two uninterrupted runs part from each other
+    check(bitwise or resumed_diff <= 2 * spread, f"resumed run {resumed_diff:.3e} from the uninterrupted one, two "
+          f"uninterrupted runs {spread:.3e}")
+    log(f"phase 14a resumed ({RESUME_STEPS // 2} + {RESUME_STEPS // 2} steps) against uninterrupted ({RESUME_STEPS}): "
+        f"same step and epoch, the same LRs at each resumed step; largest parameter difference {resumed_diff:.3e} "
+        f"({'bitwise' if bitwise else 'not bitwise'}; two uninterrupted runs differ by {spread:.3e}, limit 2x that "
+        f"where the runs are not bitwise) {card}")
+
+    # -- the profiler: train() with training.profiler, a seed whose draws fire
+    # CLAHE in its one epoch, the backbone frozen (so its weights stay the file's)
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    seed = profiled_seed(engine, 4)
+    cfg = resume_config(data, names, files, 4, "profiled")
+    cfg.training.profiler = True
+    cfg.training.rng_seed_data_pt = seed
+    cfg.training.unfreezing_step = 100
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = []
+    warp_kernel.launches = clahe_kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(cfg, tmp / "profiled", skip_evaluation=True, device=DEVICE)
+    elapsed = time.perf_counter() - t0
+    trace = tmp / "profiled" / "tb_logs" / "profiled" / "version_0" / "profiler_trace.json"
+    check(trace.is_file(), f"no profiler trace at {trace}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernels if k in n) for k in ("warp_kernel", "clahe_blend_kernel")}
+    cats = sorted({str(e.get("cat")) for e in events})
+    check(all(named.values()), f"the trace names no warp or CLAHE kernel: {named}; {len(kernels)} kernel names, "
+          f"event categories {cats}")
+    best = ckpt_utils.load_checkpoint(str(next((tmp / "profiled").glob("tb_logs/profiled/version_0/checkpoints/*-best.ckpt"))))
+    conv = ckpt_utils.state_dict_from_flax(best["params"], best["batch_stats"])
+    frozen = [k for k, v in file_state.items() if v.ndim == 4]
+    check(all(torch.equal(conv[f"backbone.{k}"], file_state[k]) for k in frozen),
+          "train() did not start from the backbone file")
+    log(f"phase 14a train() with training.profiler (4 steps, data seed {seed}, backbone frozen): {elapsed:.1f} s; "
+        f"{trace.name} {trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} kernel names, among "
+        f"them {named}; launches warp {warp_kernel.launches}, CLAHE {clahe_kernel.launches}; the checkpoint's "
+        f"{len(frozen)} backbone conv kernels are the file's {card}")
+
+
+def sv_config(data: Path, names: list[str], name: str, model_type: str, backbone: str, steps: int):
+    """Phases 14b and 14c: ``model_type`` with ``backbone`` at full width
+    (256 px, 17 keypoints, batch 16, dlc), ``steps`` steps, milestones at
+    half and four fifths of them, the data seed of phase 8."""
+    cfg = train_config(data, names)
+    cfg.model.model_type = model_type
+    cfg.model.backbone = backbone
+    cfg.model.model_name = name
+    cfg.training.max_steps = cfg.training.min_steps = steps
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [steps // 2, steps * 4 // 5]
+    return cfg
+
+
+def video_runs(model_dir: Path, video: Path, runs: int) -> tuple[list[float], dict, object]:
+    """predict_on_video_file of ``video`` from ``model_dir`` (bf16, without
+    metrics) ``runs`` times, the model loaded before: frames/s of each run,
+    the first run's launches, the last result."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    model = Model.from_dir(model_dir, device=DEVICE)
+    model._load()
+    torch.cuda.synchronize()
+    rates = []
+    for run in range(runs):
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = model.predict_on_video_file(video, compute_metrics=False)
+        rates.append(SV_VIDEO_FRAMES / (time.perf_counter() - t0))
+        if run == 0:
+            launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    return rates, launches, result
+
+
+def card_vs_cpu_frames(model_dir: Path, rng) -> tuple[float, float]:
+    """predict_frame of 2 random 240x320 frames at fp32 (TF32 off) on the
+    card and on the CPU: the largest keypoint and confidence differences."""
+    from lightning_pose_tpu_torch.api.model import Model
+
+    frames = rng.integers(0, 256, (2, 240, 320, 3), dtype=np.uint8)
+    out = {d: [Model.from_dir(model_dir, precision="fp32", device=d).predict_frame(f, bbox=(10, 20, 280, 200))
+               for f in frames] for d in (DEVICE, "cpu")}
+    kp = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(out[DEVICE], out["cpu"]))
+    conf = max(float(np.abs(a["confidence"] - b["confidence"]).max()) for a, b in zip(out[DEVICE], out["cpu"]))
+    check(all(np.isfinite(o["keypoints"]).all() for o in out[DEVICE]), "predict_frame on the card: non-finite")
+    return kp, conf
+
+
+def sv_step_times(cfg, dm, model_type: str, backbone: str, rng, semi: bool = False) -> tuple[float, float, list, float]:
+    """``profiled_step`` of the train step of ``model_type``/``backbone`` at
+    batch 16 with dlc, the backbone unfrozen; with ``semi`` and a 32-frame
+    window."""
+    import torch
+
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    dev = torch.device(DEVICE)
+    spe = trainer.calculate_steps_per_epoch(dm)
+    torch.manual_seed(SEED)
+    model = build_model(model_type, backbone, KEYPOINTS, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    meta = {"model_type": model_type, "downsample_factor": DOWNSAMPLE}
+    step = trainer.make_step_fns(meta, get_loss_factories(cfg, dm), engine, cfg, head_sched, bb_sched, spe)[2]
+    cache = trainer._device_cache(dm.dataset, dev)
+    valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+    draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+    window = {
+        "frames": torch.from_numpy(rng.integers(0, 256, (WINDOW, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev),
+        "bbox": torch.tensor([[0.0, 0.0, 240.0, 320.0]] * WINDOW, device=dev),
+    }
+
+    def one_step():
+        idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+        draws = engine.sample(draw_gen, TRAIN_BATCH, field_gen)
+        if semi:
+            step(state, cache, idxs, valid, draws, window, sample_video_draws(draw_gen, WINDOW, IMAGE, IMAGE, field_gen))
+        else:
+            step(state, cache, idxs, valid, draws)
+
+    torch.cuda.reset_peak_memory_stats()
+    return profiled_step(one_step)
+
+
+def sv_kernel_checks(rng, engine, errors: dict) -> dict:
+    """Phase 3 at phase 14's shapes: CLAHE over the planes of the images
+    that phase 14b's draws fire it on (one input a fired step), and the
+    decode on the maps of a random-init EfficientNet-B0 heatmap model (its
+    head's deconv scaled by 300 so the maps are peaked) at a video batch's
+    (96, 17, 64, 64), against their plain versions. The normalize and the
+    warp see phase 3's product shapes there. Returns the inputs."""
+    import torch
+
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import decode_kernel
+    from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+
+    dev = torch.device(DEVICE)
+    clahe_inputs = []
+    for n_fired in clahe_fired_stacks(engine, SV_STEPS, TRAIN_SEED, TRAIN_BATCH):
+        planes = torch.from_numpy(rng.uniform(0, 255, (n_fired, 3, IMAGE, IMAGE)).astype(np.float32))
+        clip = torch.from_numpy(rng.uniform(1.0, 8.0, n_fired).astype(np.float32))
+        err, x_lut = check_clahe(planes.to(dev), clip.to(dev), 16)
+        errors["clahe"] = max(errors["clahe"], err)
+        clahe_inputs.append(x_lut)
+    torch.manual_seed(SEED)
+    model = build_model("heatmap", "efficientnet_b0", KEYPOINTS, DOWNSAMPLE)
+    with torch.no_grad():
+        model.head.deconv0.weight.mul_(300.0)
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    frames = torch.from_numpy(rng.integers(0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hm = model(normalize_images(frames).permute(0, 3, 1, 2)).float().contiguous()
+    kp, conf = decode_kernel.decode(hm, DOWNSAMPLE)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm, DOWNSAMPLE)
+    torch.cuda.synchronize()
+    kp_err, conf_err, flips = decode_errors(kp, conf, kp_ref, conf_ref, decode_kernel.GRID_OFFSETS[DOWNSAMPLE])
+    log(f"phase 3 decode EfficientNet-B0 maps {tuple(hm.shape)} (mean peak {float(hm.flatten(2).amax(-1).mean()):.3e}): "
+        f"keypoints max abs err {kp_err:.3e} px (limit {DECODE_KP_TOL_PX}), confidences {conf_err:.3e} (limit "
+        f"{DECODE_CONF_TOL}), windows differing {flips} (limit {DECODE_MAX_WINDOW_FLIPS})")
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), "decode of EfficientNet maps: non-finite")
+    check(kp_err <= DECODE_KP_TOL_PX and conf_err <= DECODE_CONF_TOL and flips <= DECODE_MAX_WINDOW_FLIPS,
+          "decode of EfficientNet maps disagrees with its plain version")
+    errors["decode"] = max(errors["decode"], kp_err)
+    images = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    draws = forced_draws(engine, TRAIN_BATCH, SEED + 30)
+    errors["warp"] = max(errors["warp"], check_warp(engine, images, draws, "phase 14 batch"))
+    _, coords, _, _ = engine.sampling_grid(draws, TRAIN_BATCH, dev)
+    return {"frames": frames, "images": images, "coords": coords.contiguous(), "clahe": clahe_inputs, "hm": hm}
+
+
+def sv_times(inputs: dict, card: str) -> dict[str, tuple]:
+    """Phase 14e: the normalize on a video batch (14b, 14c), the warp over a
+    step's 16 images (with F.grid_sample) and CLAHE at each of 14b's fired
+    steps (the mean a launch), the L2 flushed before each launch; the
+    decode on 14b's video batch of EfficientNet maps, back to back. Returns
+    name -> (ms, plain_ms, library_ms, (bound_ms, bound_by), shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+
+    frames, images, coords, hm = inputs["frames"], inputs["images"], inputs["coords"], inputs["hm"]
+    norm_ms = flushed_ms(lambda: normalize_kernel.normalize(frames, torch.bfloat16))
+    norm_plain_ms = flushed_ms(lambda: normalize_kernel.normalize_plain(frames, torch.bfloat16), iters=10)
+    nchw = images.permute(0, 3, 1, 2)
+    grid = torch.stack([2 * coords[..., 0] / (IMAGE - 1) - 1, 2 * coords[..., 1] / (IMAGE - 1) - 1], dim=-1)
+    warp_rounds = flushed_rounds({
+        "kernel": lambda: warp_kernel.warp(images, coords),
+        "grid_sample": lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+    })
+    warp_plain_ms = flushed_ms(lambda: warp_kernel.warp_plain(images, coords), iters=10)
+    clahe = [(flushed_ms(lambda: clahe_kernel.clahe_apply(x, lut, 16)),
+              flushed_ms(lambda: clahe_kernel.clahe_apply_plain(x, lut, 16), iters=10),
+              bound_of((x.numel() * 2 + lut.numel()) * 4, 0)[0]) for x, lut in inputs["clahe"]]
+    planes = [x.shape[0] for x, _ in inputs["clahe"]]
+    n_maps, hm_h, hm_w = hm.shape[0] * hm.shape[1], hm.shape[2], hm.shape[3]
+    dec_ms = cuda_ms(lambda: decode_kernel.decode(hm, DOWNSAMPLE), iters=50)
+    dec_plain_ms = cuda_ms(lambda: decode_kernel.decode_plain(hm, DOWNSAMPLE))
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    times = {
+        "normalize": (norm_ms, norm_plain_ms, None, bound_of(frames.numel() * (1 + 2), 0),
+                      f"{tuple(frames.shape)} uint8 -> bf16, a video batch"),
+        "warp": (float(np.median(warp_rounds["kernel"])), warp_plain_ms, float(np.median(warp_rounds["grid_sample"])),
+                 bound_of((images.numel() * 2 + coords.numel()) * 4, 0), f"{tuple(images.shape)} fp32, one field an image"),
+        "clahe": (mean([c[0] for c in clahe]), mean([c[1] for c in clahe]), None, (mean([c[2] for c in clahe]), "bytes"),
+                  f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {planes} in phase 14b's fired steps; the mean a launch"),
+        "decode": (dec_ms, dec_plain_ms, None,
+                   bound_of((hm.numel() + n_maps * 3) * 4, decode_flops(n_maps, hm_h, hm_w, DOWNSAMPLE)),
+                   f"{tuple(hm.shape)} fp32 EfficientNet-B0 maps, df {DOWNSAMPLE}"),
+    }
+    for name, (ms, plain_ms, library_ms, (bound, bound_by), shape) in times.items():
+        lib_text = f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""
+        log(f"phase 14e {name} at {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib_text}; bound {bound:.5f} "
+            f"ms ({bound_by}), {bound / ms:.1%} of it reached {card}")
+    return times
+
+
+def single_view_phase(rng, card: str) -> dict[str, int]:
+    """Phases 14a-14d. Returns the launches of the kernels on phase 14b's
+    paths: the warp and CLAHE in its train(), normalize and the decode in
+    its first video run."""
+    import math
+
+    import pandas as pd
+    import torch
+
+    from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import (
+        write_labeled_dataset,
+        write_multiview_dataset,
+        write_unlabeled_video,
+    )
+
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        files = write_pretrained_files(tmp)
+        data = write_labeled_dataset(tmp / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        video = write_video(tmp / "long.mp4", rng, SV_VIDEO_FRAMES, 240, 320)
+        resume_phase(data, names, files, tmp, card)
+
+        # -- 14b. EfficientNet-B0 heatmap from the torchvision file ---------------
+        cfg = sv_config(data, names, "smokeeff", "heatmap", "efficientnet_b0", SV_STEPS)
+        cfg.model.backbone_checkpoint = str(files["torchvision_efficientnet_b0"])
+        model_dir = tmp / "eff"
+        implied_clahe = len(clahe_fired_stacks(engine, SV_STEPS, TRAIN_SEED, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches}
+        eval_normalizes = normalize_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        implied = {"warp": SV_STEPS, "clahe": implied_clahe, "decode": SV_STEPS + val_batches + eval_batches}
+        log(f"phase 14b EfficientNet-B0 train() from the torchvision file: {SV_STEPS} steps of {TRAIN_BATCH} ({IMAGE} "
+            f"px, {KEYPOINTS} keypoints, dlc, bf16) in {elapsed:.1f} s with set-up and evaluation; launches {launches}, "
+            f"implied {implied}, normalize {eval_normalizes} for {eval_batches} evaluation batches; train loss "
+            f"{train_logs[0]['train_heatmap_mse_loss']:.4f} -> {train_logs[-1]['train_heatmap_mse_loss']:.4f}; peak "
+            f"device memory {peak:.2f} GiB {card}")
+        check(launches == implied and implied_clahe >= 1, f"EfficientNet train() launches {launches}, implied {implied}")
+        check(eval_normalizes == eval_batches, f"normalize launched {eval_normalizes} times")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k), "a loss is not finite")
+        files_written = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error"])
+        slice_launches = {"warp": launches["warp"], "clahe": launches["clahe"]}
+        step_ms, device_ms, kernels, busy = sv_step_times(cfg, dm, "heatmap", "efficientnet_b0", rng)
+        log(f"phase 14b EfficientNet-B0 train step ({IMAGE} px, bf16, batch {TRAIN_BATCH}, dlc, backbone unfrozen): "
+            f"{step_ms:.3f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} frames/s, mean of 10 steps by the host clock; "
+            f"torch.profiler over 5 steps: {device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; evaluation wrote {files_written} {card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log("phase 14b largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+        rates, video_launches, vres = video_runs(model_dir, video, SV_VIDEO_RUNS)
+        batches = math.ceil(SV_VIDEO_FRAMES / BATCH)
+        df = vres.predictions
+        check(df.shape == (SV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"EfficientNet video CSV: shape {df.shape} or non-finite values")
+        check(video_launches == {"normalize": batches, "decode": batches}, f"EfficientNet video launches {video_launches}")
+        slice_launches.update(video_launches)
+        kp_diff, conf_diff = card_vs_cpu_frames(model_dir, rng)
+        check(kp_diff <= SV_TOL_PX, f"EfficientNet predict_frame card vs CPU: {kp_diff} px")
+        log(f"phase 14b predict_on_video_file of the EfficientNet dir (bf16, without metrics): {SV_VIDEO_FRAMES} "
+            f"frames of a 320x240 mp4 in {batches} batches of {BATCH}, launches {video_launches} in the first run; "
+            f"frames/s with the mp4's decode, the model loaded before: {rates[0]:.1f} in the first run, "
+            f"{', '.join(f'{r:.1f}' for r in rates[1:])} after it; predict_frame fp32 card (TF32 off) vs CPU on 2 "
+            f"frames with a bbox: keypoints max abs diff {kp_diff:.3e} px (limit {SV_TOL_PX}), confidences "
+            f"{conf_diff:.3e} {card}")
+
+        # -- 14c. the regression model (ResNet-50) ----------------------------------
+        for i in range(2):
+            write_unlabeled_video(data, f"session{i}", 120, 240, 320, n_blobs=KEYPOINTS, seed=SEED + i)
+        cfg = sv_config(data, names, "smokereg", "regression", "resnet50", SV_STEPS)
+        reg_dir = tmp / "reg"
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, reg_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        reg_launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches,
+                        "normalize": normalize_kernel.launches}
+        dm = result.data_module
+        train_logs = [h for h in result.history if "train_regression_loss" in h]
+        implied = {"warp": SV_STEPS, "clahe": implied_clahe, "decode": 0, "normalize": eval_batches}
+        check(reg_launches == implied, f"regression train() launches {reg_launches}, implied {implied}")
+        preds = pd.read_csv(reg_dir / "image_preds" / "CollectedData.csv" / "predictions.csv", header=[0, 1, 2],
+                            index_col=0)
+        likelihood = preds.loc[:, preds.columns.get_level_values(2) == "likelihood"].to_numpy(float)
+        check(likelihood.size and (likelihood == 1.0).all(), "regression evaluation: a likelihood is not 1.0")
+        log(f"phase 14c regression ResNet-50 train(): {SV_STEPS} steps of {TRAIN_BATCH} ({IMAGE} px, dlc, bf16) in "
+            f"{elapsed:.1f} s with set-up and evaluation; launches {reg_launches}, implied {implied} (no decode); "
+            f"train loss {train_logs[0]['train_regression_loss']:.1f} -> {train_logs[-1]['train_regression_loss']:.1f}; "
+            f"the evaluation's {likelihood.size} likelihoods all 1.0 {card}")
+        step_ms, device_ms, kernels, busy = sv_step_times(cfg, dm, "regression", "resnet50", rng)
+        log(f"phase 14c regression train step (ResNet-50, {IMAGE} px, bf16, batch {TRAIN_BATCH}, dlc): {step_ms:.3f} "
+            f"ms, {TRAIN_BATCH / step_ms * 1e3:.1f} frames/s; torch.profiler over 5 steps: {device_ms:.3f} ms of device "
+            f"time a step, the device busy {busy:.1%}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+
+        semi = sv_config(data, names, "smokeregsemi", "regression", "resnet50", SV_STEPS)
+        semi.model.losses_to_use = ["temporal"]
+        semi.losses.temporal.epsilon = 0.0
+        semi.callbacks.anneal_weight.init_val = 1.0
+        semi.callbacks.anneal_weight.freeze_until_epoch = 0
+        warp_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(semi, tmp / "regsemi", skip_evaluation=True, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        semi_launches = {"warp": warp_kernel.launches, "decode": decode_kernel.launches,
+                         "decode_grad": decode_kernel.grad_launches}
+        temporal = [h["train_temporal_loss"] for h in result.history if "train_temporal_loss" in h]
+        check(semi_launches == {"warp": 2 * SV_STEPS, "decode": 0, "decode_grad": 0},
+              f"semi-supervised regression launches {semi_launches}")
+        check(len(temporal) == SV_STEPS and all(np.isfinite(temporal)) and max(temporal) > 0,
+              "semi-supervised regression logged no temporal loss")
+        semi_ms, semi_device_ms, _, semi_busy = sv_step_times(semi, result.data_module, "regression", "resnet50", rng,
+                                                              semi=True)
+        log(f"phase 14c semi-supervised regression train() (temporal on the outputs, a {WINDOW}-frame window a step): "
+            f"{SV_STEPS} steps in {elapsed:.1f} s; launches {semi_launches} (the warp on the labeled batch and the "
+            f"window); temporal loss max {max(temporal):.3f}; the step {semi_ms:.3f} ms, {semi_device_ms:.3f} ms of "
+            f"device time, busy {semi_busy:.1%} {card}")
+        rates, reg_video_launches, vres = video_runs(reg_dir, video, SV_VIDEO_RUNS)
+        values = vres.predictions.to_numpy()
+        check(values.shape == (SV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(values).all()
+              and (values[:, 2::3] == 1.0).all(), "the regression video CSV: shape, values or likelihoods")
+        check(reg_video_launches == {"normalize": batches, "decode": 0}, f"regression video launches {reg_video_launches}")
+        kp_diff, conf_diff = card_vs_cpu_frames(reg_dir, rng)
+        check(kp_diff <= SV_TOL_PX and conf_diff == 0.0, f"regression predict_frame card vs CPU: {kp_diff} px")
+        log(f"phase 14c predict_on_video_file of the regression dir: {SV_VIDEO_FRAMES} frames, every likelihood 1.0, "
+            f"launches {reg_video_launches}; frames/s {rates[0]:.1f} in the first run, "
+            f"{', '.join(f'{r:.1f}' for r in rates[1:])} after it; predict_frame fp32 card vs CPU: keypoints max abs "
+            f"diff {kp_diff:.3e} px (limit {SV_TOL_PX}), confidences {conf_diff:.1e} {card}")
+
+        # -- 14d. the multiview transformer from the HF file ---------------------
+        dev = torch.device(DEVICE)
+        model = build_model("heatmap_multiview", MV_BACKBONE, KEYPOINTS, DOWNSAMPLE, num_views=len(MV_VIEWS),
+                            image_size=IMAGE).to(dev)
+        skipped = load_backbone_checkpoint(model.backbone, MV_BACKBONE, str(files["hf_vits16"]), IMAGE)
+        grid = tuple(model.backbone.pos_embed.shape)
+        check(grid == (1, 16 * 16 + 1, 384), f"position grid {grid}")
+        del model
+        mv_data = write_multiview_dataset(tmp / "mvdata", TRAIN_FRAMES, IMAGE, IMAGE, names, MV_VIEWS, seed=SEED)
+        cfg = multiview_config(mv_data, names, "smokemvpre", semi=False)
+        cfg.model.backbone_checkpoint = str(files["hf_vits16"])
+        cfg.training.max_steps = cfg.training.min_steps = 4
+        cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [2]
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, tmp / "mv", skip_evaluation=True, device=DEVICE)
+        elapsed = time.perf_counter() - t0
+        losses = [h["train_heatmap_mse_loss"] for h in result.history if "train_heatmap_mse_loss" in h]
+        check(len(losses) == 4 and all(np.isfinite(losses)), f"multiview train() from the HF file: losses {losses}")
+        log(f"phase 14d {MV_BACKBONE} (2 views) from the HF ViTModel file: position grid 14 x 14 -> {grid[1] - 1} "
+            f"tokens (16 x 16) + CLS, skipped {skipped}; train() of 4 steps in {elapsed:.1f} s, losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)} {card}")
+    return slice_launches
+
+
 def main() -> int:
     import torch
 
@@ -2034,6 +2623,7 @@ def main() -> int:
     errors["clahe"] = max(errors["clahe"], clahe_err6, check_clahe(clahe_images[:2], clip[:2], 8)[0])
     context_inputs = context_kernel_checks(rng, engine, errors)
     multiview_inputs = multiview_kernel_checks(rng, engine, errors)
+    single_view_inputs = sv_kernel_checks(rng, engine, errors)
 
     # the engine on the card vs the same call on the CPU, same draws
     frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
@@ -2272,18 +2862,23 @@ def main() -> int:
     context_phase(rng, card)
     context_times(context_inputs, card)
     # the kernels line holds each kernel's launches on one of this slice's
-    # paths, the multiview transformer's (each earlier path checked its own
-    # above), beside its times at the shapes that path gives it
-    launches = multiview_phase(rng, card)
-    times = multiview_times(multiview_inputs, card)
+    # paths, EfficientNet-B0's (each earlier path checked its own above),
+    # beside its times at the shapes that path gives it; the decode's
+    # backward runs on no path of this slice and keeps the multiview
+    # transformer's (phase 13b)
+    mv_launches = multiview_phase(rng, card)
+    mv_times = multiview_times(multiview_inputs, card)
+    launches = {**single_view_phase(rng, card), "decode_grad": mv_launches["decode_grad"]}
+    times = {**sv_times(single_view_inputs, card), "decode_grad": mv_times["decode_grad"]}
     paths = {
-        "normalize": "13c the multiview model's predict_on_video_file_multiview, first run: 1 a batch of 2 views",
-        "decode": "13c the multiview model's predict_on_video_file_multiview, first run: 1 a batch over 34 maps a frame",
-        "warp": "13a the multiview model's supervised train(): 1 a step over 32 view images",
-        "clahe": "13a the multiview model's supervised train(): 1 a step whose draws fire it",
+        "normalize": "14b the EfficientNet-B0 model's predict_on_video_file, first run: 1 a batch",
+        "decode": "14b the EfficientNet-B0 model's predict_on_video_file, first run: 1 a batch",
+        "warp": "14b the EfficientNet-B0 model's train(): 1 a step over 16 images",
+        "clahe": "14b the EfficientNet-B0 model's train(): 1 a step whose draws fire it",
         "decode_grad": "13b the multiview model's semi-supervised train(): 1 a step",
     }
-    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "lightning_pose_tpu"))
+    blocked = ("jax", "jaxlib", "flax", "optax", "lightning_pose_tpu")
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
     check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")
 
     summary = [

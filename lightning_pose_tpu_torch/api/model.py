@@ -14,10 +14,10 @@ checkpoint through the parameter bridge, and serves predictions:
 - ``predict_on_label_csv_multiview`` and ``predict_on_video_file_multiview``
   -> the same files, one a view, for the multiview transformer
 
-Ported so far: the single-view ``heatmap`` model, the temporal-context
-``heatmap_mhcrnn`` model and the multiview transformer
-(``heatmap_multiview``, uncalibrated), with soft-argmax decode and RGB
-transfer. The other options raise ``NotImplementedError`` naming the ROADMAP
+Ported so far: the single-view ``heatmap`` and ``regression`` models, the
+temporal-context ``heatmap_mhcrnn`` model and the multiview transformer
+(``heatmap_multiview``, uncalibrated), with soft-argmax decode (none for
+regression, whose confidences are 1.0) and RGB transfer. The other options raise ``NotImplementedError`` naming the ROADMAP
 item that ports them.
 """
 
@@ -37,6 +37,7 @@ from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import (
     repeat_center_stack,
 )
 from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
+from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images_fused
 
 logger = logging.getLogger(__name__)
@@ -79,7 +80,9 @@ class PredictStep:
     The multiview transformer takes ``(B, V, h, w, 3)`` views, one
     normalize launch over all of them, and decodes its ``V*K`` maps in one
     launch; keypoints map to each view's frame through that view's bbox.
-    ``model`` must be in eval mode on the device the inputs come on.
+    The regression model's outputs are the keypoints: no decode, and
+    confidences of 1.0. ``model`` must be in eval mode on the device the
+    inputs come on.
     """
 
     def __init__(self, model: nn.Module, height: int, width: int, compute_dtype: torch.dtype):
@@ -88,6 +91,7 @@ class PredictStep:
         self.width = width
         self.compute_dtype = compute_dtype
         self.is_context = isinstance(model, HeatmapTrackerMHCRNN)
+        self.is_regression = isinstance(model, RegressionTracker)
         self.num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
 
     @torch.inference_mode()
@@ -112,6 +116,8 @@ class PredictStep:
             heatmaps = self.model(images)
         if self.is_context:
             keypoints, confidences = self.model.decode_heads(heatmaps)
+        elif self.is_regression:
+            keypoints, confidences = heatmaps, RegressionTracker.confidences(heatmaps)
         else:
             keypoints, confidences = self.model.decode(heatmaps)
         keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height, num_views=self.num_views)
@@ -486,7 +492,7 @@ class Model:
                 )
         elif frame_rgb.ndim != 3 or frame_rgb.shape[-1] != 3:
             raise ValueError(
-                f"frame_rgb must be (H, W, 3) for a single-view heatmap model, "
+                f"frame_rgb must be (H, W, 3) for a single-view model, "
                 f"got shape {frame_rgb.shape}"
             )
         if frame_rgb.size == 0:

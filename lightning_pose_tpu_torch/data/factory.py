@@ -1,20 +1,20 @@
 """Dataset and data-module factories (counterpart of
 ``lightning_pose_tpu/data/factory.py``).
 
-The dispatch on the config for the ported models, the single-view
-``heatmap``, the context model ``heatmap_mhcrnn`` (5-frame stacks) and the
-multiview transformer ``heatmap_multiview`` (one label CSV a view), over the
-port's copies of the datasets and the data module.
-Model types and data layouts not ported yet raise ``NotImplementedError``.
+The dispatch on the config: the single-view ``heatmap`` model, the
+``regression`` model (the base dataset, no heatmap geometry), the context
+model ``heatmap_mhcrnn`` (5-frame stacks) and the multiview transformer
+``heatmap_multiview`` (one label CSV a view), over the port's copies of the
+datasets and the data module. Heatmap models on multiview data raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
-from lightning_pose_tpu_torch.data.datasets import HeatmapDataset
+from lightning_pose_tpu_torch.data.datasets import BaseTrackingDataset, HeatmapDataset
 from lightning_pose_tpu_torch.data.datasets_multiview import MultiviewHeatmapDataset
 from lightning_pose_tpu_torch.models.factory import (
-    _NOT_PORTED,
     MULTIVIEW_HEATMAP_ITEM,
     check_if_semi_supervised,
     normalize_model_type,
@@ -37,21 +37,16 @@ def get_imgaug_pipeline(cfg) -> str | dict:
     return aug.to_dict(resolve=True) if hasattr(aug, "to_dict") else dict(aug)
 
 
-def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset | MultiviewHeatmapDataset:
-    """The labeled dataset of a single-view ``heatmap`` or ``heatmap_mhcrnn``
-    config (the latter's samples are context stacks in the configured
-    ``model.mhcrnn_context_mode``), or of a multiview transformer config."""
+def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> BaseTrackingDataset | MultiviewHeatmapDataset:
+    """The labeled dataset of a single-view ``heatmap``, ``regression`` or
+    ``heatmap_mhcrnn`` config (the latter's samples are context stacks in
+    the configured ``model.mhcrnn_context_mode``), or of a multiview
+    transformer config."""
     model_type = normalize_model_type(cfg.model.model_type)
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"datasets of model_type {model_type} are not ported yet ({_NOT_PORTED[model_type]})"
-        )
     view_names = cfg.data.get("view_names") or []
     if model_type == "heatmap_multiview":
         return MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline=imgaug_pipeline or get_imgaug_pipeline(cfg))
-    if len(view_names) > 1:
-        raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
-    return HeatmapDataset(
+    common = dict(
         root_directory=data_dir,
         csv_path=cfg.data.csv_file,
         image_resize_height=cfg.data.image_resize_dims.height,
@@ -62,6 +57,16 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> HeatmapDataset | Mu
         uniform_heatmaps_for_nan_keypoints=bool(
             cfg.training.get("uniform_heatmaps_for_nan_keypoints", False)
         ),
+    )
+    if model_type == "regression":
+        if len(view_names) > 1:
+            # a limit of the JAX package too (its data/factory.py)
+            raise NotImplementedError("Multi-view support only available for heatmap-based models")
+        return BaseTrackingDataset(do_context=False, **common)
+    if len(view_names) > 1:
+        raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
+    return HeatmapDataset(
+        **common,
         downsample_factor=int(cfg.data.get("downsample_factor", 2)),
         do_context=model_type == "heatmap_mhcrnn",
         context_mode=cfg.model.get("mhcrnn_context_mode", "adjacent"),

@@ -1,15 +1,16 @@
 """Loss factory (counterpart of ``lightning_pose_tpu/losses/factory.py``).
 
 ``get_loss_factories(cfg, data_module)`` builds the ``supervised`` and
-``unsupervised`` :class:`LossFactory` of a heatmap config; a factory call
+``unsupervised`` :class:`LossFactory` of a config (the heatmap loss, or the
+coordinate MSE of a regression model, at log weight 0); a factory call
 sums ``anneal_weight * weight * loss`` over its losses, the heatmap losses
 exempt from the anneal weight (reference factory.py:272-279). The PCA
 losses are fitted on the data module's train split when the factory is
 built. ``pca_multiview`` is ported for the multiview transformer: flat
 per-view keypoint indices in ``data.mirrored_column_matches`` expand to one
-list a view, ``data.num_keypoints`` apart. The supervised 3D losses, the
-mirrored ``pca_multiview`` of a single-view model and other model types
-raise ``NotImplementedError``.
+list a view, ``data.num_keypoints`` apart. The supervised 3D losses and the
+mirrored ``pca_multiview`` of a single-view model raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from lightning_pose_tpu_torch.losses.losses import (
     HeatmapKLLoss,
     HeatmapMSELoss,
     PCALoss,
+    RegressionMSELoss,
     TemporalHeatmapLoss,
     TemporalLoss,
     UnimodalLoss,
@@ -39,6 +41,7 @@ _ANNEAL_EXEMPT = ["heatmap_mse", "heatmap_kl", "heatmap_js"]
 def get_loss_classes() -> dict[str, type]:
     """Name -> class of the ported losses."""
     return {
+        "regression": RegressionMSELoss,
         "heatmap_mse": HeatmapMSELoss,
         "heatmap_kl": HeatmapKLLoss,
         "heatmap_js": HeatmapJSLoss,
@@ -54,14 +57,13 @@ def get_loss_classes() -> dict[str, type]:
 
 
 def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
-    """Supervised and unsupervised loss factories of a heatmap config
-    (reference factory.py:79-200)."""
-    if "heatmap" not in cfg.model.model_type:
-        raise NotImplementedError(
-            f"losses of model_type {cfg.model.model_type} are not ported yet "
-            "(ROADMAP queue 1, item 7: remaining model families)"
-        )
-    supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
+    """Supervised and unsupervised loss factories of a config (reference
+    factory.py:79-200)."""
+    regression = cfg.model.model_type == "regression"
+    if "heatmap" in cfg.model.model_type:
+        supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
+    else:
+        supervised = {cfg.model.model_type: {"log_weight": 0.0}}
     unsupervised: dict[str, dict] = {}
     for loss_name in [name for name in (cfg.model.get("losses_to_use") or []) if name]:
         if loss_name == "pca_multiview" and normalize_model_type(cfg.model.model_type) != "heatmap_multiview":
@@ -71,6 +73,8 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
         params = dict(cfg.losses[loss_name].to_dict(resolve=True))
         params["loss_name"] = loss_name
         if loss_name.startswith("unimodal") or loss_name.startswith("temporal_heatmap"):
+            if regression:
+                raise NotImplementedError("unimodal loss can only be used with heatmap models")
             height = int(cfg.data.image_resize_dims.height)
             width = int(cfg.data.image_resize_dims.width)
             df = int(cfg.data.get("downsample_factor", 2))

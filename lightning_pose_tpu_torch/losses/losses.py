@@ -302,6 +302,24 @@ class UnimodalLoss(Loss):
         return scalar, self.log_loss(scalar, stage)
 
 
+class RegressionMSELoss(Loss):
+    """Mean squared error of the coordinates whose target is not NaN."""
+
+    loss_name = "regression"
+
+    def __call__(
+        self,
+        keypoints_targ: torch.Tensor,
+        keypoints_pred: torch.Tensor,
+        stage: str | None = None,
+        **kwargs: Any,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        mask = ~torch.isnan(keypoints_targ)
+        sq = (torch.nan_to_num(keypoints_targ, nan=0.0) - keypoints_pred) ** 2
+        scalar = masked_mean(sq, mask)
+        return scalar, self.log_loss(scalar, stage)
+
+
 class RegressionRMSELoss(Loss):
     """Per-keypoint Euclidean pixel error over the keypoints whose target is
     not NaN."""

@@ -1,15 +1,17 @@
 """Backbone registry and constructor (counterpart of
 ``lightning_pose_tpu/models/backbones/factory.py``).
 
-The names and strides are the reference's. Ported: the ResNet family and
-the plain ViTs (``vits_dino``, ``vitb_dino``, ``vitb_imagenet``); the other
-names are recognised and raise ``NotImplementedError``.
+The names and strides are the reference's. Ported: the ResNet family,
+EfficientNet b0-b2 and the plain ViTs (``vits_dino``, ``vitb_dino``,
+``vitb_imagenet``); the other names are recognised and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
+from lightning_pose_tpu_torch.models.backbones.efficientnet import EFFICIENTNET_CONFIGS, EfficientNet
 from lightning_pose_tpu_torch.models.backbones.resnet import RESNET_CONFIGS, ResNet
 from lightning_pose_tpu_torch.models.backbones.vit import VIT_CONFIGS, ViT
 
@@ -99,7 +101,9 @@ def make_transformer_module(backbone_arch: str, image_size: int = 256) -> tuple[
 def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.Module, int]:
     """Build a backbone by name; returns ``(module, num output features)``.
 
-    Weights are random until a checkpoint is loaded into the whole model.
+    Weights are random until a checkpoint is loaded (into the whole model,
+    or a local torch file into the backbone: ``models/backbones/pretrained``).
+    A regression model's backbone is globally pooled.
     """
     if backbone_arch not in ALLOWED_BACKBONES:
         raise ValueError(
@@ -107,9 +111,9 @@ def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.
             f"allowed backbones: {sorted(ALLOWED_BACKBONES)}"
         )
     if backbone_arch.startswith("efficientnet"):
-        raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
-        )
+        variant = backbone_arch.split("_")[-1]
+        module = EfficientNet(variant=variant, global_pool=(model_type == "regression"))
+        return module, EFFICIENTNET_CONFIGS[variant][-1]
     if backbone_arch.startswith("vit"):
         # the multiview transformer builds its ViT through
         # make_transformer_module; single-view trackers take convnets only

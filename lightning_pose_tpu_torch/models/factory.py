@@ -1,10 +1,9 @@
 """Model factory (counterpart of ``lightning_pose_tpu/models/factory.py``).
 
-The single-view ``heatmap`` model, the temporal-context ``heatmap_mhcrnn``
-model and the multiview transformer (``heatmap_multiview``, alias
-``heatmap_multiview_transformer``) are ported; the other model types, and
-the heatmap models on multiview data, are recognised and raise
-``NotImplementedError``. Weights are initialised as the JAX package's flax
+Every model type is ported: the single-view ``heatmap`` and ``regression``
+models, the temporal-context ``heatmap_mhcrnn`` model and the multiview
+transformer (``heatmap_multiview``, alias ``heatmap_multiview_transformer``).
+The heatmap models on multiview data raise ``NotImplementedError``. Weights are initialised as the JAX package's flax
 modules initialise theirs (:func:`init_like_flax`).
 """
 
@@ -19,6 +18,7 @@ from lightning_pose_tpu_torch.models.heatmap_tracker import HeatmapTracker
 from lightning_pose_tpu_torch.models.backbones.vit import vit_fan_in
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN
 from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
+from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
 
 __all__ = [
     "ALLOWED_MODEL_TYPES",
@@ -38,10 +38,6 @@ ALLOWED_MODEL_TYPES = [
 ]
 
 _MODEL_TYPE_ALIASES = {"heatmap_multiview_transformer": "heatmap_multiview"}
-
-_NOT_PORTED = {
-    "regression": "ROADMAP queue 1, item 7: remaining model families",
-}
 
 MULTIVIEW_HEATMAP_ITEM = "ROADMAP queue 1, item 6b: calibration, 3D and heatmap models on multiview data"
 
@@ -117,10 +113,8 @@ def build_model(
         raise ValueError(
             f"{model_type} is an invalid model_type; choose from {ALLOWED_MODEL_TYPES}"
         )
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type} is not ported yet ({_NOT_PORTED[model_type]})"
-        )
+    if model_type == "regression":
+        return init_like_flax(RegressionTracker(backbone_arch=backbone, num_keypoints=num_keypoints))
     if model_type == "heatmap_multiview":
         return init_like_flax(
             HeatmapTrackerMultiviewTransformer(
@@ -156,7 +150,7 @@ def get_model(cfg, num_keypoints: int | None = None) -> nn.Module:
     num_keypoints = num_keypoints or cfg.data.num_keypoints
     downsample_factor = int(cfg.data.get("downsample_factor", 2))
     view_names = cfg.data.get("view_names") or []
-    if len(view_names) > 1 and model_type != "heatmap_multiview":
+    if len(view_names) > 1 and model_type not in ("heatmap_multiview", "regression"):
         raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
     context_repeat = cfg.model.get("mhcrnn_context_mode", "adjacent") == "repeat_center"
     return build_model(

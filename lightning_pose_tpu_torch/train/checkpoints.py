@@ -4,7 +4,8 @@
 Checkpoints keep the JAX package's naming contract:
 ``<model_dir>/tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
 (and ``-last.ckpt``, and ``epoch=E-step=S.ckpt`` every n epochs), found by
-``utils/io.ckpt_path_from_base_path``.
+``utils/io.ckpt_path_from_base_path``. A ``-last.ckpt`` also holds the
+optimizer state (``opt_state``), which ``training.resume`` continues from.
 
 The reference writes checkpoints as flax-msgpack files
 (``flax.serialization.msgpack_serialize`` of ``{"params", "batch_stats",
@@ -30,6 +31,25 @@ the multiview model's ``view_embeddings``): a ``Dense`` kernel ``(in, out)``
 is a ``Linear`` weight ``(out, in)``, the attention's ``DenseGeneral``
 kernels keep their 3-d flax shapes, and a LayerNorm's ``scale`` is its
 ``weight``. A BatchNorm is a module with batch statistics.
+
+The optimizer state is carried across both ways as well
+(:func:`optimizer_state_to_flax`, :func:`load_optimizer_state_from_flax`).
+The JAX package's optimizer is ``optax.multi_transform`` over the
+``backbone`` and ``head`` groups, each ``optax.adam`` (a chain of
+``scale_by_adam`` and the schedule) or ``optax.adamw`` (with the weight
+decay between them), and ``flax.serialization.to_state_dict`` writes it as::
+
+    {"inner_states": {group: {"inner_state": {
+        "0": {"count": c, "mu": tree, "nu": tree},  # scale_by_adam
+        "1": {"count": c},                          # the schedule (adam)
+        # adamw: "1": {} (the weight decay), "2": {"count": c}
+    }}}}
+
+where ``tree`` is the whole parameter tree with the other group's leaves
+written as ``{}`` (optax's ``MaskedNode``) and ``c`` an int32 count of
+updates. ``torch.optim.Adam``/``AdamW`` keep ``exp_avg`` (mu),
+``exp_avg_sq`` (nu) and ``step`` (the count) per parameter; a moment takes
+exactly its parameter's layout transform of the bridge.
 """
 
 from __future__ import annotations
@@ -46,9 +66,13 @@ from torch import nn
 
 __all__ = [
     "checkpoint_dir",
+    "find_resume_checkpoint",
+    "latest_version_dir",
     "load_checkpoint",
     "load_flax_variables",
+    "load_optimizer_state_from_flax",
     "next_version_dir",
+    "optimizer_state_to_flax",
     "remove_checkpoint",
     "resolve_checkpoint_path",
     "save_checkpoint",
@@ -131,19 +155,17 @@ def save_checkpoint(
     opt_state: Any = None,
 ) -> None:
     """Atomically write numpy trees as a flax-msgpack checkpoint file that
-    the reference's ``load_checkpoint`` reads."""
+    the reference's ``load_checkpoint`` reads. ``opt_state``: the optimizer
+    state in the JAX package's layout (:func:`optimizer_state_to_flax`), for
+    resume checkpoints only."""
     import msgpack
 
     if backend == "orbax":
         raise NotImplementedError(
-            "Orbax checkpoints are not ported yet (ROADMAP queue 1, item 4: the rest of training)"
+            "Orbax checkpoints are not ported (ROADMAP queue 1, item 4: the port writes and reads msgpack only)"
         )
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
-    if opt_state is not None:
-        raise NotImplementedError(
-            "optimizer state in checkpoints is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
-        )
     payload = {
         "params": params,
         "batch_stats": batch_stats,
@@ -151,6 +173,8 @@ def save_checkpoint(
         "epoch": int(epoch),
         "extra": extra or {},
     }
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
     data = msgpack.packb(payload, default=_ext_default, strict_types=True)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
@@ -167,6 +191,34 @@ def next_version_dir(model_dir: str, model_name: str) -> str:
         if (m := re.search(r"version_(\d+)$", p))
     ]
     return os.path.join(base, f"version_{max(versions) + 1 if versions else 0}")
+
+
+def latest_version_dir(model_dir: str, model_name: str) -> str | None:
+    """The highest existing ``version_N`` directory of a model, or None."""
+    pattern = os.path.join(glob.escape(model_dir), "tb_logs", glob.escape(model_name), "version_*")
+    versions = [
+        (int(m.group(1)), d)
+        for d in glob.glob(pattern)
+        if (m := re.search(r"version_(\d+)$", d)) and os.path.isdir(d)
+    ]
+    return max(versions)[1] if versions else None
+
+
+def find_resume_checkpoint(model_dir: str, model_name: str) -> str | None:
+    """The ``*-last.ckpt`` of the highest step in the highest version
+    directory (the full training state, the optimizer's included), or None."""
+    vdir = latest_version_dir(model_dir, model_name)
+    if vdir is None:
+        return None
+    matches = glob.glob(os.path.join(glob.escape(vdir), "checkpoints", "*-last.ckpt"))
+    if not matches:
+        return None
+
+    def step(f: str) -> int:
+        m = re.search(r"step=(\d+)", f)
+        return int(m.group(1)) if m else -1
+
+    return max(matches, key=step)
 
 
 def checkpoint_dir(version_dir: str) -> str:
@@ -195,10 +247,19 @@ def resolve_checkpoint_path(path: str) -> str:
     return matches[0]
 
 
-def save_module(path: str, module: nn.Module, step: int, epoch: int, extra: dict | None = None) -> None:
-    """Write ``module``'s weights and BatchNorm statistics as a checkpoint."""
+def save_module(
+    path: str,
+    module: nn.Module,
+    step: int,
+    epoch: int,
+    extra: dict | None = None,
+    optimizer: torch.optim.Optimizer | None = None,
+) -> None:
+    """Write ``module``'s weights and BatchNorm statistics as a checkpoint,
+    with ``optimizer``'s state when given (a resume checkpoint)."""
     params, batch_stats = state_dict_to_flax(module.state_dict())
-    save_checkpoint(path, params, batch_stats, step, epoch, extra=extra)
+    opt_state = None if optimizer is None else optimizer_state_to_flax(module, optimizer)
+    save_checkpoint(path, params, batch_stats, step, epoch, extra=extra, opt_state=opt_state)
 
 
 def warm_start(module: nn.Module, path: str) -> bool:
@@ -393,3 +454,126 @@ def load_flax_variables(module: nn.Module, params: dict, batch_stats: dict) -> N
     unless the keys are exactly the module's and every shape matches; each
     key is set once (:func:`state_dict_from_flax` raises on a repeat)."""
     module.load_state_dict(state_dict_from_flax(params, batch_stats), strict=True)
+
+
+# -- optimizer state ------------------------------------------------------------
+
+
+def _group_of(flax_top: str) -> str:
+    """The optimizer group of a top-level flax module (the JAX package's
+    ``make_optimizer`` labels)."""
+    return "backbone" if flax_top == "backbone" else "head"
+
+
+def _masked(tree: Any) -> Any:
+    """``tree`` with every leaf written as optax's ``MaskedNode``: ``{}``."""
+    return {k: _masked(v) for k, v in tree.items()} if isinstance(tree, dict) else {}
+
+
+def _unmasked(tree: dict) -> dict:
+    """``tree`` without its ``{}`` leaves."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            value = _unmasked(value)
+            if value:
+                out[key] = value
+        else:
+            out[key] = value
+    return out
+
+
+def _is_adamw(optimizer: torch.optim.Optimizer) -> bool:
+    if isinstance(optimizer, torch.optim.AdamW):
+        return True
+    if isinstance(optimizer, torch.optim.Adam):
+        return False
+    raise TypeError(f"no checkpoint layout for {type(optimizer).__name__}")
+
+
+def optimizer_state_to_flax(module: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer``'s state (Adam or AdamW over the groups ``backbone`` and
+    ``head``, as ``trainer.make_optimizer`` makes it) in the layout that
+    ``flax.serialization.to_state_dict`` gives the JAX package's optax state
+    (module docstring). A parameter that has no state (never given a
+    gradient, as the ViT's unused CLS token; optax steps it with zeros) has
+    zero moments; a group's count is the step of its other parameters,
+    which must agree."""
+    adamw = _is_adamw(optimizer)
+    names = {p: n for n, p in module.named_parameters()}
+    mu: dict[str, torch.Tensor] = {}
+    nu: dict[str, torch.Tensor] = {}
+    counts: dict[str, set[int]] = {}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            mu[names[p]] = state.get("exp_avg", torch.zeros_like(p))
+            nu[names[p]] = state.get("exp_avg_sq", torch.zeros_like(p))
+            group_counts = counts.setdefault(group["name"], set())
+            if "step" in state:
+                group_counts.add(int(state["step"]))
+    mu_tree, nu_tree = state_dict_to_flax(mu)[0], state_dict_to_flax(nu)[0]
+    inner = {}
+    for name, group_counts in counts.items():
+        if len(group_counts) > 1:
+            raise ValueError(f"the {name} group's parameters took different numbers of steps: {sorted(group_counts)}")
+        count = np.asarray(group_counts.pop() if group_counts else 0, dtype=np.int32)
+
+        def own(tree: dict) -> dict:
+            return {k: v if _group_of(k) == name else _masked(v) for k, v in tree.items()}
+
+        chain = {"0": {"count": count, "mu": own(mu_tree), "nu": own(nu_tree)}}
+        if adamw:
+            chain.update({"1": {}, "2": {"count": count}})
+        else:
+            chain["1"] = {"count": count}
+        inner[name] = {"inner_state": chain}
+    return {"inner_states": inner}
+
+
+def load_optimizer_state_from_flax(module: nn.Module, optimizer: torch.optim.Optimizer, tree: dict) -> int:
+    """Set ``optimizer``'s state from the JAX package's layout (as
+    :func:`optimizer_state_to_flax` writes it, or the JAX package's
+    ``-last.ckpt``); the moments go to each parameter's device. A parameter
+    whose moments are all zero gets no state, as one never given a gradient
+    (torch's Adam creates its state at its first gradient). Returns the
+    count of updates. Raises if the layout is another optimizer's (Adam
+    against AdamW) or a group is missing."""
+    adamw = _is_adamw(optimizer)
+    names = {p: n for n, p in module.named_parameters()}
+    inner = tree["inner_states"]
+    scalar_dtype = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+    counts = set()
+    for group in optimizer.param_groups:
+        name = group["name"]
+        if name not in inner:
+            raise ValueError(f"the optimizer state has no {name} group")
+        chain = inner[name]["inner_state"]
+        if ("2" in chain) != adamw:
+            raise ValueError(f"the optimizer state is {'AdamW' if '2' in chain else 'Adam'}'s, the optimizer "
+                             f"{type(optimizer).__name__}")
+        adam = chain["0"]
+        count = int(adam["count"])
+        schedule_count = int(chain["2" if adamw else "1"]["count"])
+        if schedule_count != count:
+            raise ValueError(f"the {name} group's schedule count {schedule_count} is not its Adam count {count}")
+        counts.add(count)
+        mu = state_dict_from_flax(_unmasked(adam["mu"]), {})
+        nu = state_dict_from_flax(_unmasked(adam["nu"]), {})
+        for p in group["params"]:
+            key = names[p]
+            if key not in mu or key not in nu:
+                raise ValueError(f"the optimizer state has no moments of {key}")
+            if tuple(mu[key].shape) != tuple(p.shape) or tuple(nu[key].shape) != tuple(p.shape):
+                raise ValueError(f"the moments of {key} are {tuple(mu[key].shape)}, the parameter {tuple(p.shape)}")
+            if count == 0 or not (mu[key].any() or nu[key].any()):
+                optimizer.state.pop(p, None)
+                continue
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=scalar_dtype),
+                "exp_avg": mu[key].to(p.device, p.dtype),
+                "exp_avg_sq": nu[key].to(p.device, p.dtype),
+            }
+    if len(counts) != 1:
+        raise ValueError(f"the groups took different numbers of steps: {sorted(counts)}")
+    return counts.pop()

@@ -1,6 +1,6 @@
-"""Supervised and semi-supervised training of the single-view heatmap model
-and of the temporal-context model (counterpart of
-``lightning_pose_tpu/train/trainer.py``).
+"""Supervised and semi-supervised training of the single-view heatmap and
+regression models, of the temporal-context model and of the multiview
+transformer (counterpart of ``lightning_pose_tpu/train/trainer.py``).
 
 One process, one device. Each step gathers its batch from a device-resident
 copy of the labeled set, augments it on the device (``ops/augment.py``, with
@@ -36,10 +36,28 @@ Its unlabeled window is ``(T, V, H, W, 3)`` frame-synchronized views,
 augmented photometrically only (so the views stay geometrically consistent);
 keypoints map to each view's frame through that view's bbox columns.
 
+The regression model (``regression``) outputs keypoints directly: its
+supervised loss is the coordinate MSE against the augmented labels, its
+confidences are ones, and its unlabeled window's outputs go to the
+unsupervised losses with no decode.
+
+``model.backbone_checkpoint`` (a local torch file, torchvision, MMPose or HF
+layout) is loaded into the backbone after the model is built and before
+``model.checkpoint``'s warm start (``models/backbones/pretrained.py``).
+``training.resume`` continues the newest ``-last.ckpt`` of the newest
+version directory in that directory: weights, BatchNorm statistics, the
+optimizer's state, the step and epoch, the best validation loss and its
+checkpoint, and the two generators of the augmentation draws, so that a
+resumed run takes the steps an uninterrupted one takes. The unlabeled
+stream starts afresh, as in the JAX package. ``training.profiler`` traces
+the run with ``torch.profiler`` (host and CUDA activities) from the first
+step to the last checkpoint into ``<version dir>/profiler_trace.json``.
+
 ``train(cfg, model_dir)`` writes the reference's model directory:
 ``config.yaml``, a copy of the label CSV, ``train_status.json``,
 ``tb_logs/<model_name>/version_N/checkpoints/epoch=E-step=S-best.ckpt``
-(flax-msgpack, read by both packages) and, when ``tensorboardX`` imports,
+(flax-msgpack, read by both packages; ``-last.ckpt`` with the optimizer's
+state, refreshed at every validation) and, when ``tensorboardX`` imports,
 its event files. ``Model.from_dir(model_dir)`` of either package predicts
 from it. Unless ``skip_evaluation``, it then reloads the best checkpoint and
 evaluates as the JAX package does: ``image_preds/<csv>/predictions.csv``
@@ -71,8 +89,10 @@ from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
 from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
+from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN, make_context_windows
 from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
+from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
 from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
@@ -271,7 +291,10 @@ def unsupervised_loss(
     losses. Transforms and bboxes are trimmed to the centers.
 
     The multiview transformer takes ``images (T, V, 3, H, W)`` and ``bbox
-    (T, 4V)``; its ``V*K`` keypoints map to each view's frame."""
+    (T, 4V)``; its ``V*K`` keypoints map to each view's frame.
+
+    The regression model's outputs are the keypoints, with confidences of
+    ones and no maps."""
     height, width = image_hw
     is_context = isinstance(model, HeatmapTrackerMHCRNN)
     num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
@@ -283,6 +306,8 @@ def unsupervised_loss(
         preds, confidences = model.decode_heads(heatmaps)
         heatmaps = heatmaps[1]
         transforms, bbox = transforms[2:-2], bbox[2:-2]
+    elif isinstance(model, RegressionTracker):
+        preds, confidences, heatmaps = heatmaps, RegressionTracker.confidences(heatmaps), None
     else:
         preds, confidences = model.decode(heatmaps)
     preds = undo_affine_transform_batch(preds, transforms)
@@ -304,9 +329,10 @@ def make_step_fns(
     compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """``(train_step, eval_step, train_step_cached)`` of the single-view
-    heatmap model, of the context model when ``meta["model_type"]`` is
-    ``heatmap_mhcrnn``, or of the multiview transformer when it is
-    ``heatmap_multiview`` (``meta["num_views"]`` views).
+    heatmap model, of the regression model when ``meta["model_type"]`` is
+    ``regression``, of the context model when it is ``heatmap_mhcrnn``, or
+    of the multiview transformer when it is ``heatmap_multiview``
+    (``meta["num_views"]`` views).
 
     - ``train_step(state, batch, draws, video_draws=None, mask_scores=None)
       -> logs``: augment with ``draws`` (``augmenter.sample``, one draw per
@@ -344,6 +370,7 @@ def make_step_fns(
     has_unsup = unsup is not None and len(unsup.loss_instance_dict) > 0
     is_context = meta["model_type"] == "heatmap_mhcrnn"
     is_multiview = meta["model_type"] == "heatmap_multiview"
+    is_regression = meta["model_type"] == "regression"
     num_views = int(meta.get("num_views", 1) or 1)
     patch_mask = _patch_mask_schedule(cfg, steps_per_epoch) if is_multiview else None
 
@@ -351,22 +378,30 @@ def make_step_fns(
         with torch.autocast(
             images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16
         ):
-            heatmaps = model(images)
-        targets = generate_heatmaps(
-            keypoints, height=height, width=width, output_shape=out_shape, visibility=visibility
-        )
-        if is_context:
-            # both heads against the same targets: a batch of 2B (reference
-            # heatmap_tracker_mhcrnn.py:154-174)
-            heatmaps = torch.cat(heatmaps, dim=0)
-            targets = torch.cat([targets, targets], dim=0)
-            keypoints = torch.cat([keypoints, keypoints], dim=0)
-            bbox = torch.cat([bbox, bbox], dim=0)
-        loss, logs = supervised(
-            stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=heatmaps
-        )
+            outputs = model(images)
+        if is_regression:
+            # the outputs are the keypoints: the coordinate MSE against the
+            # augmented labels, confidences of ones
+            loss, logs = supervised(stage=stage, anneal_weight=None,
+                                    keypoints_targ=keypoints.reshape(keypoints.shape[0], -1), keypoints_pred=outputs)
+            preds, confidences = outputs.detach(), RegressionTracker.confidences(outputs)
+        else:
+            targets = generate_heatmaps(
+                keypoints, height=height, width=width, output_shape=out_shape, visibility=visibility
+            )
+            if is_context:
+                # both heads against the same targets: a batch of 2B
+                # (reference heatmap_tracker_mhcrnn.py:154-174)
+                outputs = torch.cat(outputs, dim=0)
+                targets = torch.cat([targets, targets], dim=0)
+                keypoints = torch.cat([keypoints, keypoints], dim=0)
+                bbox = torch.cat([bbox, bbox], dim=0)
+            loss, logs = supervised(
+                stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=outputs
+            )
+            with torch.no_grad():
+                preds, confidences = model.decode(outputs.detach())
         with torch.no_grad():
-            preds, confidences = model.decode(heatmaps.detach())
             preds = model_to_frame_batch(preds, bbox, width, height, num_views=num_views)
             kp_frame = model_to_frame_batch(
                 keypoints.reshape(keypoints.shape[0], -1), bbox, width, height, num_views=num_views
@@ -508,20 +543,11 @@ def _check_ported(cfg) -> None:
     """Raise, before anything is trained, on options not ported yet."""
     if int(cfg.training.get("num_nodes", 1) or 1) > 1 or int(cfg.training.get("num_gpus", 1) or 1) > 1:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP queue 1, item 8: multi-GPU)")
-    for option in ("resume", "profiler"):
-        if cfg.training.get(option, False):
-            raise NotImplementedError(
-                f"training.{option} is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
-            )
     backend = str(cfg.training.get("checkpoint_backend", "msgpack"))
     if backend != "msgpack":
         raise NotImplementedError(
-            f"checkpoint_backend {backend} is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
-        )
-    bb_ckpt = cfg.model.get("backbone_checkpoint")
-    if bb_ckpt and os.path.isfile(str(bb_ckpt)):
-        raise NotImplementedError(
-            "loading torchvision backbone weights is not ported yet (ROADMAP queue 1, item 4: the rest of training)"
+            f"checkpoint_backend {backend} is not ported (ROADMAP queue 1, item 4: the port writes and reads "
+            "msgpack only)"
         )
     unimodal = [n for n in (cfg.model.get("losses_to_use") or []) if str(n).startswith("unimodal")]
     if unimodal:
@@ -601,6 +627,16 @@ def train(
         # a multiview model's head is shared by the views: it takes one
         # view's keypoint count
         model = get_model(cfg, num_keypoints=getattr(dataset, "num_keypoints_per_view", dataset.num_keypoints))
+        height = int(cfg.data.image_resize_dims.height)
+        width = int(cfg.data.image_resize_dims.width)
+        # pretrained backbone weights from a local torch file; a ViT's
+        # position embeddings are resized to the fine-tune grid
+        bb_ckpt = cfg.model.get("backbone_checkpoint")
+        if bb_ckpt and os.path.isfile(str(bb_ckpt)):
+            load_backbone_checkpoint(model.backbone, str(cfg.model.backbone), str(bb_ckpt), image_size=height)
+            logger.info(f"loaded pretrained backbone weights from {bb_ckpt}")
+        elif bb_ckpt:
+            logger.warning(f"backbone_checkpoint {bb_ckpt} is not a file; the backbone keeps its random init")
         if cfg.model.get("checkpoint"):
             if ckpt_utils.warm_start(model, str(cfg.model.checkpoint)):
                 logger.info(f"warm-started from {cfg.model.checkpoint}")
@@ -612,8 +648,6 @@ def train(
         model = model.to(device, memory_format=torch.channels_last)
         optimizer, head_sched, bb_sched = make_optimizer(cfg, steps_per_epoch, model)
         state = TrainState(model=model, optimizer=optimizer)
-        height = int(cfg.data.image_resize_dims.height)
-        width = int(cfg.data.image_resize_dims.width)
         augmenter = AugmentationEngine(
             pipeline=dataset.imgaug_pipeline,
             image_height=height,
@@ -641,7 +675,15 @@ def train(
             src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
             if src.exists():
                 shutil.copy(src, model_dir / src.name)
-        version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
+        resume_path = None
+        if cfg.training.get("resume", False):
+            resume_path = ckpt_utils.find_resume_checkpoint(str(model_dir), cfg.model.model_name)
+            if resume_path is None:
+                logger.info("training.resume is set but no *-last.ckpt was found; starting afresh")
+        if resume_path is not None:
+            version_dir = str(Path(resume_path).parent.parent)
+        else:
+            version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
         os.makedirs(version_dir, exist_ok=True)
         ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
         writer = None
@@ -678,8 +720,14 @@ def train(
         history: list[dict] = []
         best_val = float("inf")
         best_ckpt_path = last_ckpt_path = None
-        bad_val_checks = 0
-        for epoch in range(max_epochs):
+        bad_val_checks = start_epoch = 0
+        if resume_path is not None:
+            start_epoch, best_val, bad_val_checks, best_ckpt_path = _resume(
+                resume_path, state, draw_gen, field_gen, data_seed
+            )
+            last_ckpt_path = resume_path
+        profiler = _start_profiler(device) if cfg.training.get("profiler", False) else None
+        for epoch in range(start_epoch, max_epochs):
             steps_this_epoch = min(steps_per_epoch, max_steps - state.step)
             if steps_this_epoch <= 0:
                 break
@@ -741,13 +789,17 @@ def train(
                 ckpt_utils.save_module(
                     os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
                 )
-            # the latest weights (no optimizer state: resume is not ported)
+            # the full training state, for training.resume: one a run,
+            # refreshed at every validation
             prev_last = last_ckpt_path
             last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
             ckpt_utils.save_module(
                 last_ckpt_path, model, state.step, epoch,
                 extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
-                       "best_ckpt_path": best_ckpt_path or ""},
+                       "best_ckpt_path": best_ckpt_path or "",
+                       "draw_generator": draw_gen.get_state().numpy(),
+                       "field_generator": field_gen.get_state().cpu().numpy()},
+                optimizer=optimizer,
             )
             if prev_last and prev_last != last_ckpt_path:
                 ckpt_utils.remove_checkpoint(prev_last)
@@ -760,6 +812,8 @@ def train(
                 ckpt_dir, f"epoch={max_epochs - 1}-step={state.step}-best.ckpt"
             )
             ckpt_utils.save_module(best_ckpt_path, model, state.step, max_epochs - 1)
+        if profiler is not None:
+            _stop_profiler(profiler, version_dir)
         if writer is not None:
             writer.close()
         logger.info(f"training finished in {time.time() - t_start:.1f}s")
@@ -791,6 +845,53 @@ def train(
         close = getattr(data_module, "close", None)
         if close is not None:  # the unlabeled stream's decode threads
             close()
+
+
+def _resume(resume_path: str, state: TrainState, draw_gen: torch.Generator, field_gen: torch.Generator,
+            data_seed: int) -> tuple[int, float, int, str | None]:
+    """Restore a ``-last.ckpt`` (of either package) into ``state`` and the
+    generators; returns ``(start epoch, best_val, bad_val_checks,
+    best_ckpt_path)``. A checkpoint without generator states (the JAX
+    package's) leaves the generators at their seed."""
+    ckpt = ckpt_utils.load_checkpoint(resume_path)
+    if "opt_state" not in ckpt:
+        raise ValueError(f"{resume_path} holds no optimizer state; it cannot be resumed")
+    ckpt_utils.load_flax_variables(state.model, ckpt["params"], ckpt.get("batch_stats") or {})
+    count = ckpt_utils.load_optimizer_state_from_flax(state.model, state.optimizer, ckpt["opt_state"])
+    state.step = int(ckpt["step"])
+    if count != state.step:
+        raise ValueError(f"{resume_path}: the optimizer took {count} steps, the checkpoint says {state.step}")
+    extra = ckpt.get("extra") or {}
+    if "draw_generator" in extra and "field_generator" in extra:
+        draw_gen.set_state(torch.from_numpy(np.asarray(extra["draw_generator"], dtype=np.uint8)))
+        field_gen.set_state(torch.from_numpy(np.asarray(extra["field_generator"], dtype=np.uint8)))
+        streams = "the augmentation draws continue from the checkpoint's generator states"
+    else:
+        streams = (f"the checkpoint holds no generator states (the JAX package writes none): the augmentation "
+                   f"draws start again from rng_seed_data_pt = {data_seed}")
+    bp = extra.get("best_ckpt_path") or None
+    logger.info(f"resumed from {resume_path}: epoch {int(ckpt['epoch']) + 1}, step {state.step}; {streams}; "
+                "the unlabeled stream starts afresh")
+    return (int(ckpt["epoch"]) + 1, float(extra.get("best_val", float("inf"))), int(extra.get("bad_val_checks", 0)),
+            bp if bp and os.path.exists(bp) else None)
+
+
+def _start_profiler(device: torch.device):
+    """A started ``torch.profiler`` of host and (on a card) CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, version_dir: str) -> None:
+    """Stop ``profiler`` and write its Chrome trace into the version dir."""
+    profiler.stop()
+    path = os.path.join(version_dir, "profiler_trace.json")
+    profiler.export_chrome_trace(path)
+    logger.info(f"profiler trace written to {path}")
 
 
 # ------------------------------------------------------------------------------

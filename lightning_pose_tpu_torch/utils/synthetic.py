@@ -15,6 +15,13 @@ same 3D blobs along another axis (view ``v`` sees ``(x, y)`` rotated about
 the vertical axis by ``v * 90 / (V - 1)`` degrees), frames under
 ``labeled-data/<session>_<view>/``, one ``CollectedData_<view>.csv`` a view,
 and frame-synchronized ``videos/<session>_<view>.mp4``.
+
+``torchvision_resnet_state_dict``, ``torchvision_efficientnet_state_dict``
+and ``hf_vit_state_dict`` make seeded random weights with the key names and
+shapes of the published checkpoints that ``model.backbone_checkpoint``
+reads (torchvision's ResNet and EfficientNet, HF's ``ViTModel``), their
+classifier or pooler included: files to load where no pretrained weights
+can be downloaded.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from pathlib import Path
 import numpy as np
 
 __all__ = [
+    "hf_vit_state_dict",
+    "torchvision_efficientnet_state_dict",
+    "torchvision_resnet_state_dict",
     "write_labeled_dataset",
     "write_multiview_dataset",
     "write_multiview_videos",
@@ -214,3 +224,147 @@ def write_multiview_videos(
             writer.release()
         paths.append(path)
     return paths
+
+
+class _Weights:
+    """Seeded random tensors for a state dict: convolution and linear
+    weights normal with std ``1/sqrt(fan_in)``, BatchNorm and LayerNorm near
+    identity."""
+
+    def __init__(self, seed: int) -> None:
+        self.rng = np.random.default_rng(seed)
+        self.out: dict = {}
+
+    def put(self, key: str, value: np.ndarray) -> None:
+        import torch
+
+        self.out[key] = torch.from_numpy(np.ascontiguousarray(value))
+
+    def weight(self, key: str, shape: tuple[int, ...]) -> None:
+        fan_in = int(np.prod(shape[1:]))
+        self.put(key, (self.rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32))
+
+    def bias(self, key: str, n: int) -> None:
+        self.put(key, (0.1 * self.rng.standard_normal(n)).astype(np.float32))
+
+    def norm(self, prefix: str, n: int, batch_norm: bool = True) -> None:
+        self.put(f"{prefix}.weight", self.rng.uniform(0.5, 1.5, n).astype(np.float32))
+        self.bias(f"{prefix}.bias", n)
+        if batch_norm:
+            self.bias(f"{prefix}.running_mean", n)
+            self.put(f"{prefix}.running_var", self.rng.uniform(0.5, 1.5, n).astype(np.float32))
+            self.put(f"{prefix}.num_batches_tracked", np.asarray(1000, dtype=np.int64))
+
+
+def torchvision_resnet_state_dict(arch: str = "resnet50", seed: int = 0, num_classes: int = 1000) -> dict:
+    """A state dict with the names and shapes of torchvision's ``resnet*``
+    (``conv1``, ``bn1``, ``layer{s}.{b}.{conv,bn}{c}``,
+    ``layer{s}.{b}.downsample.{0,1}``, ``fc``), seeded random values."""
+    from lightning_pose_tpu_torch.models.backbones.resnet import RESNET_CONFIGS
+
+    stage_sizes, bottleneck, features = RESNET_CONFIGS[arch]
+    w = _Weights(seed)
+    w.weight("conv1.weight", (64, 3, 7, 7))
+    w.norm("bn1", 64)
+    expansion = 4 if bottleneck else 1
+    in_c = 64
+    for stage, n_blocks in enumerate(stage_sizes):
+        width = 64 * 2**stage
+        for block in range(n_blocks):
+            prefix = f"layer{stage + 1}.{block}"
+            if bottleneck:
+                convs = [(in_c, width, 1), (width, width, 3), (width, width * expansion, 1)]
+            else:
+                convs = [(in_c, width, 3), (width, width, 3)]
+            for c, (ci, co, k) in enumerate(convs, start=1):
+                w.weight(f"{prefix}.conv{c}.weight", (co, ci, k, k))
+                w.norm(f"{prefix}.bn{c}", co)
+            stride = 2 if stage > 0 and block == 0 else 1
+            if stride != 1 or in_c != width * expansion:
+                w.weight(f"{prefix}.downsample.0.weight", (width * expansion, in_c, 1, 1))
+                w.norm(f"{prefix}.downsample.1", width * expansion)
+            in_c = width * expansion
+    w.weight("fc.weight", (num_classes, features))
+    w.bias("fc.bias", num_classes)
+    return w.out
+
+
+def torchvision_efficientnet_state_dict(variant: str = "b0", seed: int = 0, num_classes: int = 1000) -> dict:
+    """A state dict with the names and shapes of torchvision's
+    ``efficientnet_b0/b1/b2``: ``features.0`` the stem conv and BatchNorm,
+    ``features.{1-7}.{i}.block`` the MBConv blocks ([expand,] depthwise,
+    squeeze-excite ``fc1``/``fc2`` with biases, project), ``features.8`` the
+    head conv, ``classifier.1`` the linear classifier; seeded random
+    values."""
+    from lightning_pose_tpu_torch.models.backbones.efficientnet import (
+        BASE_STAGES,
+        EFFICIENTNET_CONFIGS,
+        round_channels,
+        stage_layout,
+    )
+
+    width_mult, _, head = EFFICIENTNET_CONFIGS[variant]
+    w = _Weights(seed)
+    stem = round_channels(32 * width_mult)
+    w.weight("features.0.0.weight", (stem, 3, 3, 3))
+    w.norm("features.0.1", stem)
+    in_c = stem
+    for stage, i, expand, _, kernel in stage_layout(variant):
+        out_c = round_channels(BASE_STAGES[stage - 1][1] * width_mult)
+        mid, squeeze = in_c * expand, max(1, in_c // 4)
+        prefix = f"features.{stage}.{i}.block"
+        idx = 0
+        if expand != 1:
+            w.weight(f"{prefix}.0.0.weight", (mid, in_c, 1, 1))
+            w.norm(f"{prefix}.0.1", mid)
+            idx = 1
+        w.weight(f"{prefix}.{idx}.0.weight", (mid, 1, kernel, kernel))
+        w.norm(f"{prefix}.{idx}.1", mid)
+        w.weight(f"{prefix}.{idx + 1}.fc1.weight", (squeeze, mid, 1, 1))
+        w.bias(f"{prefix}.{idx + 1}.fc1.bias", squeeze)
+        w.weight(f"{prefix}.{idx + 1}.fc2.weight", (mid, squeeze, 1, 1))
+        w.bias(f"{prefix}.{idx + 1}.fc2.bias", mid)
+        w.weight(f"{prefix}.{idx + 2}.0.weight", (out_c, mid, 1, 1))
+        w.norm(f"{prefix}.{idx + 2}.1", out_c)
+        in_c = out_c
+    w.weight("features.8.0.weight", (head, in_c, 1, 1))
+    w.norm("features.8.1", head)
+    w.weight("classifier.1.weight", (num_classes, head))
+    w.bias("classifier.1.bias", num_classes)
+    return w.out
+
+
+def hf_vit_state_dict(
+    embed_dim: int = 384, depth: int = 12, grid: int = 14, patch: int = 16, seed: int = 0, prefix: str = ""
+) -> dict:
+    """A state dict with the names and shapes of HF's ``ViTModel``
+    (facebook/dino-vits16 at ``embed_dim`` 384): ``embeddings.{cls_token,
+    position_embeddings, patch_embeddings.projection}`` with a ``grid x
+    grid`` position table, ``encoder.layer.{i}.{attention.attention.{query,
+    key, value}, attention.output.dense, intermediate.dense, output.dense,
+    layernorm_before, layernorm_after}``, ``layernorm`` and
+    ``pooler.dense``, each key under ``prefix``; seeded random values."""
+    w = _Weights(seed)
+    d = embed_dim
+    w.put("embeddings.cls_token", (0.02 * w.rng.standard_normal((1, 1, d))).astype(np.float32))
+    w.put("embeddings.position_embeddings", (0.02 * w.rng.standard_normal((1, grid * grid + 1, d))).astype(np.float32))
+    w.weight("embeddings.patch_embeddings.projection.weight", (d, 3, patch, patch))
+    w.bias("embeddings.patch_embeddings.projection.bias", d)
+    for i in range(depth):
+        layer = f"encoder.layer.{i}"
+        for name, (n_out, n_in) in {
+            "attention.attention.query": (d, d),
+            "attention.attention.key": (d, d),
+            "attention.attention.value": (d, d),
+            "attention.output.dense": (d, d),
+            "intermediate.dense": (4 * d, d),
+            "output.dense": (d, 4 * d),
+        }.items():
+            w.weight(f"{layer}.{name}.weight", (n_out, n_in))
+            w.bias(f"{layer}.{name}.bias", n_out)
+        w.norm(f"{layer}.layernorm_before", d, batch_norm=False)
+        w.norm(f"{layer}.layernorm_after", d, batch_norm=False)
+    w.norm("layernorm", d, batch_norm=False)
+    w.weight("pooler.dense.weight", (d, d))
+    w.bias("pooler.dense.bias", d)
+    return {prefix + k: v for k, v in w.out.items()}

@@ -57,6 +57,56 @@ def _peaked_jax_variables(module, image: int, seed: int = 0) -> tuple[dict, dict
     return params, batch_stats
 
 
+def _seeded_jax_variables(module, *inputs, seed: int = 0, **kwargs) -> dict:
+    """Variables of a flax module made from a seed with numpy, without
+    running its init (only its shapes are traced): kernels normal with std
+    ``1/sqrt(fan_in)``, biases and running means normal(0, 0.1), scales and
+    running variances uniform in [0.5, 1.5], other leaves normal(0, 0.02).
+    ``inputs`` and ``kwargs`` go to ``module.init``."""
+    import jax
+
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs, **kwargs))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path[-1:]).strip("[]'")
+        if name == "kernel":
+            if len(s.shape) == 3:  # DenseGeneral: (D, H, Dh) in, (H, Dh, D) out
+                fan_in = s.shape[0] * (s.shape[1] if "out" in jax.tree_util.keystr(path) else 1)
+            else:
+                fan_in = int(np.prod(s.shape[:-1]))
+            value = rng.standard_normal(s.shape) / np.sqrt(max(fan_in, 1))
+        elif name in ("bias", "mean"):
+            value = 0.1 * rng.standard_normal(s.shape)
+        elif name in ("scale", "var"):
+            value = rng.uniform(0.5, 1.5, s.shape)
+        else:
+            value = 0.02 * rng.standard_normal(s.shape)
+        return value.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two torch threads for a module's tests: the suite runs several
+    workers on one machine, and a worker whose torch takes every core
+    slows the others most in the heavy training tests."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture()
+def seeded_jax_variables():
+    """``fn(flax module, *init inputs, seed=0, **init kwargs) -> variables``:
+    numpy trees made from a seed, without running the module's init."""
+    return _seeded_jax_variables
+
+
 @pytest.fixture()
 def peaked_jax_variables():
     """``fn(flax module, image size, seed) -> (params, batch_stats)``:

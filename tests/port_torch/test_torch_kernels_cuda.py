@@ -860,3 +860,107 @@ def test_one_multiview_semisupervised_step_on_card_launches_the_kernels(cuda_dev
     assert tuple(a - b for a, b in zip(after, before)) == (1, 2, 1)
     assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
     assert state.step == 1
+
+
+# -- EfficientNet, regression, pretrained backbones and resume ----------------------------
+
+
+@pytest.mark.parametrize("model_type, backbone", [("heatmap", "efficientnet_b0"), ("regression", "resnet18"),
+                                                  ("regression", "efficientnet_b0")])
+def test_efficientnet_and_regression_predict_frame_on_card_match_cpu(cuda_device, tmp_path, model_type, backbone):
+    """``Model.predict_frame`` at fp32 (TF32 off) on the card against the
+    CPU, from one directory; a regression model's confidences are 1.0."""
+    import yaml
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.train.checkpoints import save_module
+
+    torch.manual_seed(0)
+    model = build_model(model_type, backbone, 4)
+    if model_type == "heatmap":
+        with torch.no_grad():
+            for name in ("deconv0", "deconv1"):
+                getattr(model.head, name).weight.mul_(300.0)
+    ckpt_dir = tmp_path / "tb_logs" / "cardtest" / "version_0" / "checkpoints"
+    ckpt_dir.mkdir(parents=True)
+    save_module(str(ckpt_dir / "epoch=0-step=0-best.ckpt"), model, 0, 0)
+    cfg = {"data": {"image_resize_dims": {"height": 128, "width": 128}, "num_keypoints": 4,
+                    "keypoint_names": [f"kp{i}" for i in range(4)]},
+           "model": {"model_type": model_type, "backbone": backbone, "model_name": "cardtest", "losses_to_use": []},
+           "eval": {}}
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(cfg))
+    frame = _frames((1, 150, 170, 3), seed=4)[0].numpy()
+    out = {d: Model.from_dir(tmp_path, precision="fp32", device=d).predict_frame(frame, bbox=(5, 10, 140, 120))
+           for d in ("cuda", "cpu")}
+    np.testing.assert_allclose(out["cuda"]["keypoints"], out["cpu"]["keypoints"], rtol=0, atol=KP_TOL_PX)
+    np.testing.assert_allclose(out["cuda"]["confidence"], out["cpu"]["confidence"], rtol=0, atol=CONF_TOL)
+    if model_type == "regression":
+        assert (out["cuda"]["confidence"] == 1.0).all()
+
+
+@pytest.mark.parametrize("arch", ["resnet50_animal_ap10k", "efficientnet_b0"])
+def test_pretrained_backbone_loads_on_cuda(cuda_device, tmp_path, arch):
+    """A backbone on the card takes a torchvision/MMPose-layout file; the
+    card's forward agrees with the CPU's at fp32."""
+    from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
+    from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
+    from lightning_pose_tpu_torch.utils.synthetic import (
+        torchvision_efficientnet_state_dict,
+        torchvision_resnet_state_dict,
+    )
+
+    if arch.startswith("resnet"):
+        torch.save({"state_dict": {f"backbone.{k}": v for k, v in torchvision_resnet_state_dict(seed=1).items()}},
+                   tmp_path / "w.pth")
+    else:
+        torch.save(torchvision_efficientnet_state_dict("b0", seed=1), tmp_path / "w.pth")
+    cpu = build_backbone(arch)[0].eval()
+    card = build_backbone(arch)[0].to(cuda_device, memory_format=torch.channels_last).eval()
+    for backbone in (cpu, card):
+        load_backbone_checkpoint(backbone, arch, str(tmp_path / "w.pth"), image_size=128)
+    assert all(p.is_cuda for p in card.parameters())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 3, 128, 128)).astype(np.float32))
+    with torch.no_grad():
+        ref = cpu(x)
+        out = card(x.to(cuda_device).contiguous(memory_format=torch.channels_last)).cpu()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
+
+
+def test_resumed_run_on_card_continues_the_run(cuda_device, tmp_path):
+    """train() of 2 epochs on the card, resumed to 4: the same version
+    directory, one -last.ckpt, the optimizer's state and the step carried,
+    the kernels launched in the resumed epochs, finite weights."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.train.checkpoints import load_checkpoint
+    from lightning_pose_tpu_torch.train.trainer import train
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset
+
+    names = ["a", "b", "c"]
+    data = write_labeled_dataset(tmp_path / "data", 10, 130, 140, names, seed=1)
+    cfg = load_config()
+    cfg.data.data_dir = str(data)
+    cfg.data.video_dir = "videos"
+    cfg.data.num_keypoints = 3
+    cfg.data.keypoint_names = names
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.model.backbone = "resnet18"
+    cfg.model.model_name = "cardresume"
+    cfg.training.train_batch_size = cfg.training.val_batch_size = 4
+    cfg.training.train_prob, cfg.training.val_prob = 0.8, 0.2  # 8 train frames: 2 steps an epoch
+    cfg.training.max_epochs = cfg.training.min_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    cfg.training.lr_scheduler_params.multisteplr.milestones = [2]
+    cfg.training.check_val_every_n_epoch = 1
+    train(cfg.copy(), tmp_path / "model", skip_evaluation=True)
+    cfg.training.max_epochs = cfg.training.min_epochs = 4
+    cfg.training.resume = True
+    warps = warp_kernel.launches
+    result = train(cfg, tmp_path / "model", skip_evaluation=True)
+    assert warp_kernel.launches - warps == 4  # one a step of the 2 resumed epochs
+    lasts = list((tmp_path / "model" / "tb_logs" / "cardresume" / "version_0" / "checkpoints").glob("*-last.ckpt"))
+    assert len(lasts) == 1 and "epoch=3-step=8" in lasts[0].name
+    assert not (tmp_path / "model" / "tb_logs" / "cardresume" / "version_1").exists()
+    ckpt = load_checkpoint(str(lasts[0]))
+    assert int(ckpt["opt_state"]["inner_states"]["head"]["inner_state"]["0"]["count"]) == 8
+    assert {h["epoch"] for h in result.history} == {2, 3}
+    assert all(bool(torch.isfinite(p).all()) for p in result.model.parameters())

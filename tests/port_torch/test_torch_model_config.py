@@ -79,6 +79,13 @@ CASES = [
     ("reprojection", _reprojection, False),
     ("reprojection_without_dlc", lambda cfg: _reprojection(cfg, imgaug="default"), True),
     ("reprojection_without_3d", lambda cfg: _reprojection(cfg, imgaug_3d=False), True),
+    ("model_type_regression", _set("model.model_type", "regression"), False),
+    ("efficientnet_backbone", _set("model.backbone", "efficientnet_b2"), False),
+    ("regression_efficientnet_step_mode",
+     lambda cfg: (_step_mode(cfg), _set("model.model_type", "regression")(cfg),
+                  _set("model.backbone", "efficientnet_b0")(cfg)),
+     False),
+    ("multiview_regression", lambda cfg: (_multiview(cfg), _set("model.model_type", "regression")(cfg)), False),
 ]
 
 

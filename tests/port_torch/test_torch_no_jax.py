@@ -1,8 +1,8 @@
 """The port imports no JAX and nothing of the JAX package: its whole
-package, its predict path and its supervised and semi-supervised training
-paths run in a subprocess where importing jax, jaxlib, flax or
-``lightning_pose_tpu`` raises, and no module of the port names one of them
-in an import."""
+package, its predict path, its supervised and semi-supervised training
+paths, a pretrained backbone load and a resume run in a subprocess where
+importing jax, jaxlib, flax, optax or ``lightning_pose_tpu`` raises, and no
+module of the port names one of them in an import."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-BLOCKED = ("jax", "jaxlib", "flax", "lightning_pose_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "lightning_pose_tpu")
 
 _BLOCK_JAX = """
 import sys
@@ -68,6 +68,8 @@ def test_no_port_module_names_jax_or_the_jax_package():
     assert {"data/unlabeled.py", "utils/pca.py", "ops/video_augment.py", "ops/decode_kernel.py"} <= names
     assert {"models/backbones/vit.py", "models/heatmap_tracker_multiview.py", "data/datasets_multiview.py",
             "ops/interpolate.py"} <= names
+    assert {"models/backbones/pretrained.py", "models/backbones/efficientnet.py", "models/regression_tracker.py",
+            "models/heads/regression.py"} <= names
     assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
@@ -95,11 +97,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate"}
+new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate",
+       "backbones.pretrained", "backbones.efficientnet", "regression_tracker", "heads.regression"}
 print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
     count, n_blocked, n_new = out.split()
-    assert int(count) >= 30 and n_blocked == "0" and n_new == "4"
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "8"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -342,3 +345,53 @@ print(json.dumps({{
                       "video_preds/session0_side.csv", "video_preds/session0_top.csv"],
         "jax": [],
     }
+
+
+def test_pretrained_backbone_and_resume_run_without_jax(tmp_path):
+    """train() of a regression model from a torchvision-layout backbone
+    file, then a resumed train() of it with the profiler on, then
+    prediction from the directory."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import torchvision_resnet_state_dict, write_labeled_dataset
+
+names = ["a", "b", "c"]
+data = write_labeled_dataset({str(tmp_path / "data")!r}, 5, 130, 140, names, seed=1)
+torch.save(torchvision_resnet_state_dict("resnet18", seed=2), {str(tmp_path / "r18.pth")!r})
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.model_type = "regression"
+cfg.model.backbone = "resnet18"
+cfg.model.backbone_checkpoint = {str(tmp_path / "r18.pth")!r}
+cfg.model.model_name = "nojaxpre"
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = 1
+cfg.training.unfreezing_epoch = 0
+cfg.training.lr_scheduler_params.multisteplr.milestones = [1]
+train(cfg.copy(), {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
+cfg.training.max_epochs = cfg.training.min_epochs = 2
+cfg.training.resume = True
+cfg.training.profiler = True
+result = train(cfg, {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
+frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cpu").predict_frame(
+    np.zeros((130, 140, 3), dtype=np.uint8))
+print(json.dumps({{
+    "finite": bool(np.isfinite(frame["keypoints"]).all()),
+    "confidence": frame["confidence"].tolist(),
+    "epochs": sorted({{h["epoch"] for h in result.history}}),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"finite": True, "confidence": [1.0, 1.0, 1.0], "epochs": [1], "jax": []}
+    assert (tmp_path / "model" / "tb_logs" / "nojaxpre" / "version_0" / "profiler_trace.json").is_file()

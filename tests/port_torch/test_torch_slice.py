@@ -117,7 +117,7 @@ def _variant(model_dir: Path, tmp_path: Path, override: str) -> Path:
     [
         ("eval.video_transfer_format=yuv420", "video"),
         ("eval.decode_method=dark", "frame"),
-        ("model.model_type=regression", "frame"),
+        ("model.backbone=vits_dinov2", "frame"),
     ],
 )
 def test_unported_options_raise(slice_model_dir, slice_video, tmp_path, override, call):

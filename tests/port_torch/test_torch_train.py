@@ -498,7 +498,7 @@ def test_train_in_epoch_mode_with_warm_start(data_dir, trained_dir, tmp_path):
     [
         ({"losses_to_use": ["unimodal_mse"]}, "item 4"),
         ({"num_gpus": 2}, "item 8"),
-        ({"resume": True}, "item 4"),
+        ({"losses_to_use": ["unimodal_kl"]}, "item 4"),
         ({"checkpoint_backend": "orbax"}, "item 4"),
     ],
 )
@@ -539,8 +539,10 @@ def test_checkpoint_contract_pieces(trained_dir, tmp_path):
     with pytest.raises(ValueError):
         ckpt.warm_start(build_model("heatmap", "resnet34", TRAIN_KEYPOINTS), str(trained_dir))
     params, stats = ckpt.state_dict_to_flax(same.state_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ckpt.save_checkpoint(str(tmp_path / "x.ckpt"), params, stats, opt_state={"mu": 1})
+    opt_state = {"inner_states": {"head": {"inner_state": {"0": {"count": np.asarray(2, np.int32)}}}}}
+    ckpt.save_checkpoint(str(tmp_path / "x.ckpt"), params, stats, opt_state=opt_state)
+    assert ckpt.load_checkpoint(str(tmp_path / "x.ckpt"))["opt_state"] == opt_state
+    assert "opt_state" not in ckpt.load_checkpoint(str(ckpt.resolve_checkpoint_path(str(trained_dir))))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ckpt.save_checkpoint(str(tmp_path / "x.ckpt"), params, stats, backend="orbax")
     path = tmp_path / "a.ckpt"
