@@ -153,12 +153,39 @@ Phases, each fatal on failure:
      Phase 3 also holds CLAHE at 14b's fired planes, the warp at a 16-image
      batch and the decode on a random-init EfficientNet-B0 model's maps
      against their plain versions. Each kernel's entry in the JSON summary
-     names the path whose launches it counts (14b's; the decode's
-     backward runs on no path of phase 14 and keeps 13b's) and the shape
-     its times were taken at.
+     names the path whose launches it counts and the shape its times were
+     taken at.
+ 15. the transformer backbones and the DARK decode, at full width (256 px,
+     17 keypoints, batch 16, dlc, bf16), from files in the published key
+     layouts with seeded random values (the SAM ViT-B vision encoder,
+     HF's ViT-B/14 Dinov2Model, the SAM2.1 Hiera base-plus trunk):
+     a. vitb_sam (ViT-B/16 SAM encoder): the SAM file loaded on the card and
+        held to the file tensor by tensor (its 64 x 64 position table
+        against F.interpolate's 16 x 16); train() of 10 steps from it with
+        its evaluation (launches of the warp, CLAHE and the decode against
+        what the code implies), the step's ms, busy share, memory and
+        largest entries; predict_on_video_file of a 1000-frame 320x240 mp4
+        in 3 runs (the first cold); the directory with
+        eval.decode_method dark: the video and predict_on_label_csv with
+        no decode launch; predict_frame fp32 card vs CPU, soft-argmax and
+        DARK; the predict step at batch 96 with each decode, alternating;
+     b. the multiview transformer with vits_dinov3 (2 views, the patch
+        mask): train() of 6 steps with its evaluation, against the implied
+        launches; predict_on_video_file_multiview of a 192-frame 2-view
+        session; predict_frame fp32 card vs CPU;
+     c. vitb_dinov2 (the patch projection resized 14 -> 16, checked against
+        F.interpolate) and vitb_sam2 (the container prefix stripped) from
+        their files: train() of 4 steps each and predict_frame fp32 card
+        vs CPU;
+     d. each kernel at 15a's shapes beside its plain version and bound (the
+        decode on vitb_sam maps (96, 17, 64, 64)). Phase 3 also holds the
+        decode on a random-init vitb_sam model's maps against its plain
+        version. The JSON summary counts 15a's launches (the decode's
+        backward runs on no path of phase 14 or 15 and keeps 13b's).
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX or of
-the JAX package ``lightning_pose_tpu`` and fails if any was loaded.
+``{"ok": true, "device": {...}}``. The script imports nothing of JAX, of
+the JAX package ``lightning_pose_tpu`` or of ``transformers`` and fails if
+any was loaded.
 """
 
 from __future__ import annotations
@@ -267,7 +294,11 @@ SV_STEPS = 10
 SV_VIDEO_FRAMES = 1000
 SV_VIDEO_RUNS = 2
 SV_TOL_PX = 0.05
-# the device of phase 14's paths (the checks of phase 3 are the card's)
+# phase 15: the steps of the multiview DINOv3 train() and of the short
+# DINOv2 and SAM2 runs
+TRANSFORMER_MV_STEPS = 6
+TRANSFORMER_SHORT_STEPS = 4
+# the device of phase 14's and 15's paths (the checks of phase 3 are the card's)
 DEVICE = "cuda"
 
 KERNELS = {
@@ -2220,13 +2251,15 @@ def sv_step_times(cfg, dm, model_type: str, backbone: str, rng, semi: bool = Fal
     return profiled_step(one_step)
 
 
-def sv_kernel_checks(rng, engine, errors: dict) -> dict:
-    """Phase 3 at phase 14's shapes: CLAHE over the planes of the images
-    that phase 14b's draws fire it on (one input a fired step), and the
-    decode on the maps of a random-init EfficientNet-B0 heatmap model (its
-    head's deconv scaled by 300 so the maps are peaked) at a video batch's
-    (96, 17, 64, 64), against their plain versions. The normalize and the
-    warp see phase 3's product shapes there. Returns the inputs."""
+def sv_kernel_checks(rng, engine, errors: dict, backbone: str = "efficientnet_b0", label: str = "EfficientNet-B0",
+                     phase: str = "14b") -> dict:
+    """Phase 3 at phase 14's (or 15's) shapes: CLAHE over the planes of the
+    images that the phase's draws fire it on (one input a fired step; 14b
+    and 15a share the data seed and the steps), and the decode on the maps
+    of a random-init heatmap model of ``backbone`` (its head's deconv
+    scaled by 300 so the maps are peaked) at a video batch's (96, 17, 64,
+    64), against their plain versions. The normalize and the warp see
+    phase 3's product shapes there. Returns the inputs."""
     import torch
 
     from lightning_pose_tpu_torch.models.factory import build_model
@@ -2242,7 +2275,7 @@ def sv_kernel_checks(rng, engine, errors: dict) -> dict:
         errors["clahe"] = max(errors["clahe"], err)
         clahe_inputs.append(x_lut)
     torch.manual_seed(SEED)
-    model = build_model("heatmap", "efficientnet_b0", KEYPOINTS, DOWNSAMPLE)
+    model = build_model("heatmap", backbone, KEYPOINTS, DOWNSAMPLE)
     with torch.no_grad():
         model.head.deconv0.weight.mul_(300.0)
     model = model.to(dev, memory_format=torch.channels_last).eval()
@@ -2253,26 +2286,28 @@ def sv_kernel_checks(rng, engine, errors: dict) -> dict:
     kp_ref, conf_ref = decode_kernel.decode_plain(hm, DOWNSAMPLE)
     torch.cuda.synchronize()
     kp_err, conf_err, flips = decode_errors(kp, conf, kp_ref, conf_ref, decode_kernel.GRID_OFFSETS[DOWNSAMPLE])
-    log(f"phase 3 decode EfficientNet-B0 maps {tuple(hm.shape)} (mean peak {float(hm.flatten(2).amax(-1).mean()):.3e}): "
+    log(f"phase 3 decode {label} maps {tuple(hm.shape)} (mean peak {float(hm.flatten(2).amax(-1).mean()):.3e}): "
         f"keypoints max abs err {kp_err:.3e} px (limit {DECODE_KP_TOL_PX}), confidences {conf_err:.3e} (limit "
         f"{DECODE_CONF_TOL}), windows differing {flips} (limit {DECODE_MAX_WINDOW_FLIPS})")
-    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), "decode of EfficientNet maps: non-finite")
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), f"decode of {label} maps: non-finite")
     check(kp_err <= DECODE_KP_TOL_PX and conf_err <= DECODE_CONF_TOL and flips <= DECODE_MAX_WINDOW_FLIPS,
-          "decode of EfficientNet maps disagrees with its plain version")
+          f"decode of {label} maps disagrees with its plain version")
     errors["decode"] = max(errors["decode"], kp_err)
     images = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
     draws = forced_draws(engine, TRAIN_BATCH, SEED + 30)
-    errors["warp"] = max(errors["warp"], check_warp(engine, images, draws, "phase 14 batch"))
+    errors["warp"] = max(errors["warp"], check_warp(engine, images, draws, f"phase {phase[:2]} batch"))
     _, coords, _, _ = engine.sampling_grid(draws, TRAIN_BATCH, dev)
-    return {"frames": frames, "images": images, "coords": coords.contiguous(), "clahe": clahe_inputs, "hm": hm}
+    return {"frames": frames, "images": images, "coords": coords.contiguous(), "clahe": clahe_inputs, "hm": hm,
+            "label": label, "phase": phase}
 
 
-def sv_times(inputs: dict, card: str) -> dict[str, tuple]:
-    """Phase 14e: the normalize on a video batch (14b, 14c), the warp over a
-    step's 16 images (with F.grid_sample) and CLAHE at each of 14b's fired
-    steps (the mean a launch), the L2 flushed before each launch; the
-    decode on 14b's video batch of EfficientNet maps, back to back. Returns
-    name -> (ms, plain_ms, library_ms, (bound_ms, bound_by), shape)."""
+def sv_times(inputs: dict, card: str, phase: str = "14e") -> dict[str, tuple]:
+    """Phase 14e (15d): the normalize on a video batch, the warp over a
+    step's 16 images (with F.grid_sample) and CLAHE at each of 14b's (15a's)
+    fired steps (the mean a launch), the L2 flushed before each launch; the
+    decode on a video batch of the phase's model's maps (EfficientNet-B0,
+    ViT-B SAM), back to back. Returns name -> (ms, plain_ms, library_ms,
+    (bound_ms, bound_by), shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -2302,14 +2337,15 @@ def sv_times(inputs: dict, card: str) -> dict[str, tuple]:
         "warp": (float(np.median(warp_rounds["kernel"])), warp_plain_ms, float(np.median(warp_rounds["grid_sample"])),
                  bound_of((images.numel() * 2 + coords.numel()) * 4, 0), f"{tuple(images.shape)} fp32, one field an image"),
         "clahe": (mean([c[0] for c in clahe]), mean([c[1] for c in clahe]), None, (mean([c[2] for c in clahe]), "bytes"),
-                  f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {planes} in phase 14b's fired steps; the mean a launch"),
+                  f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {planes} in phase {inputs['phase']}'s fired steps; the "
+                  f"mean a launch"),
         "decode": (dec_ms, dec_plain_ms, None,
                    bound_of((hm.numel() + n_maps * 3) * 4, decode_flops(n_maps, hm_h, hm_w, DOWNSAMPLE)),
-                   f"{tuple(hm.shape)} fp32 EfficientNet-B0 maps, df {DOWNSAMPLE}"),
+                   f"{tuple(hm.shape)} fp32 {inputs['label']} maps, df {DOWNSAMPLE}"),
     }
     for name, (ms, plain_ms, library_ms, (bound, bound_by), shape) in times.items():
         lib_text = f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""
-        log(f"phase 14e {name} at {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib_text}; bound {bound:.5f} "
+        log(f"phase {phase} {name} at {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib_text}; bound {bound:.5f} "
             f"ms ({bound_by}), {bound / ms:.1%} of it reached {card}")
     return times
 
@@ -2487,6 +2523,303 @@ def single_view_phase(rng, card: str) -> dict[str, int]:
     return slice_launches
 
 
+# -- the transformer backbones and the DARK decode (phase 15) ---------------------------
+
+
+def write_transformer_files(directory: Path) -> dict[str, tuple[dict, Path]]:
+    """Phase 15's backbone files in the published key layouts with seeded
+    random values: the SAM ViT-B vision encoder of a whole ``SamModel``
+    (a 64 x 64 position table, relative position tables, the neck), HF's
+    ViT-B/14 ``Dinov2Model`` (a 16 x 16 position grid) and the SAM2.1
+    Hiera base-plus trunk under ``vision_encoder.backbone.`` beside a
+    neck. Returns name -> (state dict, file)."""
+    import torch
+
+    from lightning_pose_tpu_torch.models.backbones.vit import VIT_CONFIGS
+    from lightning_pose_tpu_torch.utils.synthetic import (
+        hf_dinov2_state_dict,
+        hf_sam2_hiera_state_dict,
+        hf_sam_vision_state_dict,
+    )
+
+    width, depth, heads, _ = VIT_CONFIGS["vitb"]
+    files = {
+        "sam_vitb": (hf_sam_vision_state_dict(width, depth, heads, seed=SEED + 40), directory / "sam_vit_b.pth"),
+        "dinov2_vitb14": (hf_dinov2_state_dict(width, depth, grid=16, patch=14, seed=SEED + 41),
+                          directory / "dinov2_vitb14.pth"),
+        "sam2_hiera_b+": (hf_sam2_hiera_state_dict("vitb_sam2", seed=SEED + 42), directory / "sam2_hiera_b+.pth"),
+    }
+    for state, path in files.values():
+        torch.save(state, path)
+    log("phase 15 backbone files (published key layouts, seeded random values): " + "; ".join(
+        f"{name} {path.name} {path.stat().st_size / 1e6:.1f} MB" for name, (_, path) in files.items()))
+    return files
+
+
+def check_sam_load(state: dict, path: Path) -> int:
+    """The SAM file loaded into vitb_sam on the card, held tensor by tensor
+    to the file: each layer's tensor as it is, the position table as
+    ``F.interpolate`` (bicubic, antialiased) resizes it 64 -> 16. Returns the
+    number of tensors compared."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
+    from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
+    from lightning_pose_tpu_torch.models.backbones.vit import VIT_CONFIGS
+
+    depth = VIT_CONFIGS["vitb"][1]
+    backbone = build_backbone("vitb_sam", image_size=IMAGE)[0].to(DEVICE)
+    skipped = load_backbone_checkpoint(backbone, "vitb_sam", str(path), IMAGE)
+    own = {k: v.cpu() for k, v in backbone.state_dict().items()}
+    pos = F.interpolate(state["vision_encoder.pos_embed"].permute(0, 3, 1, 2), size=(IMAGE // 16, IMAGE // 16),
+                        mode="bicubic", antialias=True).permute(0, 2, 3, 1)
+    expected = {"pos_embed": pos, "patch_embed.weight": state["vision_encoder.patch_embed.projection.weight"],
+                "patch_embed.bias": state["vision_encoder.patch_embed.projection.bias"]}
+    for i in range(depth):
+        for ours, theirs in (("ln1", "layer_norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                             ("ln2", "layer_norm2"), ("lin1", "mlp.lin1"), ("lin2", "mlp.lin2")):
+            for leaf in ("weight", "bias"):
+                expected[f"block{i}.{ours}.{leaf}"] = state[f"vision_encoder.layers.{i}.{theirs}.{leaf}"]
+    check(set(expected) == set(own), f"the SAM backbone's tensors {sorted(set(own) ^ set(expected))[:4]}")
+    differ = [k for k, v in expected.items() if not torch.equal(own[k], v)]
+    check(not differ, f"the SAM backbone differs from the file at {differ[:4]}")
+    check(len(skipped) == 2 * depth + 6, f"skipped {len(skipped)} keys of the SAM file")
+    return len(expected)
+
+
+def transformer_config(data: Path, names: list[str], name: str, backbone: str, steps: int, checkpoint: Path):
+    """A single-view heatmap model with ``backbone`` at full width from a
+    backbone file, ``steps`` steps (phase 14's settings)."""
+    cfg = sv_config(data, names, name, "heatmap", backbone, steps)
+    cfg.model.backbone_checkpoint = str(checkpoint)
+    return cfg
+
+
+def with_dark(model_dir: Path, out: Path) -> Path:
+    """A copy of a model directory whose config decodes with DARK."""
+    import shutil
+
+    import yaml
+
+    shutil.copytree(model_dir, out)
+    cfg = yaml.safe_load((out / "config.yaml").read_text())
+    cfg.setdefault("eval", {})["decode_method"] = "dark"
+    (out / "config.yaml").write_text(yaml.safe_dump(cfg))
+    return out
+
+
+def predict_step_times(model_dir: Path, card: str) -> None:
+    """Phase 15a: the vitb_sam predict step at batch 96 (bf16, frames on the
+    card) with the soft-argmax decode and with DARK, in alternating rounds
+    of 10 calls each (CUDA events): the device side of the video path."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model, PredictStep
+
+    model = Model.from_dir(model_dir, device=DEVICE)
+    model._load()
+    soft = model._predict_step
+    dark = PredictStep(soft.model, IMAGE, IMAGE, torch.bfloat16, "dark")
+    frames = torch.from_numpy(np.random.default_rng(SEED + 43).integers(
+        0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)).to(DEVICE)
+    bbox = torch.tensor([[0.0, 0.0, IMAGE, IMAGE]] * BATCH, device=DEVICE)
+    rounds: dict[str, list[float]] = {"softargmax": [], "dark": []}
+    for _ in range(3):
+        for name, step in (("softargmax", soft), ("dark", dark), ("dark", dark), ("softargmax", soft)):
+            rounds[name].append(cuda_ms(lambda: step(frames, bbox), iters=10))
+    log(f"phase 15a vitb_sam predict step (batch {BATCH}, bf16, frames on the card), rounds of 10 calls alternating: "
+        + "; ".join(f"{name} {' '.join(f'{x:.3f}' for x in ms)} ms, median {float(np.median(ms)):.3f} "
+                    f"({BATCH / float(np.median(ms)) * 1e3:.1f} frames/s)" for name, ms in rounds.items()) + f" {card}")
+
+
+def transformer_phase(rng, card: str) -> dict[str, int]:
+    """Phases 15a-15c. Returns the launches of the kernels on 15a's paths:
+    the warp and CLAHE in its train(), normalize and the decode in its
+    first soft-argmax video run."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import (
+        write_labeled_dataset,
+        write_multiview_dataset,
+        write_multiview_videos,
+    )
+
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        files = write_transformer_files(tmp)
+        data = write_labeled_dataset(tmp / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        video = write_video(tmp / "long.mp4", rng, SV_VIDEO_FRAMES, 240, 320)
+
+        # -- 15a. vitb_sam single-view, soft-argmax and DARK ---------------------
+        n_checked = check_sam_load(*files["sam_vitb"])
+        cfg = transformer_config(data, names, "smokesam", "vitb_sam", SV_STEPS, files["sam_vitb"][1])
+        model_dir = tmp / "sam"
+        implied_clahe = len(clahe_fired_stacks(engine, SV_STEPS, TRAIN_SEED, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches}
+        eval_normalizes = normalize_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        implied = {"warp": SV_STEPS, "clahe": implied_clahe, "decode": SV_STEPS + val_batches + eval_batches}
+        log(f"phase 15a vitb_sam (ViT-B/16 SAM encoder) from the SAM file: {n_checked} tensors equal to the file's "
+            f"(the position table 64 x 64 -> 16 x 16 by antialiased bicubic); train() {SV_STEPS} steps of "
+            f"{TRAIN_BATCH} ({IMAGE} px, {KEYPOINTS} keypoints, dlc, bf16) in {elapsed:.1f} s with set-up and "
+            f"evaluation; launches {launches}, implied {implied}, normalize {eval_normalizes} for {eval_batches} "
+            f"evaluation batches; train loss {train_logs[0]['train_heatmap_mse_loss']:.4f} -> "
+            f"{train_logs[-1]['train_heatmap_mse_loss']:.4f}; peak device memory {peak:.2f} GiB {card}")
+        check(launches == implied and implied_clahe >= 1, f"vitb_sam train() launches {launches}, implied {implied}")
+        check(eval_normalizes == eval_batches, f"normalize launched {eval_normalizes} times")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k), "a loss is not finite")
+        files_written = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error"])
+        slice_launches = {"warp": launches["warp"], "clahe": launches["clahe"]}
+        step_ms, device_ms, kernels, busy = sv_step_times(cfg, dm, "heatmap", "vitb_sam", rng)
+        log(f"phase 15a vitb_sam train step ({IMAGE} px, bf16, batch {TRAIN_BATCH}, dlc, backbone unfrozen): "
+            f"{step_ms:.3f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} frames/s, mean of 10 steps by the host clock; "
+            f"torch.profiler over 5 steps: {device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; evaluation wrote {files_written} "
+            f"{card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log("phase 15a largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+        rates, video_launches, vres = video_runs(model_dir, video, 3)
+        batches = math.ceil(SV_VIDEO_FRAMES / BATCH)
+        df = vres.predictions
+        check(df.shape == (SV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"vitb_sam video CSV: shape {df.shape} or non-finite values")
+        check(video_launches == {"normalize": batches, "decode": batches}, f"vitb_sam video launches {video_launches}")
+        slice_launches.update(video_launches)
+        kp_diff, conf_diff = card_vs_cpu_frames(model_dir, rng)
+        check(kp_diff <= SV_TOL_PX, f"vitb_sam predict_frame card vs CPU: {kp_diff} px")
+        log(f"phase 15a predict_on_video_file of the vitb_sam dir (soft-argmax, bf16, without metrics): "
+            f"{SV_VIDEO_FRAMES} frames of a 320x240 mp4 in {batches} batches of {BATCH}, launches {video_launches} in "
+            f"the first run; frames/s with the mp4's decode, the model loaded before: {rates[0]:.1f} in the first "
+            f"(cold) run, {', '.join(f'{r:.1f}' for r in rates[1:])} after it; predict_frame fp32 card (TF32 off) vs "
+            f"CPU on 2 frames with a bbox: keypoints max abs diff {kp_diff:.3e} px (limit {SV_TOL_PX}), confidences "
+            f"{conf_diff:.3e} {card}")
+
+        dark_dir = with_dark(model_dir, tmp / "sam_dark")
+        dark_rates, dark_launches, dres = video_runs(dark_dir, video, 1)
+        dark_df = dres.predictions
+        check(dark_df.shape == df.shape and np.isfinite(dark_df.to_numpy()).all(), "the DARK video CSV")
+        check(dark_launches == {"normalize": batches, "decode": 0}, f"DARK video launches {dark_launches}")
+        shift = float(np.abs(dark_df.to_numpy()[:, 0::3] - df.to_numpy()[:, 0::3]).max())
+        normalize_kernel.launches = decode_kernel.launches = 0
+        csv_result = Model.from_dir(dark_dir, device=DEVICE).predict_on_label_csv("CollectedData.csv")
+        csv_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+        check(csv_launches == {"normalize": eval_batches, "decode": 0}, f"DARK label CSV launches {csv_launches}")
+        check(np.isfinite(csv_result.predictions.iloc[:, :-1].to_numpy(float)).all(), "the DARK label CSV")
+        dark_kp, dark_conf = card_vs_cpu_frames(dark_dir, rng)
+        check(dark_kp <= SV_TOL_PX, f"DARK predict_frame card vs CPU: {dark_kp} px")
+        again = video_runs(model_dir, video, 1)[0][0]
+        log(f"phase 15a the vitb_sam dir with eval.decode_method dark: predict_on_video_file {dark_rates[0]:.1f} "
+            f"frames/s (first run; the soft-argmax dir again after it: {again:.1f}), launches {dark_launches}; x "
+            f"moved up to {shift:.2f} px from the soft-argmax's; predict_on_label_csv launches {csv_launches}; "
+            f"predict_frame fp32 card vs CPU: keypoints max abs diff {dark_kp:.3e} px (limit {SV_TOL_PX}), "
+            f"confidences {dark_conf:.3e} {card}")
+        predict_step_times(model_dir, card)
+
+        # -- 15b. the multiview transformer with vits_dinov3 -----------------------
+        mv_data = write_multiview_dataset(tmp / "mvdata", TRAIN_FRAMES, IMAGE, IMAGE, names, MV_VIEWS, seed=SEED)
+        session = write_multiview_videos(mv_data, "session1", 2 * BATCH, 240, 320, MV_VIEWS, n_blobs=KEYPOINTS,
+                                         seed=SEED)
+        cfg = multiview_config(mv_data, names, "smokemvv3", semi=False)
+        cfg.model.backbone = "vits_dinov3"
+        cfg.training.max_steps = cfg.training.min_steps = TRANSFORMER_MV_STEPS
+        cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [TRANSFORMER_MV_STEPS // 2,
+                                                                       TRANSFORMER_MV_STEPS - 1]
+        cfg.training.patch_mask = {"init_step": 0, "final_step": TRANSFORMER_MV_STEPS, "init_ratio": 0.1,
+                                   "final_ratio": 0.5}
+        n_img = TRAIN_BATCH * len(MV_VIEWS)
+        implied_clahe = len(clahe_fired_stacks(engine, TRANSFORMER_MV_STEPS, MV_SEED, n_img))
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, tmp / "mvv3", device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        mv_launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches, "decode": decode_kernel.launches}
+        dm = result.data_module
+        val_batches = len([h for h in result.history if "val_supervised_loss" in h]) * math.ceil(
+            len(dm.val_dataset) / dm.val_batch_size)
+        implied = {"warp": TRANSFORMER_MV_STEPS, "clahe": implied_clahe,
+                   "decode": TRANSFORMER_MV_STEPS + val_batches + math.ceil(TRAIN_FRAMES / dm.test_batch_size)}
+        losses = [h["train_heatmap_mse_loss"] for h in result.history if "train_heatmap_mse_loss" in h]
+        check(mv_launches == implied, f"vits_dinov3 multiview train() launches {mv_launches}, implied {implied}")
+        check(len(losses) == TRANSFORMER_MV_STEPS and all(np.isfinite(losses)), f"vits_dinov3 losses {losses}")
+        model = Model.from_dir(tmp / "mvv3", device=DEVICE)
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        mres = model.predict_on_video_file_multiview(session, compute_metrics=False)
+        mv_rate = 2 * BATCH / (time.perf_counter() - t0)
+        mv_video = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+        check(mv_video == {"normalize": 2, "decode": 2}, f"vits_dinov3 session launches {mv_video}")
+        for view in MV_VIEWS:
+            check(mres.predictions[view].shape == (2 * BATCH, 3 * KEYPOINTS)
+                  and np.isfinite(mres.predictions[view].to_numpy()).all(), f"vits_dinov3 session CSV of {view}")
+        frames = rng.integers(0, 256, (2, len(MV_VIEWS), 240, 320, 3), dtype=np.uint8)
+        res = {d: [Model.from_dir(tmp / "mvv3", precision="fp32", device=d).predict_frame(f) for f in frames]
+               for d in (DEVICE, "cpu")}
+        mv_kp = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(res[DEVICE], res["cpu"]))
+        check(mv_kp <= MV_TOL_PX, f"vits_dinov3 predict_frame card vs CPU: {mv_kp} px")
+        log(f"phase 15b multiview vits_dinov3 (2 views, RoPE tables tiled a view, the patch mask on): train() "
+            f"{TRANSFORMER_MV_STEPS} steps of {TRAIN_BATCH} x {len(MV_VIEWS)} in {elapsed:.1f} s with evaluation, "
+            f"launches {mv_launches}, implied {implied}, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"predict_on_video_file_multiview of a {2 * BATCH}-frame 2-view session: launches {mv_video}, "
+            f"{mv_rate:.1f} frames/s of a view with load and decode; predict_frame fp32 card vs CPU {mv_kp:.3e} px "
+            f"(limit {MV_TOL_PX}) {card}")
+
+        # -- 15c. vitb_dinov2 and vitb_sam2 from their published layouts -----------
+        for backbone, file_name in (("vitb_dinov2", "dinov2_vitb14"), ("vitb_sam2", "sam2_hiera_b+")):
+            state, path = files[file_name]
+            cfg = transformer_config(data, names, f"smoke{backbone}", backbone, TRANSFORMER_SHORT_STEPS, path)
+            cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [2]
+            t0 = time.perf_counter()
+            result = trainer.train(cfg, tmp / backbone, skip_evaluation=True, device=DEVICE)
+            elapsed = time.perf_counter() - t0
+            losses = [h["train_heatmap_mse_loss"] for h in result.history if "train_heatmap_mse_loss" in h]
+            check(len(losses) == TRANSFORMER_SHORT_STEPS and all(np.isfinite(losses)), f"{backbone} losses {losses}")
+            kp_diff, conf_diff = card_vs_cpu_frames(tmp / backbone, rng)
+            check(kp_diff <= SV_TOL_PX, f"{backbone} predict_frame card vs CPU: {kp_diff} px")
+            if backbone == "vitb_dinov2":
+                import torch.nn.functional as F
+
+                from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
+                from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
+
+                fresh = build_backbone(backbone, image_size=IMAGE)[0]
+                load_backbone_checkpoint(fresh, backbone, str(path), IMAGE)
+                w = state["embeddings.patch_embeddings.projection.weight"]
+                resized = F.interpolate(w.reshape(-1, 1, 14, 14), size=(16, 16), mode="bicubic", align_corners=True,
+                                        antialias=True).reshape(w.shape[0], 3, 16, 16)
+                check(torch.equal(fresh.patch_embed.weight, resized), "the DINOv2 patch projection 14 -> 16")
+                note = ("the patch projection resized 14 -> 16 (bicubic, align_corners, antialias), equal to "
+                        "F.interpolate's")
+            else:
+                note = "the container prefix vision_encoder.backbone. stripped, the neck skipped"
+            log(f"phase 15c {backbone} from {path.name} ({note}): train() {TRANSFORMER_SHORT_STEPS} steps in "
+                f"{elapsed:.1f} s, losses {', '.join(f'{x:.4f}' for x in losses)}; predict_frame fp32 card vs CPU: "
+                f"keypoints max abs diff {kp_diff:.3e} px, confidences {conf_diff:.3e} {card}")
+    return slice_launches
+
+
 def main() -> int:
     import torch
 
@@ -2624,6 +2957,7 @@ def main() -> int:
     context_inputs = context_kernel_checks(rng, engine, errors)
     multiview_inputs = multiview_kernel_checks(rng, engine, errors)
     single_view_inputs = sv_kernel_checks(rng, engine, errors)
+    transformer_inputs = sv_kernel_checks(rng, engine, errors, "vitb_sam", "ViT-B SAM", "15a")
 
     # the engine on the card vs the same call on the CPU, same draws
     frames_u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
@@ -2862,24 +3196,26 @@ def main() -> int:
     context_phase(rng, card)
     context_times(context_inputs, card)
     # the kernels line holds each kernel's launches on one of this slice's
-    # paths, EfficientNet-B0's (each earlier path checked its own above),
-    # beside its times at the shapes that path gives it; the decode's
-    # backward runs on no path of this slice and keeps the multiview
-    # transformer's (phase 13b)
+    # paths, the ViT-B SAM model's (each earlier path checked its own
+    # above), beside its times at the shapes that path gives it; the
+    # decode's backward runs on no path of this slice and keeps the
+    # multiview transformer's (phase 13b)
     mv_launches = multiview_phase(rng, card)
     mv_times = multiview_times(multiview_inputs, card)
-    launches = {**single_view_phase(rng, card), "decode_grad": mv_launches["decode_grad"]}
-    times = {**sv_times(single_view_inputs, card), "decode_grad": mv_times["decode_grad"]}
+    single_view_phase(rng, card)
+    sv_times(single_view_inputs, card)
+    launches = {**transformer_phase(rng, card), "decode_grad": mv_launches["decode_grad"]}
+    times = {**sv_times(transformer_inputs, card, "15d"), "decode_grad": mv_times["decode_grad"]}
     paths = {
-        "normalize": "14b the EfficientNet-B0 model's predict_on_video_file, first run: 1 a batch",
-        "decode": "14b the EfficientNet-B0 model's predict_on_video_file, first run: 1 a batch",
-        "warp": "14b the EfficientNet-B0 model's train(): 1 a step over 16 images",
-        "clahe": "14b the EfficientNet-B0 model's train(): 1 a step whose draws fire it",
+        "normalize": "15a the vitb_sam model's predict_on_video_file, first run: 1 a batch",
+        "decode": "15a the vitb_sam model's predict_on_video_file, first run: 1 a batch (0 on its DARK runs)",
+        "warp": "15a the vitb_sam model's train(): 1 a step over 16 images",
+        "clahe": "15a the vitb_sam model's train(): 1 a step whose draws fire it",
         "decode_grad": "13b the multiview model's semi-supervised train(): 1 a step",
     }
-    blocked = ("jax", "jaxlib", "flax", "optax", "lightning_pose_tpu")
+    blocked = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
-    check(not jax_modules, f"JAX or the JAX package was imported: {jax_modules[:5]}")
+    check(not jax_modules, f"JAX, the JAX package or transformers was imported: {jax_modules[:5]}")
 
     summary = [
         {

@@ -16,9 +16,10 @@ checkpoint through the parameter bridge, and serves predictions:
 
 Ported so far: the single-view ``heatmap`` and ``regression`` models, the
 temporal-context ``heatmap_mhcrnn`` model and the multiview transformer
-(``heatmap_multiview``, uncalibrated), with soft-argmax decode (none for
-regression, whose confidences are 1.0) and RGB transfer. The other options raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+(``heatmap_multiview``, uncalibrated), with every backbone the JAX package
+takes, the soft-argmax decode or ``eval.decode_method: dark`` (none for
+regression, whose confidences are 1.0) and RGB transfer. The other options
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -34,15 +35,19 @@ from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import (
     HeatmapTrackerMHCRNN,
     make_context_windows,
+    merge_heads_by_confidence,
     repeat_center_stack,
 )
 from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
 from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
+from lightning_pose_tpu_torch.ops.dark import run_dark_decode
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images_fused
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Model", "PredictStep", "resolve_device"]
+__all__ = ["DECODE_METHODS", "Model", "PredictStep", "decode_method_of", "resolve_device"]
+
+DECODE_METHODS = ("softargmax", "dark")
 
 _PRECISIONS = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
@@ -59,6 +64,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def decode_method_of(cfg) -> str:
+    """``cfg.eval.decode_method`` (default ``softargmax``), checked."""
+    method = str(cfg.eval.get("decode_method", "softargmax")).lower()
+    if method not in DECODE_METHODS:
+        raise ValueError(f"cfg.eval.decode_method must be softargmax|dark, got {method!r}")
+    return method
+
+
 def compute_dtype_for(precision: str | None) -> torch.dtype:
     """Compute dtype of a precision string; ``None`` means bf16."""
     key = (precision or "bf16").lower()
@@ -73,6 +86,9 @@ class PredictStep:
 
     normalize kernel -> tracker in ``compute_dtype`` (bf16 by autocast, with
     fp32 parameters and BatchNorm statistics) -> decode kernel -> bbox remap.
+    With ``decode_method="dark"`` the maps are decoded by
+    :func:`~lightning_pose_tpu_torch.ops.dark.run_dark_decode` (plain
+    PyTorch) instead, on every heatmap path; the decode kernel does not run.
     For the context model, a ``(T, h, w, 3)`` sequence becomes its ``T - 4``
     sliding windows and ``(B, 5, h, w, 3)`` stacks go in as they are (both
     as repeated centers under ``repeat_center``); the two heads' maps are
@@ -85,8 +101,13 @@ class PredictStep:
     inputs come on.
     """
 
-    def __init__(self, model: nn.Module, height: int, width: int, compute_dtype: torch.dtype):
+    def __init__(
+        self, model: nn.Module, height: int, width: int, compute_dtype: torch.dtype, decode_method: str = "softargmax"
+    ):
+        if decode_method not in DECODE_METHODS:
+            raise ValueError(f"decode_method must be softargmax|dark, got {decode_method!r}")
         self.model = model
+        self.decode_method = decode_method
         self.height = height
         self.width = width
         self.compute_dtype = compute_dtype
@@ -114,10 +135,18 @@ class PredictStep:
                 elif repeat:
                     images = repeat_center_stack(images, time_axis=1)
             heatmaps = self.model(images)
-        if self.is_context:
-            keypoints, confidences = self.model.decode_heads(heatmaps)
-        elif self.is_regression:
+        if self.is_regression:
             keypoints, confidences = heatmaps, RegressionTracker.confidences(heatmaps)
+        elif self.decode_method == "dark":
+            df = self.model.downsample_factor
+            if self.is_context:
+                keypoints, confidences = merge_heads_by_confidence(
+                    *run_dark_decode(heatmaps[0], df), *run_dark_decode(heatmaps[1], df)
+                )
+            else:
+                keypoints, confidences = run_dark_decode(heatmaps, df)
+        elif self.is_context:
+            keypoints, confidences = self.model.decode_heads(heatmaps)
         else:
             keypoints, confidences = self.model.decode(heatmaps)
         keypoints = model_to_frame_batch(keypoints, bbox, self.width, self.height, num_views=self.num_views)
@@ -186,15 +215,7 @@ class Model:
 
         cfg = self.cfg
         compute_dtype = compute_dtype_for(self.precision)
-        decode_method = str(cfg.eval.get("decode_method", "softargmax")).lower()
-        if decode_method == "dark":
-            raise NotImplementedError(
-                "DARK decoding is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
-            )
-        if decode_method != "softargmax":
-            raise ValueError(
-                f"cfg.eval.decode_method must be softargmax|dark, got {decode_method!r}"
-            )
+        decode_method = decode_method_of(cfg)
         module = get_model(cfg, num_keypoints=cfg.data.num_keypoints)
         ckpt_path = self.ckpt_path
         if ckpt_path is None:
@@ -207,6 +228,7 @@ class Model:
             height=int(cfg.data.image_resize_dims.height),
             width=int(cfg.data.image_resize_dims.width),
             compute_dtype=compute_dtype,
+            decode_method=decode_method,
         )
 
     # -- prediction entry points ------------------------------------------------

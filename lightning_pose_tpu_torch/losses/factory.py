@@ -117,8 +117,7 @@ class LossFactory:
         unknown = sorted(set(losses_params_dict) - set(classes))
         if unknown:
             raise NotImplementedError(
-                f"losses {unknown} are not ported yet (ROADMAP queue 1, items 6b-7: calibration and 3D, "
-                "remaining model families)"
+                f"losses {unknown} are not ported yet ({MULTIVIEW_HEATMAP_ITEM})"
             )
         self.loss_instance_dict: dict[str, Any] = {}
         for loss_name, params in losses_params_dict.items():

@@ -1,10 +1,10 @@
 """Backbone registry and constructor (counterpart of
 ``lightning_pose_tpu/models/backbones/factory.py``).
 
-The names and strides are the reference's. Ported: the ResNet family,
-EfficientNet b0-b2 and the plain ViTs (``vits_dino``, ``vitb_dino``,
-``vitb_imagenet``); the other names are recognised and raise
-``NotImplementedError``.
+The names and strides are the reference's; every name builds: the ResNet
+family, EfficientNet b0-b2, the plain ViTs (``vits_dino``, ``vitb_dino``,
+``vitb_imagenet``), DINOv2 and DINOv3, the SAM encoder and the SAM2 Hiera
+trunks.
 """
 
 from __future__ import annotations
@@ -12,8 +12,11 @@ from __future__ import annotations
 from torch import nn
 
 from lightning_pose_tpu_torch.models.backbones.efficientnet import EFFICIENTNET_CONFIGS, EfficientNet
+from lightning_pose_tpu_torch.models.backbones.hiera import HIERA_CONFIGS, Hiera
 from lightning_pose_tpu_torch.models.backbones.resnet import RESNET_CONFIGS, ResNet
 from lightning_pose_tpu_torch.models.backbones.vit import VIT_CONFIGS, ViT
+from lightning_pose_tpu_torch.models.backbones.vit_dino import DinoV2ViT, DinoV3ViT
+from lightning_pose_tpu_torch.models.backbones.vit_sam import SamViT
 
 __all__ = [
     "ALLOWED_BACKBONES",
@@ -79,48 +82,52 @@ BACKBONE_STRIDES: dict[str, int] = {
 }
 
 
-def make_transformer_module(backbone_arch: str, image_size: int = 256) -> tuple[ViT, int]:
-    """The module of a transformer backbone name and its feature count. The
-    plain ViT names (DINO, ImageNet) are ported; the position-embedding grid
-    is ``image_size / 16``, as in the JAX package."""
-    if backbone_arch.endswith(("_dinov2", "_dinov3", "_sam", "_sam2")):
-        raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
-        )
+def make_transformer_module(backbone_arch: str, image_size: int = 256) -> tuple[nn.Module, int]:
+    """The module of a transformer backbone name and its feature count:
+    the SAM2 Hiera trunk (``*_sam2``), the SAM encoder (``vitb_sam``),
+    DINOv2 and DINOv3 (``*_dinov2``, ``*_dinov3``) or the plain ViT (DINO,
+    ImageNet). A learned position grid is ``image_size / 16``, as in the
+    JAX package."""
+    if backbone_arch.endswith("_sam2"):
+        module = Hiera(**HIERA_CONFIGS[backbone_arch])
+        return module, module.out_features
     size_key = backbone_arch.split("_")[0]
     if size_key not in VIT_CONFIGS:
         raise NotImplementedError(f'"{backbone_arch}" transformer not supported yet')
     embed_dim, depth, num_heads, patch = VIT_CONFIGS[size_key]
-    module = ViT(
-        embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch,
-        pretrained_grid=int(image_size) // patch,
-    )
+    grid = int(image_size) // patch
+    if backbone_arch == "vitb_sam":
+        module = SamViT(embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch, pos_grid=grid)
+    elif backbone_arch.endswith("_dinov2"):
+        module = DinoV2ViT(embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch,
+                           pretrained_grid=grid)
+    elif backbone_arch.endswith("_dinov3"):
+        module = DinoV3ViT(embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch,
+                           num_register_tokens=4)
+    else:
+        module = ViT(embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch, pretrained_grid=grid)
     return module, embed_dim
 
 
-def build_backbone(backbone_arch: str, model_type: str = "heatmap") -> tuple[nn.Module, int]:
+def build_backbone(backbone_arch: str, model_type: str = "heatmap", image_size: int = 256) -> tuple[nn.Module, int]:
     """Build a backbone by name; returns ``(module, num output features)``.
 
     Weights are random until a checkpoint is loaded (into the whole model,
     or a local torch file into the backbone: ``models/backbones/pretrained``).
-    A regression model's backbone is globally pooled.
+    A regression model's convnet is globally pooled; a transformer's
+    learned position grid is made for ``image_size``.
     """
     if backbone_arch not in ALLOWED_BACKBONES:
         raise ValueError(
             f'"{backbone_arch}" is not a valid backbone; '
             f"allowed backbones: {sorted(ALLOWED_BACKBONES)}"
         )
+    if backbone_arch.startswith("vit"):
+        return make_transformer_module(backbone_arch, image_size)
     if backbone_arch.startswith("efficientnet"):
         variant = backbone_arch.split("_")[-1]
         module = EfficientNet(variant=variant, global_pool=(model_type == "regression"))
         return module, EFFICIENTNET_CONFIGS[variant][-1]
-    if backbone_arch.startswith("vit"):
-        # the multiview transformer builds its ViT through
-        # make_transformer_module; single-view trackers take convnets only
-        raise NotImplementedError(
-            f"single-view models with the {backbone_arch} backbone are not ported yet "
-            "(ROADMAP queue 1, item 7: remaining model families)"
-        )
     # all resnet50_* pose variants share the resnet50 architecture
     arch = "resnet50" if backbone_arch.startswith("resnet50_") else backbone_arch
     module = ResNet(arch=arch, global_pool=(model_type == "regression"))

@@ -20,12 +20,26 @@ bridge (``train/checkpoints.state_dict_from_flax``) to the port's names:
   ``ViTModel`` names, optionally under ``vit.`` or ``vit_mae.vit.``; the
   position embeddings are resized to the fine-tune grid (``image_size /
   16``) by fp32 bicubic with ``align_corners=False`` (torch's a = -0.75), as
-  HF's ``interpolate_pos_encoding`` does.
+  HF's ``interpolate_pos_encoding`` does;
+- DINOv2 (``*_dinov2``): HF ``Dinov2Model`` names; the patch-14 projection
+  is resized to 16 x 16 by bicubic with ``align_corners=True`` and
+  ``antialias=True``, the position table to the fine-tune grid as above;
+- DINOv3 (``*_dinov3``): HF ``DINOv3ViTModel`` names (RoPE has no
+  weights);
+- the SAM encoder (``vitb_sam``): HF ``SamVisionEncoder`` names, optionally
+  under ``vision_encoder.``; the 64 x 64 position table is resized to the
+  fine-tune grid by antialiased bicubic; the relative position tables and
+  the neck are skipped;
+- the SAM2 Hiera trunks (``*_sam2``): HF ``Sam2HieraDetModel`` names,
+  optionally under ``vision_encoder.backbone.`` or ``image_encoder.trunk.``
+  (stripped).
 
-Keys of the file that no layer takes (a classifier, a pooler, BatchNorm's
-``num_batches_tracked``) are logged and skipped, as the reference's
-``strict=False`` load does; a layer of the backbone that the file lacks
-raises, as the JAX package's ``from_state_dict`` does.
+The resizes call ``torch.nn.functional.interpolate``, as the JAX package's
+port does. Keys of the file that no layer takes (a classifier, a pooler,
+BatchNorm's ``num_batches_tracked``, a neck) are logged and skipped, as the
+reference's ``strict=False`` load does; a layer of the backbone that the
+file lacks raises with its name, as the JAX package's ``from_state_dict``
+does.
 """
 
 from __future__ import annotations
@@ -45,12 +59,14 @@ __all__ = [
     "load_backbone_checkpoint",
     "load_torch_checkpoint",
     "port_backbone_checkpoint",
+    "port_dinov2_state_dict",
+    "port_dinov3_state_dict",
     "port_efficientnet_state_dict",
+    "port_hiera_state_dict",
     "port_resnet_state_dict",
+    "port_sam_state_dict",
     "port_vit_state_dict",
 ]
-
-_TRANSFORMERS_NOT_PORTED = ("_dinov2", "_dinov3", "_sam", "_sam2")
 
 
 def _to_numpy(t: Any) -> np.ndarray:
@@ -161,6 +177,23 @@ def port_efficientnet_state_dict(state_dict: Mapping[str, Any], variant: str) ->
     return params, batch_stats
 
 
+def _dense(state_dict: Mapping[str, Any], prefix: str) -> dict:
+    """A torch ``Linear`` -> a flax ``Dense`` (the kernel transposed; the
+    bias where there is one)."""
+    out = {"kernel": _to_numpy(state_dict[f"{prefix}.weight"]).T}
+    if f"{prefix}.bias" in state_dict:
+        out["bias"] = _to_numpy(state_dict[f"{prefix}.bias"])
+    return out
+
+
+def _ln(state_dict: Mapping[str, Any], prefix: str) -> dict:
+    return {"scale": _to_numpy(state_dict[f"{prefix}.weight"]), "bias": _to_numpy(state_dict[f"{prefix}.bias"])}
+
+
+def _as_tensor(t: Any) -> torch.Tensor:
+    return t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+
+
 def port_vit_state_dict(state_dict: Mapping[str, Any], depth: int, num_heads: int) -> dict:
     """An HF ``ViTModel`` state dict (facebook/dino-*, vit-mae-*) -> the flax
     tree of the JAX package's ``ViT``: the attention's projections in
@@ -168,12 +201,6 @@ def port_vit_state_dict(state_dict: Mapping[str, Any], depth: int, num_heads: in
 
     def arr(key: str) -> np.ndarray:
         return _to_numpy(state_dict[key])
-
-    def ln(prefix: str) -> dict:
-        return {"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")}
-
-    def dense(prefix: str) -> dict:
-        return {"kernel": arr(f"{prefix}.weight").T, "bias": arr(f"{prefix}.bias")}
 
     cls_token = arr("embeddings.cls_token")
     embed_dim = cls_token.shape[-1]
@@ -196,7 +223,7 @@ def port_vit_state_dict(state_dict: Mapping[str, Any], depth: int, num_heads: in
     for i in range(depth):
         hf = f"encoder.layer.{i}"
         params[f"block{i}"] = {
-            "ln1": ln(f"{hf}.layernorm_before"),
+            "ln1": _ln(state_dict, f"{hf}.layernorm_before"),
             "attn": {
                 "query": qkv(f"{hf}.attention.attention.query"),
                 "key": qkv(f"{hf}.attention.attention.key"),
@@ -206,17 +233,20 @@ def port_vit_state_dict(state_dict: Mapping[str, Any], depth: int, num_heads: in
                     "bias": arr(f"{hf}.attention.output.dense.bias"),
                 },
             },
-            "ln2": ln(f"{hf}.layernorm_after"),
-            "mlp": {"fc1": dense(f"{hf}.intermediate.dense"), "fc2": dense(f"{hf}.output.dense")},
+            "ln2": _ln(state_dict, f"{hf}.layernorm_after"),
+            "mlp": {
+                "fc1": _dense(state_dict, f"{hf}.intermediate.dense"),
+                "fc2": _dense(state_dict, f"{hf}.output.dense"),
+            },
         }
-    params["ln"] = ln("layernorm")
+    params["ln"] = _ln(state_dict, "layernorm")
     return params
 
 
 def _resize_token_pos_embed(pos: Any, target_grid: int, num_prefix: int = 1) -> np.ndarray:
     """A ``(1, prefix + g*g, D)`` position-embedding table resized to
     ``target_grid``: fp32 bicubic, ``align_corners=False``."""
-    p = pos if isinstance(pos, torch.Tensor) else torch.as_tensor(np.asarray(pos))
+    p = _as_tensor(pos)
     src = int(round(float(p.shape[1] - num_prefix) ** 0.5))
     if src == target_grid:
         return _to_numpy(p)
@@ -226,6 +256,133 @@ def _resize_token_pos_embed(pos: Any, target_grid: int, num_prefix: int = 1) -> 
     grid_pos = F.interpolate(grid_pos.float(), size=(target_grid, target_grid), mode="bicubic", align_corners=False)
     grid_pos = grid_pos.permute(0, 2, 3, 1).reshape(1, target_grid * target_grid, d)
     return _to_numpy(torch.cat([prefix.float(), grid_pos], dim=1))
+
+
+def _resize_patch_kernel(weight: Any, new_size: int) -> np.ndarray:
+    """An OIHW patch-embedding kernel resized to ``new_size`` x ``new_size``
+    (bicubic, ``align_corners=True``, ``antialias=True``), as HWIO."""
+    w = _as_tensor(weight)
+    o, i, kh, kw = w.shape
+    if (kh, kw) != (new_size, new_size):
+        w = F.interpolate(w.reshape(o * i, 1, kh, kw).float(), size=(new_size, new_size), mode="bicubic",
+                          align_corners=True, antialias=True).reshape(o, i, new_size, new_size)
+    return _conv_kernel(w)
+
+
+def port_dinov2_state_dict(state_dict: Mapping[str, Any], depth: int, patch_size: int = 16) -> dict:
+    """An HF ``Dinov2Model`` state dict (facebook/dinov2-*) -> the flax tree
+    of the JAX package's ``DinoV2ViT``, the patch projection resized to
+    ``patch_size``."""
+    params: dict[str, Any] = {
+        "cls_token": _to_numpy(state_dict["embeddings.cls_token"]),
+        "pos_embed": _to_numpy(state_dict["embeddings.position_embeddings"]),
+        "patch_embed": {
+            "kernel": _resize_patch_kernel(state_dict["embeddings.patch_embeddings.projection.weight"], patch_size),
+            "bias": _to_numpy(state_dict["embeddings.patch_embeddings.projection.bias"]),
+        },
+        "ln": _ln(state_dict, "layernorm"),
+    }
+    for i in range(depth):
+        hf = f"encoder.layer.{i}"
+        params[f"block{i}"] = {
+            "ln1": _ln(state_dict, f"{hf}.norm1"),
+            "query": _dense(state_dict, f"{hf}.attention.attention.query"),
+            "key": _dense(state_dict, f"{hf}.attention.attention.key"),
+            "value": _dense(state_dict, f"{hf}.attention.attention.value"),
+            "out": _dense(state_dict, f"{hf}.attention.output.dense"),
+            "ls1": {"lambda": _to_numpy(state_dict[f"{hf}.layer_scale1.lambda1"])},
+            "ln2": _ln(state_dict, f"{hf}.norm2"),
+            "fc1": _dense(state_dict, f"{hf}.mlp.fc1"),
+            "fc2": _dense(state_dict, f"{hf}.mlp.fc2"),
+            "ls2": {"lambda": _to_numpy(state_dict[f"{hf}.layer_scale2.lambda1"])},
+        }
+    return params
+
+
+def port_dinov3_state_dict(state_dict: Mapping[str, Any], depth: int) -> dict:
+    """An HF ``DINOv3ViTModel`` state dict -> the flax tree of the JAX
+    package's ``DinoV3ViT`` (register tokens; RoPE has no weights)."""
+    params: dict[str, Any] = {
+        "cls_token": _to_numpy(state_dict["embeddings.cls_token"]),
+        "register_tokens": _to_numpy(state_dict["embeddings.register_tokens"]),
+        "patch_embed": {
+            "kernel": _conv_kernel(state_dict["embeddings.patch_embeddings.weight"]),
+            "bias": _to_numpy(state_dict["embeddings.patch_embeddings.bias"]),
+        },
+        "ln": _ln(state_dict, "norm"),
+    }
+    for i in range(depth):
+        hf = f"layer.{i}"
+        params[f"block{i}"] = {
+            "ln1": _ln(state_dict, f"{hf}.norm1"),
+            "q_proj": _dense(state_dict, f"{hf}.attention.q_proj"),
+            "k_proj": _dense(state_dict, f"{hf}.attention.k_proj"),
+            "v_proj": _dense(state_dict, f"{hf}.attention.v_proj"),
+            "o_proj": _dense(state_dict, f"{hf}.attention.o_proj"),
+            "ls1": {"lambda": _to_numpy(state_dict[f"{hf}.layer_scale1.lambda1"])},
+            "ln2": _ln(state_dict, f"{hf}.norm2"),
+            "up_proj": _dense(state_dict, f"{hf}.mlp.up_proj"),
+            "down_proj": _dense(state_dict, f"{hf}.mlp.down_proj"),
+            "ls2": {"lambda": _to_numpy(state_dict[f"{hf}.layer_scale2.lambda1"])},
+        }
+    return params
+
+
+def port_sam_state_dict(state_dict: Mapping[str, Any], depth: int, finetune_grid: int) -> dict:
+    """An HF ``SamVisionEncoder`` state dict (``vision_encoder.*`` of
+    facebook/sam-vit-*, the prefix stripped) -> the flax tree of the JAX
+    package's ``SamViT``: the ``(1, 64, 64, D)`` position table resized to
+    ``finetune_grid`` by antialiased bicubic; no relative position tables,
+    no neck."""
+    pos = _as_tensor(state_dict["pos_embed"])
+    if pos.shape[1] != finetune_grid:
+        pos = F.interpolate(pos.permute(0, 3, 1, 2).float(), size=(finetune_grid, finetune_grid), mode="bicubic",
+                            antialias=True).permute(0, 2, 3, 1)
+    params: dict[str, Any] = {
+        "pos_embed": _to_numpy(pos),
+        "patch_embed": {
+            "kernel": _conv_kernel(state_dict["patch_embed.projection.weight"]),
+            "bias": _to_numpy(state_dict["patch_embed.projection.bias"]),
+        },
+    }
+    for i in range(depth):
+        hf = f"layers.{i}"
+        params[f"block{i}"] = {
+            "ln1": _ln(state_dict, f"{hf}.layer_norm1"),
+            "qkv": _dense(state_dict, f"{hf}.attn.qkv"),
+            "proj": _dense(state_dict, f"{hf}.attn.proj"),
+            "ln2": _ln(state_dict, f"{hf}.layer_norm2"),
+            "lin1": _dense(state_dict, f"{hf}.mlp.lin1"),
+            "lin2": _dense(state_dict, f"{hf}.mlp.lin2"),
+        }
+    return params
+
+
+def port_hiera_state_dict(state_dict: Mapping[str, Any], num_blocks: int) -> dict:
+    """An HF ``Sam2HieraDetModel`` state dict (the trunk of
+    facebook/sam2.1-hiera-*, its container prefix stripped) -> the flax
+    tree of the JAX package's ``Hiera``; the position tables NCHW -> NHWC."""
+    params: dict[str, Any] = {
+        "pos_embed": _to_numpy(state_dict["pos_embed"]).transpose(0, 2, 3, 1),
+        "pos_embed_window": _to_numpy(state_dict["pos_embed_window"]).transpose(0, 2, 3, 1),
+        "patch_embed": {
+            "kernel": _conv_kernel(state_dict["patch_embed.projection.weight"]),
+            "bias": _to_numpy(state_dict["patch_embed.projection.bias"]),
+        },
+    }
+    for i in range(num_blocks):
+        hf = f"blocks.{i}"
+        block: dict[str, Any] = {
+            "ln1": _ln(state_dict, f"{hf}.layer_norm1"),
+            "attn": {"qkv": _dense(state_dict, f"{hf}.attn.qkv"), "proj": _dense(state_dict, f"{hf}.attn.proj")},
+            "ln2": _ln(state_dict, f"{hf}.layer_norm2"),
+            "fc1": _dense(state_dict, f"{hf}.mlp.proj_in"),
+            "fc2": _dense(state_dict, f"{hf}.mlp.proj_out"),
+        }
+        if f"{hf}.proj.weight" in state_dict:
+            block["proj"] = _dense(state_dict, f"{hf}.proj")
+        params[f"block{i}"] = block
+    return params
 
 
 class _ReadKeys(dict):
@@ -252,14 +409,20 @@ def _strip_to_submodel(state_dict: Mapping[str, Any], prefixes: list[str]) -> tu
 
 def _port(backbone_arch: str, state_dict: Mapping[str, Any], image_size: int) -> tuple[dict, set[str]]:
     """The flax trees of a backbone's state dict and the keys of
-    ``state_dict`` they were made from."""
+    ``state_dict`` they were made from. A transformer tensor the file lacks
+    raises ``ValueError`` naming it."""
+    try:
+        return _port_family(backbone_arch, state_dict, image_size)
+    except KeyError as e:
+        raise ValueError(f"the {backbone_arch} state dict lacks {e.args[0]!r}") from None
+
+
+def _port_family(backbone_arch: str, state_dict: Mapping[str, Any], image_size: int) -> tuple[dict, set[str]]:
     from lightning_pose_tpu_torch.models.backbones import vit
+    from lightning_pose_tpu_torch.models.backbones.hiera import HIERA_CONFIGS
     from lightning_pose_tpu_torch.models.backbones.resnet import RESNET_CONFIGS
 
-    if backbone_arch.endswith(_TRANSFORMERS_NOT_PORTED):
-        raise NotImplementedError(
-            f"{backbone_arch} is not ported yet (ROADMAP queue 1, item 7: remaining model families)"
-        )
+    grid = image_size // 16
     if backbone_arch.startswith(("resnet", "efficientnet")):
         sd = _ReadKeys(state_dict)
         if backbone_arch.startswith("resnet"):
@@ -269,19 +432,36 @@ def _port(backbone_arch: str, state_dict: Mapping[str, Any], image_size: int) ->
         else:
             params, batch_stats = port_efficientnet_state_dict(sd, backbone_arch.split("_")[-1])
         return {"params": params, "batch_stats": batch_stats}, sd.read
+    if backbone_arch.endswith("_sam2"):
+        sub, prefix = _strip_to_submodel(state_dict, ["vision_encoder.backbone.", "image_encoder.trunk."])
+        sd = _ReadKeys(sub)
+        params = port_hiera_state_dict(sd, sum(HIERA_CONFIGS[backbone_arch]["blocks_per_stage"]))
+        return {"params": params}, {prefix + k for k in sd.read}
     _, depth, num_heads, _ = vit.VIT_CONFIGS[backbone_arch.split("_")[0]]
+    if backbone_arch == "vitb_sam":
+        sub, prefix = _strip_to_submodel(state_dict, ["vision_encoder."])
+        sd = _ReadKeys(sub)
+        return {"params": port_sam_state_dict(sd, depth, finetune_grid=grid)}, {prefix + k for k in sd.read}
+    if backbone_arch.endswith(("_dinov2", "_dinov3")):
+        sd = _ReadKeys(state_dict)
+        if backbone_arch.endswith("_dinov3"):
+            return {"params": port_dinov3_state_dict(sd, depth)}, sd.read
+        params = port_dinov2_state_dict(sd, depth, patch_size=16)
+        params["pos_embed"] = _resize_token_pos_embed(params["pos_embed"], grid)
+        return {"params": params}, sd.read
     # lightning's MAE checkpoints prefix with 'vit_mae.vit.', HF's with 'vit.'
     sub, prefix = _strip_to_submodel(state_dict, ["vit_mae.vit.", "vit."])
     sd = _ReadKeys(sub)
     params = port_vit_state_dict(sd, depth, num_heads)
-    params["pos_embed"] = _resize_token_pos_embed(params["pos_embed"], image_size // 16)
+    params["pos_embed"] = _resize_token_pos_embed(params["pos_embed"], grid)
     return {"params": params}, {prefix + k for k in sd.read}
 
 
 def port_backbone_checkpoint(backbone_arch: str, checkpoint_path: str, image_size: int = 256) -> dict:
     """A local torch checkpoint of ``backbone_arch`` -> ``{"params": tree}``
     (and ``"batch_stats"`` for convnets), flax trees of the backbone alone.
-    A ViT's position embeddings are resized to ``image_size // 16``."""
+    A ViT's, DINOv2's or SAM's position table is resized to ``image_size //
+    16``."""
     return _port(backbone_arch, load_torch_checkpoint(checkpoint_path), image_size)[0]
 
 

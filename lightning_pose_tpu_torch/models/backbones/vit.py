@@ -151,8 +151,11 @@ class ViT(nn.Module):
         tokens = tokens.flatten(2).transpose(1, 2)
         return tokens + self.resized_pos_embed((gh, gw))[:, 1:], (gh, gw)
 
-    def encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The blocks and the final LayerNorm over a ``(B, N, D)`` sequence."""
+    def encode_tokens(
+        self, tokens: torch.Tensor, grid: tuple[int, int] | None = None, num_views: int = 1
+    ) -> torch.Tensor:
+        """The blocks and the final LayerNorm over a ``(B, N, D)`` sequence
+        (``grid`` and ``num_views`` are DINOv3's and unused here)."""
         for i in range(self.depth):
             tokens = getattr(self, f"block{i}")(tokens)
         return self.ln(tokens)

@@ -63,14 +63,16 @@ def init_like_flax(module: nn.Module) -> nn.Module:
     """Re-initialise ``module`` in place as flax initialises the JAX
     package's modules: every ``nn.Conv2d`` kernel from ``lecun_normal``
     (a normal of variance ``1/fan_in``, ``fan_in = in_channels * kh * kw``,
-    truncated at two standard deviations) and bias zero; the ViT's dense
-    layers the same with their flax fan-in (``D`` for the query, key and
-    value kernels, ``H * Dh`` for the attention's output); BatchNorm and
-    LayerNorm scale 1, bias 0, statistics 0 and 1. Transposed convs (the
-    heatmap head) keep their Xavier-uniform init, and a layer that defines
-    ``reset_like_flax`` (the context head's CRNN; the ViT's tokens and
-    position embeddings and the view embeddings, normal(0.02))
-    re-initialises its own parameters after that. Draws from torch's
+    truncated at two standard deviations) and bias zero; the transformers'
+    dense layers the same with their flax fan-in (``D`` for the plain ViT's
+    query, key and value kernels, ``H * Dh`` for its attention's output, a
+    ``Linear``'s ``in_features``); BatchNorm and LayerNorm scale 1, bias 0,
+    statistics 0 and 1. Transposed convs (the heatmap head) keep their
+    Xavier-uniform init, LayerScale its 1.0 and the SAM and Hiera position
+    tables their zeros; a layer that defines ``reset_like_flax`` (the
+    context head's CRNN; the ViTs' CLS, register tokens and learned
+    position tables and the view embeddings, normal(0.02)) re-initialises
+    its own parameters after that. Draws from torch's
     default generator."""
 
     def lecun_normal(weight: torch.Tensor, fan_in: int) -> None:
@@ -85,7 +87,8 @@ def init_like_flax(module: nn.Module) -> nn.Module:
                     nn.init.zeros_(layer.bias)
             elif vit_fan_in(layer) is not None:
                 lecun_normal(layer.weight, vit_fan_in(layer))
-                nn.init.zeros_(layer.bias)
+                if layer.bias is not None:
+                    nn.init.zeros_(layer.bias)
             elif isinstance(layer, (nn.BatchNorm2d, nn.LayerNorm)):
                 layer.reset_parameters()
     for layer in module.modules():
@@ -105,9 +108,9 @@ def build_model(
 ) -> nn.Module:
     """Build a tracker module from explicit settings. ``context_repeat``
     (context model only): encode each stack's center frame once.
-    ``num_views`` and ``image_size`` (the multiview transformer only): its
-    views and the side its position-embedding grid is made for;
-    ``num_keypoints`` counts one view's keypoints."""
+    ``num_views`` (the multiview transformer only): its views;
+    ``image_size``: the side a transformer's learned position grid
+    is made for; ``num_keypoints`` counts one view's keypoints."""
     model_type = normalize_model_type(model_type)
     if model_type not in ALLOWED_MODEL_TYPES:
         raise ValueError(
@@ -132,6 +135,7 @@ def build_model(
                 num_keypoints=num_keypoints,
                 downsample_factor=downsample_factor,
                 context_repeat=context_repeat,
+                image_size=image_size,
             )
         )
     return init_like_flax(
@@ -139,6 +143,7 @@ def build_model(
             backbone_arch=backbone,
             num_keypoints=num_keypoints,
             downsample_factor=downsample_factor,
+            image_size=image_size,
         )
     )
 

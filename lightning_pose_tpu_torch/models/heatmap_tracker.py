@@ -1,5 +1,7 @@
 """Heatmap tracker: backbone + heatmap head, single-frame (counterpart of
-``lightning_pose_tpu/models/heatmap_tracker.py``)."""
+``lightning_pose_tpu/models/heatmap_tracker.py``). Any backbone name: a
+convnet or a transformer, whose token grid the head takes as a feature
+map (stride 16, or 32 for the SAM2 Hiera trunks)."""
 
 from __future__ import annotations
 
@@ -22,10 +24,11 @@ class HeatmapTracker(nn.Module):
         backbone_arch: str = "resnet50",
         num_keypoints: int = 17,
         downsample_factor: int = 2,
+        image_size: int = 256,
     ) -> None:
         super().__init__()
         self.downsample_factor = downsample_factor
-        self.backbone, num_features = build_backbone(backbone_arch, model_type="heatmap")
+        self.backbone, num_features = build_backbone(backbone_arch, model_type="heatmap", image_size=image_size)
         self.head = HeatmapHead(
             backbone_arch=backbone_arch,
             in_channels=num_features,

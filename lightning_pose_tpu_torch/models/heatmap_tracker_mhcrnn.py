@@ -82,13 +82,14 @@ class HeatmapTrackerMHCRNN(nn.Module):
         num_keypoints: int = 17,
         downsample_factor: int = 2,
         context_repeat: bool = False,
+        image_size: int = 256,
     ) -> None:
         super().__init__()
         if downsample_factor != 2:
             raise ValueError("heatmap_mhcrnn only supports downsample_factor=2")
         self.downsample_factor = downsample_factor
         self.context_repeat = context_repeat
-        self.backbone, num_features = build_backbone(backbone_arch, model_type="heatmap")
+        self.backbone, num_features = build_backbone(backbone_arch, model_type="heatmap", image_size=image_size)
         self.head = HeatmapMHCRNNHead(
             backbone_arch=backbone_arch,
             in_channels=num_features,

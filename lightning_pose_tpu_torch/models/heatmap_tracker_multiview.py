@@ -4,7 +4,9 @@
 Each view's patch tokens get a learned view embedding, the views are
 concatenated into one sequence of ``V * N`` tokens so that attention runs
 across views, and one heatmap head, shared by the views, decodes each
-view's token grid. The maps come out view-major: channel ``v * K + k`` is
+view's token grid. The backbone is a plain ViT, DINOv2 or DINOv3 (whose
+RoPE tables are tiled once a view, with no prefix tokens in the
+sequence). The maps come out view-major: channel ``v * K + k`` is
 keypoint ``k`` of view ``v``, as the JAX model's last axis.
 """
 
@@ -65,7 +67,7 @@ class HeatmapTrackerMultiviewTransformer(nn.Module):
         tokens, (gh, gw) = self.backbone.embed(images.reshape(b * v, *images.shape[2:]))
         n, d = tokens.shape[1:]
         tokens = tokens.reshape(b, v, n, d) + self.view_embeddings[None, :, None, :]
-        tokens = self.backbone.encode_tokens(tokens.reshape(b, v * n, d))
+        tokens = self.backbone.encode_tokens(tokens.reshape(b, v * n, d), grid=(gh, gw), num_views=v)
         feats = tokens.reshape(b * v, gh, gw, d).permute(0, 3, 1, 2)
         heatmaps = self.head(feats)
         return heatmaps.reshape(b, v * self.num_keypoints, *heatmaps.shape[-2:])

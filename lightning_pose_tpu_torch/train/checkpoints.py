@@ -30,7 +30,11 @@ The ViT's names are the same in both packages too (``patch_embed``,
 the multiview model's ``view_embeddings``): a ``Dense`` kernel ``(in, out)``
 is a ``Linear`` weight ``(out, in)``, the attention's ``DenseGeneral``
 kernels keep their 3-d flax shapes, and a LayerNorm's ``scale`` is its
-``weight``. A BatchNorm is a module with batch statistics.
+``weight``. So are the other transformers' (DINOv2, DINOv3, SAM, SAM2
+Hiera: ``Dense`` layers, LayerScale's ``lambda``, ``register_tokens``, and
+the SAM and Hiera position tables ``pos_embed``/``pos_embed_window`` in
+flax's ``(1, h, w, C)``, which the port keeps). A BatchNorm is a module
+with batch statistics.
 
 The optimizer state is carried across both ways as well
 (:func:`optimizer_state_to_flax`, :func:`load_optimizer_state_from_flax`).
@@ -349,8 +353,10 @@ def _is_grouped_deconv(modules: tuple[str, ...]) -> bool:
     return modules[-1] in _GROUPED_DECONVS
 
 
-# parameters that are not layer weights: the ViT's tokens and embeddings
-_EMBEDDINGS = ("cls_token", "pos_embed", "view_embeddings")
+# parameters that are not layer weights, kept in their flax shapes: the
+# transformers' tokens and position tables, the view embeddings and
+# LayerScale's lambda
+_EMBEDDINGS = ("cls_token", "register_tokens", "pos_embed", "pos_embed_window", "view_embeddings", "lambda")
 
 
 def _kernel_from_flax(modules: tuple[str, ...], value: np.ndarray, path: tuple[str, ...]) -> np.ndarray:

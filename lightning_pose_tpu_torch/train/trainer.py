@@ -65,7 +65,16 @@ with its metric CSVs and legacy copies in the model directory (one a view,
 ``predictions_<view>*.csv``, for a multiview model), the same for the
 ``_new`` and ``_test`` label files where they exist, and the test videos (a
 multiview model's sessions, one CSV a view) into ``video_preds/`` when
-``eval.predict_vids_after_training`` is set.
+``eval.predict_vids_after_training`` is set. The evaluation decodes by
+``eval.decode_method`` (soft-argmax, or DARK), as ``Model.from_dir`` then
+does; the JAX package's evaluation decodes by soft-argmax whatever the
+setting (``ROADMAP.md``, "Found in the reference").
+
+Every backbone the JAX package takes trains here: the transformers'
+position tables, tokens and LayerScale are parameters of the backbone
+group. ``heatmap_mhcrnn`` with a stride-16 backbone (a ViT, DINOv2, DINOv3
+or SAM) raises at its first step, where the JAX package's step fails too:
+its multi-frame maps come out twice the size of its single-frame maps.
 """
 
 from __future__ import annotations
@@ -83,7 +92,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from lightning_pose_tpu_torch.api.model import PredictStep, resolve_device
+from lightning_pose_tpu_torch.api.model import PredictStep, decode_method_of, resolve_device
 from lightning_pose_tpu_torch.callbacks import PATCH_SIZE, apply_patch_mask, patch_mask_ratio
 from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
@@ -392,6 +401,14 @@ def make_step_fns(
             if is_context:
                 # both heads against the same targets: a batch of 2B
                 # (reference heatmap_tracker_mhcrnn.py:154-174)
+                if outputs[0].shape != outputs[1].shape:
+                    # the CRNN head upsamples as for a stride-32 backbone;
+                    # the JAX package's step fails on these shapes too
+                    raise ValueError(
+                        f"the context model's single-frame maps are {tuple(outputs[0].shape[-2:])} and its "
+                        f"multi-frame maps {tuple(outputs[1].shape[-2:])}: heatmap_mhcrnn trains only with a "
+                        "stride-32 backbone"
+                    )
                 outputs = torch.cat(outputs, dim=0)
                 targets = torch.cat([targets, targets], dim=0)
                 keypoints = torch.cat([keypoints, keypoints], dim=0)
@@ -600,6 +617,8 @@ def train(
     from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
     _check_ported(cfg)
+    # the evaluation decodes as Model.from_dir(model_dir) will
+    decode_method = decode_method_of(cfg)
     device = resolve_device(device)
     model_dir = Path(model_dir or os.getcwd())
     model_dir.mkdir(parents=True, exist_ok=True)
@@ -830,7 +849,7 @@ def train(
         model.eval()
         trained = TrainedModel(
             cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history,
-            device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE),
+            device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE, decode_method),
         )
         if not skip_evaluation:
             _evaluate_on_training_dataset(trained)

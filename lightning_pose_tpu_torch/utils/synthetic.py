@@ -16,12 +16,16 @@ the vertical axis by ``v * 90 / (V - 1)`` degrees), frames under
 ``labeled-data/<session>_<view>/``, one ``CollectedData_<view>.csv`` a view,
 and frame-synchronized ``videos/<session>_<view>.mp4``.
 
-``torchvision_resnet_state_dict``, ``torchvision_efficientnet_state_dict``
-and ``hf_vit_state_dict`` make seeded random weights with the key names and
-shapes of the published checkpoints that ``model.backbone_checkpoint``
-reads (torchvision's ResNet and EfficientNet, HF's ``ViTModel``), their
-classifier or pooler included: files to load where no pretrained weights
-can be downloaded.
+``torchvision_resnet_state_dict``, ``torchvision_efficientnet_state_dict``,
+``hf_vit_state_dict``, ``hf_dinov2_state_dict``, ``hf_dinov3_state_dict``,
+``hf_sam_vision_state_dict`` and ``hf_sam2_hiera_state_dict`` make seeded
+random weights with the key names and shapes of the published checkpoints
+that ``model.backbone_checkpoint`` reads (torchvision's ResNet and
+EfficientNet, HF's ``ViTModel``, ``Dinov2Model``, ``DINOv3ViTModel``, the
+SAM vision encoder and the SAM2 Hiera trunk), their classifier, pooler,
+mask token, relative position tables or neck included: files to load
+where no pretrained weights can be downloaded. None needs
+``transformers``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ from pathlib import Path
 import numpy as np
 
 __all__ = [
+    "hf_dinov2_state_dict",
+    "hf_dinov3_state_dict",
+    "hf_sam2_hiera_state_dict",
+    "hf_sam_vision_state_dict",
     "hf_vit_state_dict",
     "torchvision_efficientnet_state_dict",
     "torchvision_resnet_state_dict",
@@ -368,3 +376,153 @@ def hf_vit_state_dict(
     w.weight("pooler.dense.weight", (d, d))
     w.bias("pooler.dense.bias", d)
     return {prefix + k: v for k, v in w.out.items()}
+
+
+def _linear(w: _Weights, key: str, n_out: int, n_in: int, bias: bool = True) -> None:
+    w.weight(f"{key}.weight", (n_out, n_in))
+    if bias:
+        w.bias(f"{key}.bias", n_out)
+
+
+def _layer_scale(w: _Weights, key: str, n: int) -> None:
+    w.put(key, w.rng.uniform(0.1, 1.0, n).astype(np.float32))
+
+
+def hf_dinov2_state_dict(embed_dim: int = 384, depth: int = 12, grid: int = 16, patch: int = 14, seed: int = 0) -> dict:
+    """A state dict with the names and shapes of HF's ``Dinov2Model``
+    (facebook/dinov2-small at ``embed_dim`` 384): ``embeddings.{cls_token,
+    mask_token, position_embeddings, patch_embeddings.projection}`` with a
+    ``grid x grid`` position table and a ``patch x patch`` projection,
+    ``encoder.layer.{i}.{norm1, attention.attention.{query, key, value},
+    attention.output.dense, layer_scale1.lambda1, norm2, mlp.fc1, mlp.fc2,
+    layer_scale2.lambda1}`` and ``layernorm``; seeded random values."""
+    w = _Weights(seed)
+    d = embed_dim
+    w.put("embeddings.cls_token", (0.02 * w.rng.standard_normal((1, 1, d))).astype(np.float32))
+    w.put("embeddings.mask_token", np.zeros((1, d), np.float32))
+    w.put("embeddings.position_embeddings", (0.02 * w.rng.standard_normal((1, grid * grid + 1, d))).astype(np.float32))
+    w.weight("embeddings.patch_embeddings.projection.weight", (d, 3, patch, patch))
+    w.bias("embeddings.patch_embeddings.projection.bias", d)
+    for i in range(depth):
+        layer = f"encoder.layer.{i}"
+        w.norm(f"{layer}.norm1", d, batch_norm=False)
+        for name in ("attention.attention.query", "attention.attention.key", "attention.attention.value",
+                     "attention.output.dense"):
+            _linear(w, f"{layer}.{name}", d, d)
+        _layer_scale(w, f"{layer}.layer_scale1.lambda1", d)
+        w.norm(f"{layer}.norm2", d, batch_norm=False)
+        _linear(w, f"{layer}.mlp.fc1", 4 * d, d)
+        _linear(w, f"{layer}.mlp.fc2", d, 4 * d)
+        _layer_scale(w, f"{layer}.layer_scale2.lambda1", d)
+    w.norm("layernorm", d, batch_norm=False)
+    return w.out
+
+
+def hf_dinov3_state_dict(embed_dim: int = 384, depth: int = 12, registers: int = 4, seed: int = 0) -> dict:
+    """A state dict with the names and shapes of HF's ``DINOv3ViTModel``
+    (facebook/dinov3-vits16 at ``embed_dim`` 384): ``embeddings.{cls_token,
+    mask_token, register_tokens, patch_embeddings}``, ``layer.{i}.{norm1,
+    attention.{q_proj, k_proj (no bias), v_proj, o_proj},
+    layer_scale1.lambda1, norm2, mlp.{up_proj, down_proj},
+    layer_scale2.lambda1}`` and ``norm``; seeded random values."""
+    w = _Weights(seed)
+    d = embed_dim
+    w.put("embeddings.cls_token", (0.02 * w.rng.standard_normal((1, 1, d))).astype(np.float32))
+    w.put("embeddings.mask_token", np.zeros((1, 1, d), np.float32))
+    w.put("embeddings.register_tokens", (0.02 * w.rng.standard_normal((1, registers, d))).astype(np.float32))
+    w.weight("embeddings.patch_embeddings.weight", (d, 3, 16, 16))
+    w.bias("embeddings.patch_embeddings.bias", d)
+    for i in range(depth):
+        layer = f"layer.{i}"
+        w.norm(f"{layer}.norm1", d, batch_norm=False)
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(w, f"{layer}.attention.{name}", d, d, bias=name != "k_proj")
+        _layer_scale(w, f"{layer}.layer_scale1.lambda1", d)
+        w.norm(f"{layer}.norm2", d, batch_norm=False)
+        _linear(w, f"{layer}.mlp.up_proj", 4 * d, d)
+        _linear(w, f"{layer}.mlp.down_proj", d, 4 * d)
+        _layer_scale(w, f"{layer}.layer_scale2.lambda1", d)
+    w.norm("norm", d, batch_norm=False)
+    return w.out
+
+
+def hf_sam_vision_state_dict(
+    embed_dim: int = 768,
+    depth: int = 12,
+    num_heads: int = 12,
+    grid: int = 64,
+    window: int = 14,
+    global_attn_indexes: tuple[int, ...] = (2, 5, 8, 11),
+    seed: int = 0,
+    prefix: str = "vision_encoder.",
+) -> dict:
+    """A state dict with the names and shapes of the SAM vision encoder
+    (facebook/sam-vit-base at ``embed_dim`` 768, under ``prefix`` as in a
+    whole ``SamModel``): ``patch_embed.projection``, a ``(1, grid, grid,
+    D)`` ``pos_embed``, ``layers.{i}.{layer_norm1, attn.{qkv, proj,
+    rel_pos_h, rel_pos_w}, layer_norm2, mlp.{lin1, lin2}}`` and the neck
+    (``neck.{conv1, layer_norm1, conv2, layer_norm2}``); seeded random
+    values."""
+    w = _Weights(seed)
+    d = embed_dim
+    hd = d // num_heads
+    w.weight("patch_embed.projection.weight", (d, 3, 16, 16))
+    w.bias("patch_embed.projection.bias", d)
+    w.put("pos_embed", (0.02 * w.rng.standard_normal((1, grid, grid, d))).astype(np.float32))
+    for i in range(depth):
+        layer = f"layers.{i}"
+        w.norm(f"{layer}.layer_norm1", d, batch_norm=False)
+        _linear(w, f"{layer}.attn.qkv", 3 * d, d)
+        _linear(w, f"{layer}.attn.proj", d, d)
+        size = grid if i in global_attn_indexes else window
+        for axis in ("h", "w"):
+            w.put(f"{layer}.attn.rel_pos_{axis}", (0.02 * w.rng.standard_normal((2 * size - 1, hd))).astype(np.float32))
+        w.norm(f"{layer}.layer_norm2", d, batch_norm=False)
+        _linear(w, f"{layer}.mlp.lin1", 4 * d, d)
+        _linear(w, f"{layer}.mlp.lin2", d, 4 * d)
+    w.weight("neck.conv1.weight", (256, d, 1, 1))
+    w.norm("neck.layer_norm1", 256, batch_norm=False)
+    w.weight("neck.conv2.weight", (256, 256, 3, 3))
+    w.norm("neck.layer_norm2", 256, batch_norm=False)
+    return {prefix + k: v for k, v in w.out.items()}
+
+
+def hf_sam2_hiera_state_dict(name: str = "vitt_sam2", seed: int = 0, prefix: str = "vision_encoder.backbone.") -> dict:
+    """A state dict with the names and shapes of the SAM2 Hiera trunk
+    (``Sam2HieraDetModel`` of facebook/sam2.1-hiera-tiny, -small or
+    -base-plus for ``vitt_sam2``, ``vits_sam2``, ``vitb_sam2``) under
+    ``prefix`` as in a whole ``Sam2Model``: ``patch_embed.projection`` (7 x
+    7), ``pos_embed`` ``(1, C, bkg, bkg)`` and ``pos_embed_window`` ``(1, C,
+    8, 8)``, ``blocks.{i}.{layer_norm1, proj (at a stage change), attn.{qkv,
+    proj}, layer_norm2, mlp.{proj_in, proj_out}}``, with a neck beside it
+    (``vision_encoder.neck.*``); seeded random values."""
+    from lightning_pose_tpu_torch.models.backbones.hiera import HIERA_CONFIGS
+
+    config = HIERA_CONFIGS[name]
+    c0, blocks_per_stage = config["embed_dim"], config["blocks_per_stage"]
+    w = _Weights(seed)
+    w.weight("patch_embed.projection.weight", (c0, 3, 7, 7))
+    w.bias("patch_embed.projection.bias", c0)
+    bkg = config["bkg_size"]
+    w.put("pos_embed", (0.02 * w.rng.standard_normal((1, c0, bkg, bkg))).astype(np.float32))
+    w.put("pos_embed_window", (0.02 * w.rng.standard_normal((1, c0, 8, 8))).astype(np.float32))
+    total = 0
+    for stage, n_blocks in enumerate(blocks_per_stage):
+        for block in range(n_blocks):
+            dim_out = c0 * 2**stage
+            dim = c0 * 2 ** (stage - 1) if stage > 0 and block == 0 else dim_out
+            key = f"blocks.{total}"
+            w.norm(f"{key}.layer_norm1", dim, batch_norm=False)
+            if dim != dim_out:
+                _linear(w, f"{key}.proj", dim_out, dim)
+            _linear(w, f"{key}.attn.qkv", 3 * dim_out, dim)
+            _linear(w, f"{key}.attn.proj", dim_out, dim_out)
+            w.norm(f"{key}.layer_norm2", dim_out, batch_norm=False)
+            _linear(w, f"{key}.mlp.proj_in", 4 * dim_out, dim_out)
+            _linear(w, f"{key}.mlp.proj_out", dim_out, 4 * dim_out)
+            total += 1
+    out = {prefix + k: v for k, v in w.out.items()}
+    neck = _Weights(seed + 1)
+    neck.weight("vision_encoder.neck.convs.0.weight", (256, c0 * 8, 1, 1))
+    neck.bias("vision_encoder.neck.convs.0.bias", 256)
+    return {**out, **neck.out}

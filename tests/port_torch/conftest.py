@@ -87,6 +87,23 @@ def _seeded_jax_variables(module, *inputs, seed: int = 0, **kwargs) -> dict:
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def _load_flax_backbone(module, params: dict):
+    """``module`` (a port backbone) loaded from the flax tree of a backbone
+    alone, through the checkpoint bridge, in eval mode."""
+    from lightning_pose_tpu_torch.train.checkpoints import state_dict_from_flax
+
+    state = {k.removeprefix("backbone."): v for k, v in state_dict_from_flax({"backbone": params}, {}).items()}
+    module.load_state_dict(state, strict=True)
+    return module.eval()
+
+
+@pytest.fixture()
+def load_flax_backbone():
+    """``fn(port backbone, flax params) -> backbone``: the flax tree of a
+    backbone loaded through the checkpoint bridge."""
+    return _load_flax_backbone
+
+
 @pytest.fixture(scope="module")
 def few_torch_threads():
     """Two torch threads for a module's tests: the suite runs several

@@ -964,3 +964,65 @@ def test_resumed_run_on_card_continues_the_run(cuda_device, tmp_path):
     assert int(ckpt["opt_state"]["inner_states"]["head"]["inner_state"]["0"]["count"]) == 8
     assert {h["epoch"] for h in result.history} == {2, 3}
     assert all(bool(torch.isfinite(p).all()) for p in result.model.parameters())
+
+
+# -- transformer backbones and the DARK decode --------------------------------------------
+
+# a transformer's token map at fp32 (TF32 off) on the card against the CPU:
+# the same terms summed in another order (cuBLAS, the attention kernel),
+# within this share of the largest output
+BACKBONE_REL_TOL = 1e-4
+# DARK on the card against the CPU: the Gaussian convolutions sum in
+# another order; keypoints in pixels
+DARK_PX_TOL = 1e-4
+DARK_CONF_TOL = 1e-5
+
+
+@pytest.mark.parametrize("backbone", ["vits_dino", "vits_dinov2", "vits_dinov3", "vitb_sam", "vitt_sam2"])
+def test_transformer_backbone_on_card_matches_cpu(cuda_device, backbone):
+    """The full-width backbone at 256 px (DINOv2 with LayerScale, DINOv3
+    with RoPE, SAM with padded 14 x 14 windows, Hiera with its q-pool
+    stages), flax's init from one seed, on the card against the CPU."""
+    from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
+    from lightning_pose_tpu_torch.models.factory import init_like_flax
+
+    torch.manual_seed(0)
+    cpu = init_like_flax(build_backbone(backbone, image_size=256)[0]).eval()
+    card = build_backbone(backbone, image_size=256)[0]
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda_device).eval()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 3, 256, 256)).astype(np.float32))
+    with torch.no_grad():
+        ref = cpu(x)
+        out = card(x.to(cuda_device)).cpu()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=0, atol=BACKBONE_REL_TOL * float(ref.abs().max()))
+
+
+def test_dark_decode_on_card_matches_cpu(cuda_device):
+    from lightning_pose_tpu_torch.ops.dark import run_dark_decode
+
+    maps = _peaked_maps(96, 17, 64, 64, seed=6)
+    kp_ref, conf_ref = run_dark_decode(maps, 2)
+    kp, conf = run_dark_decode(maps.to(cuda_device), 2)
+    assert kp.is_cuda and conf.is_cuda
+    torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=DARK_PX_TOL)
+    torch.testing.assert_close(conf.cpu(), conf_ref, rtol=0, atol=DARK_CONF_TOL)
+
+
+def test_dark_predict_step_on_card_launches_no_decode(cuda_device):
+    """A DARK prediction on the card: one normalize launch, no decode
+    launch, keypoints as the CPU's at fp32."""
+    torch.manual_seed(0)
+    model = build_model("heatmap", "resnet18", 4).eval()
+    with torch.no_grad():
+        for name in ("deconv0", "deconv1"):
+            getattr(model.head, name).weight.mul_(300.0)
+    frames, bbox = _frames((4, 128, 128, 3), seed=7), torch.tensor([[0.0, 0.0, 128.0, 128.0]] * 4)
+    kp_ref, _ = PredictStep(model, 128, 128, torch.float32, "dark")(frames, bbox)
+    card = PredictStep(model.to(cuda_device), 128, 128, torch.float32, "dark")
+    normalizes, decodes = normalize_kernel.launches, decode_kernel.launches
+    kp, _ = card(frames.to(cuda_device), bbox.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (normalize_kernel.launches - normalizes, decode_kernel.launches - decodes) == (1, 0)
+    torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=KP_TOL_PX)

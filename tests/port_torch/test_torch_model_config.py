@@ -86,6 +86,13 @@ CASES = [
                   _set("model.backbone", "efficientnet_b0")(cfg)),
      False),
     ("multiview_regression", lambda cfg: (_multiview(cfg), _set("model.model_type", "regression")(cfg)), False),
+    *[(f"transformer_{name}", _set("model.backbone", name), False)
+      for name in ("vits_dinov2", "vitb_dinov3", "vitb_sam", "vitb_sam2", "vits_sam2", "vitt_sam2")],
+    ("mhcrnn_vit", lambda cfg: (_set("model.model_type", "heatmap_mhcrnn")(cfg),
+                                _set("model.backbone", "vits_dino")(cfg)), False),
+    ("multiview_dinov3", lambda cfg: (_multiview(cfg), _set("model.backbone", "vits_dinov3")(cfg)), False),
+    ("multiview_sam", lambda cfg: (_multiview(cfg), _set("model.backbone", "vitb_sam")(cfg)), False),
+    ("decode_dark", _set("eval.decode_method", "dark"), False),
 ]
 
 

@@ -147,8 +147,6 @@ def test_heatmap_tracker_and_decode_match_flax(df, peaked_jax_variables):
 @pytest.mark.parametrize(
     "name, error",
     [
-        ("vits_dinov2", NotImplementedError),
-        ("vitb_sam", NotImplementedError),
         ("resnet9000", ValueError),
     ],
 )
@@ -164,9 +162,10 @@ def test_resnet50_pose_variants_share_the_architecture():
 
 @pytest.mark.parametrize("model_type", ["regression", "heatmap_multiview", "heatmap_multiview_transformer"])
 def test_build_model_rejects_unported_types(model_type):
-    # the multiview transformer is ported with the plain ViTs; its DINOv2
-    # backbone is not. The regression model is ported; a ViT backbone is a
-    # limit of the JAX package too (no ROADMAP item)
-    backbone = "vits_dino" if model_type == "regression" else "vits_dinov2"
-    with pytest.raises(NotImplementedError, match="ViT backbones" if model_type == "regression" else "ROADMAP"):
+    # the multiview transformer takes the ViT, DINOv2 and DINOv3 names, not
+    # SAM's; a ViT backbone in the regression model is a limit of the JAX
+    # package too (no ROADMAP item)
+    backbone = "vits_dino" if model_type == "regression" else "vitb_sam"
+    error = NotImplementedError if model_type == "regression" else ValueError
+    with pytest.raises(error, match="ViT backbones" if model_type == "regression" else "not supported for multiview"):
         build_model(model_type, backbone, 3, num_views=2)

@@ -211,8 +211,7 @@ def test_head_at_stride_16_is_one_deconv():
 
 
 @pytest.mark.parametrize("backbone, error, match", [
-    ("vits_dinov2", NotImplementedError, "item 7"),
-    ("vitb_dinov3", NotImplementedError, "item 7"),
+    ("vitt_sam2", ValueError, "not supported for multiview"),
     ("vitb_sam", ValueError, "not supported for multiview"),
     ("resnet50", ValueError, "not supported for multiview"),
 ])

@@ -1,8 +1,10 @@
-"""The port imports no JAX and nothing of the JAX package: its whole
-package, its predict path, its supervised and semi-supervised training
-paths, a pretrained backbone load and a resume run in a subprocess where
-importing jax, jaxlib, flax, optax or ``lightning_pose_tpu`` raises, and no
-module of the port names one of them in an import."""
+"""The port imports no JAX, nothing of the JAX package and not
+``transformers``: its whole package, its predict path, its supervised and
+semi-supervised training paths, a pretrained backbone load, a resume run,
+and a transformer backbone's train() with a DARK prediction run in a
+subprocess where importing jax, jaxlib, flax, optax, transformers or
+``lightning_pose_tpu`` raises, and no module of the port names one of them
+in an import."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "lightning_pose_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")
 
 _BLOCK_JAX = """
 import sys
@@ -70,6 +72,8 @@ def test_no_port_module_names_jax_or_the_jax_package():
             "ops/interpolate.py"} <= names
     assert {"models/backbones/pretrained.py", "models/backbones/efficientnet.py", "models/regression_tracker.py",
             "models/heads/regression.py"} <= names
+    assert {"models/backbones/vit_dino.py", "models/backbones/vit_sam.py", "models/backbones/hiera.py",
+            "ops/dark.py"} <= names
     assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
@@ -98,11 +102,12 @@ for name in names:
     importlib.import_module(name)
 blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate",
-       "backbones.pretrained", "backbones.efficientnet", "regression_tracker", "heads.regression"}
+       "backbones.pretrained", "backbones.efficientnet", "regression_tracker", "heads.regression",
+       "backbones.vit_dino", "backbones.vit_sam", "backbones.hiera", "ops.dark"}
 print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
     count, n_blocked, n_new = out.split()
-    assert int(count) >= 30 and n_blocked == "0" and n_new == "8"
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "12"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -395,3 +400,48 @@ print(json.dumps({{
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"finite": True, "confidence": [1.0, 1.0, 1.0], "epochs": [1], "jax": []}
     assert (tmp_path / "model" / "tb_logs" / "nojaxpre" / "version_0" / "profiler_trace.json").is_file()
+
+
+def test_transformer_training_and_dark_prediction_run_without_jax(tmp_path):
+    """train() of a single-view heatmap model with a SAM2 Hiera trunk (width
+    cut to 16) from a file in the published key layout, then DARK
+    prediction from the directory it wrote."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.models.backbones import hiera
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import hf_sam2_hiera_state_dict, write_labeled_dataset
+
+hiera.HIERA_CONFIGS["vitt_sam2"] = dict(hiera.HIERA_CONFIGS["vitt_sam2"], embed_dim=16)
+names = ["a", "b", "c"]
+data = write_labeled_dataset({str(tmp_path / "data")!r}, 5, 130, 140, names, seed=1)
+torch.save(hf_sam2_hiera_state_dict("vitt_sam2", seed=2), {str(tmp_path / "hiera.pt")!r})
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.backbone = "vitt_sam2"
+cfg.model.backbone_checkpoint = {str(tmp_path / "hiera.pt")!r}
+cfg.model.model_name = "nojaxvit"
+cfg.eval.decode_method = "dark"
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = 1
+cfg.training.unfreezing_epoch = 0
+cfg.training.lr_scheduler_params.multisteplr.milestones = [1]
+train(cfg, {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
+frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cpu").predict_frame(
+    np.zeros((130, 140, 3), dtype=np.uint8))
+print(json.dumps({{
+    "finite": bool(np.isfinite(frame["keypoints"]).all()),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"finite": True, "jax": []}

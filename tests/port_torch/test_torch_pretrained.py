@@ -148,5 +148,10 @@ def test_a_missing_layer_or_an_unported_family_raises(tmp_path):
     with pytest.raises(ValueError, match="does not have"):
         load_backbone_checkpoint(_port_backbone("resnet18", IMAGE), "resnet18",
                                  _write(tmp_path, "r50.pth", torchvision_resnet_state_dict("resnet50", seed=7)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load_backbone_checkpoint(torch.nn.Linear(1, 1), "vits_dinov2", path)
+    # a transformer file that lacks a tensor raises naming it
+    from lightning_pose_tpu_torch.utils.synthetic import hf_dinov2_state_dict
+
+    sd = hf_dinov2_state_dict(64, 12, seed=7)
+    del sd["encoder.layer.1.mlp.fc2.weight"]
+    with pytest.raises(ValueError, match="encoder.layer.1.mlp.fc2.weight"):
+        load_backbone_checkpoint(torch.nn.Linear(1, 1), "vits_dinov2", _write(tmp_path, "dinov2.pth", sd))

@@ -116,8 +116,6 @@ def _variant(model_dir: Path, tmp_path: Path, override: str) -> Path:
     "override, call",
     [
         ("eval.video_transfer_format=yuv420", "video"),
-        ("eval.decode_method=dark", "frame"),
-        ("model.backbone=vits_dinov2", "frame"),
     ],
 )
 def test_unported_options_raise(slice_model_dir, slice_video, tmp_path, override, call):
