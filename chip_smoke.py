@@ -180,8 +180,36 @@ Phases, each fatal on failure:
      d. each kernel at 15a's shapes beside its plain version and bound (the
         decode on vitb_sam maps (96, 17, 64, 64)). Phase 3 also holds the
         decode on a random-init vitb_sam model's maps against its plain
-        version. The JSON summary counts 15a's launches (the decode's
-        backward runs on no path of phase 14 or 15 and keeps 13b's).
+        version.
+ 16. calibrated multiview training: the repo's multiview config as it ships
+     (scripts/configs/config_default_multiview.yaml: vits_dino, 2 views of
+     17 keypoints, 256 px, batch 16, dlc with imgaug_3d, both supervised 3D
+     losses), on a synthetic set of 320x240 frames from two cameras 90
+     degrees apart whose anipose TOML the dataset discovers:
+     a. train(cfg, dir) of 10 steps with its evaluation; launches of the warp
+        (twice a step: the 3D warp, then dlc's, over 32 view images), the
+        decode (once a step, with gradient, and once a validation and an
+        evaluation batch), its backward (once a step), CLAHE (once a step
+        whose draws fire it) and the normalize (once an evaluation batch),
+        each against that count; the 3D losses logged; the step's ms, busy
+        share, largest entries and memory (torch.profiler); the 3D stage
+        alone (the 3D augmentation with its warp, the triangulations, eigh
+        forward and backward, the reprojection-loss maps) by operator and
+        as a share of the step's device time;
+     b. the 3D stage in float64 on 4 cameras (6 pairs) with label NaNs, the
+        card against the CPU within 1e-9 of each output's largest entry (the
+        reprojection loss's float32 maps within 1e-4), the median over pairs
+        equal to numpy's nanmedian; fp32 against float64 triangulation on 4
+        cameras 20 scene widths away, card and CPU (each pair's 3D error,
+        the reprojection in pixels); the fp32 reprojected keypoints of the
+        trained model's predictions, card against CPU, in model pixels;
+     c. each kernel at 16a's shapes against its plain version and timed
+        beside its bound (and F.grid_sample for the warp): the normalize on
+        an evaluation batch (32, 2, 256, 256, 3), the warp over 32 view
+        images at the 3D augmentation's coordinates, CLAHE at 16a's fired
+        planes, the decode and its backward on the trained model's
+        (16, 34, 64, 64) maps. The JSON summary holds 16a's launches and
+        16c's times.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX, of
 the JAX package ``lightning_pose_tpu`` or of ``transformers`` and fails if
@@ -195,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -217,6 +246,10 @@ FP32_FLOPS_PER_S = 67e12
 # lines: written ones would be written back during the timed launch) and
 # keeps the card busy while the host enqueues the next launch
 FLUSH_BYTES = 512 * 2**20
+# and then a device-side wait of about 0.25 ms at the H100's 1.98 GHz, for
+# a host that enqueues slower than the flush runs (without it, one
+# normalize launch read 0.118 ms on a slow host and 0.0152 ms on another)
+HOST_COVER_CYCLES = 500_000
 
 NORMALIZE_MAX_ULP = 1  # bf16 ulps, kernel (one FMA) vs plain ((x/255 - mean)/std)
 DECODE_KP_TOL_PX = 0.05
@@ -298,6 +331,21 @@ SV_TOL_PX = 0.05
 # DINOv2 and SAM2 runs
 TRANSFORMER_MV_STEPS = 6
 TRANSFORMER_SHORT_STEPS = 4
+# phase 16, calibrated multiview training: the data seed of train()'s draws,
+# the log weight of both supervised 3D losses (the repo's multiview config
+# sets 3.0 for the reprojection loss), the frames' (height, width); the 3D
+# stage card vs CPU in float64 within 1e-9 of each output's largest entry
+# (the reprojection loss's Gaussian maps are float32 in both packages, and
+# its gradient's entries are float32 sums that cancel: two CPU runs whose
+# threads split the sums differently gave 1.0e-5 of the largest entry, so
+# 1e-4), and the fp32 step's reprojected keypoints card vs CPU in model
+# pixels
+CAL_SEED = 7
+CAL_LOG_WEIGHT = 3.0
+CAL_FRAME_HW = (240, 320)
+CAL_F64_REL_TOL = 1e-9
+CAL_MAPS_REL_TOL = 1e-4
+CAL_REPROJ_TOL_PX = 0.05
 # the device of phase 14's and 15's paths (the checks of phase 3 are the card's)
 DEVICE = "cuda"
 
@@ -340,13 +388,16 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events around ``iters`` calls."""
+    """Mean device time of ``fn()`` in ms, by CUDA events around ``iters``
+    calls back to back, after a device-side wait long enough for the host
+    to enqueue them all (HOST_COVER_CYCLES a call)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_COVER_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -357,7 +408,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def flushed_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     """Mean device time of one ``fn()`` in ms, by CUDA events around each
-    call alone, with the L2 evicted before each (a sum over FLUSH_BYTES)."""
+    call alone, with the L2 evicted before each (a sum over FLUSH_BYTES).
+    A device-side wait of HOST_COVER_CYCLES after the flush keeps the card
+    busy while the host enqueues the start event and ``fn``'s launch, so
+    that a slow host's launch latency (a Triton launch from Python takes
+    tens of microseconds) does not fall between the events."""
     import torch
 
     scratch = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -368,6 +423,7 @@ def flushed_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     for start, end in pairs:
         torch.sum(scratch, dim=0, out=total)
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start.record()
         fn()
         end.record()
@@ -530,30 +586,45 @@ def forced_draws(engine, b: int, seed: int):
     return draws
 
 
-def check_warp(engine, images, draws, label: str) -> float:
-    """The warp kernel against its plain version on the engine's sampling
-    coordinates for ``draws``, and on the clamped ones of the motion-blur
-    path; returns the largest error."""
+def warp_coords(engine, draws, n: int, dev) -> dict:
+    """The engine's sampling coordinates for ``draws`` and the clamped ones
+    of the motion-blur path, by name."""
+    import torch
+
+    _, coords, _, _ = engine.sampling_grid(draws, n, dev)
+    h, w = coords.shape[1:3]
+    clamped = torch.cat([coords[..., 0:1].clamp(0, w - 1), coords[..., 1:2].clamp(0, h - 1)], dim=-1)
+    return {"dlc grid": coords.contiguous(), "clamped": clamped.contiguous()}
+
+
+def check_warp_at(images, coords: dict, label: str, phase: str = "3") -> float:
+    """The warp kernel against its plain version at each of ``coords``
+    (name -> ``(N, H, W, 2)``); returns the largest error."""
     import torch
 
     from lightning_pose_tpu_torch.ops import warp_kernel
 
-    _, coords, _, _ = engine.sampling_grid(draws, images.shape[0], images.device)
     h, w = images.shape[1:3]
-    clamped = torch.cat([coords[..., 0:1].clamp(0, w - 1), coords[..., 1:2].clamp(0, h - 1)], dim=-1)
     err = 0.0
-    for name, c in (("dlc grid", coords.contiguous()), ("clamped", clamped.contiguous())):
+    for name, c in coords.items():
         out = warp_kernel.warp(images, c)
         ref = warp_kernel.warp_plain(images, c)
         torch.cuda.synchronize()
         e = float((out - ref).abs().max())
         outside = float(((c[..., 0] < 0) | (c[..., 0] > w - 1) | (c[..., 1] < 0) | (c[..., 1] > h - 1)).float().mean())
-        log(f"phase 3 warp {label} {name} {tuple(images.shape)}: max abs err {e:.3e} gray (limit {GRAY_TOL}); "
+        log(f"phase {phase} warp {label} {name} {tuple(images.shape)}: max abs err {e:.3e} gray (limit {GRAY_TOL}); "
             f"{outside:.1%} of the taps' pixels outside the frame")
         check(bool(torch.isfinite(out).all()), f"warp {label} {name}: non-finite output")
         check(e <= GRAY_TOL, f"warp {label} {name} disagrees with its plain version")
         err = max(err, e)
     return err
+
+
+def check_warp(engine, images, draws, label: str) -> float:
+    """The warp kernel against its plain version on the engine's sampling
+    coordinates for ``draws``, and on the clamped ones of the motion-blur
+    path; returns the largest error."""
+    return check_warp_at(images, warp_coords(engine, draws, images.shape[0], images.device), label)
 
 
 def check_clahe(images, clip, g: int) -> tuple[float, tuple]:
@@ -1228,18 +1299,24 @@ def context_config(cfg, name: str):
     return cfg
 
 
-def clahe_fired_stacks(engine, steps: int, seed: int = CONTEXT_SEED, b: int = TRAIN_BATCH) -> list[int]:
+def clahe_fired_stacks(engine, steps: int, seed: int = CONTEXT_SEED, b: int = TRAIN_BATCH,
+                       extra_draw=None) -> list[int]:
     """The stacks (or view images) that CLAHE fires on in each step of a
     supervised train() of ``b`` draws a step from ``seed`` (phase 12a: 16
-    stacks, 15 planes each; 13a: 32 view images, 3 planes each), in the
-    steps whose draws (the same seeded host generator as train()'s) fire
-    it at all: one CLAHE launch each."""
+    stacks, 15 planes each; 13a and 16a: 32 view images, 3 planes each), in
+    the steps whose draws (the same seeded host generator as train()'s) fire
+    it at all: one CLAHE launch each. ``extra_draw(gen)``: the step's other
+    draws after the 2D ones (16a: the 3D augmentation's)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     field_gen = torch.Generator("cuda").manual_seed(seed)
     p = engine.spec["clahe"]["p"]
-    fired = [int((engine.sample(gen, b, field_gen).clahe_u < p).sum()) for _ in range(steps)]
+    fired = []
+    for _ in range(steps):
+        fired.append(int((engine.sample(gen, b, field_gen).clahe_u < p).sum()))
+        if extra_draw is not None:
+            extra_draw(gen)
     return [n for n in fired if n]
 
 
@@ -1582,72 +1659,89 @@ def multiview_maps(rng, dev):
     return hm.float().contiguous()
 
 
-def multiview_kernel_checks(rng, engine, errors: dict) -> dict:
-    """Phase 3 at the multiview transformer's shapes: the normalize on a
-    ``(96, 2, 256, 256, 3)`` video batch (one launch over both views), the
-    warp over a step's 32 view images, CLAHE over the planes of the view
-    images that phase 13a's draws fire it on (one input a fired step), the
-    decode on a video batch's ``(96, 34, 64, 64)`` maps and its backward on
-    an unlabeled window's ``(32, 34, 64, 64)``, each against its plain
-    version. Returns the inputs, for the times."""
+def multiview_kernel_inputs(rng, engine) -> dict:
+    """Phase 3's inputs at the multiview transformer's shapes: a
+    ``(96, 2, 256, 256, 3)`` video batch, a step's 32 view images with
+    dlc's coordinates (and their clamped twins), the view images that phase
+    13a's draws fire CLAHE on, a video batch's ``(96, 34, 64, 64)`` maps and
+    an unlabeled window's ``(32, 34, 64, 64)``."""
     import torch
-
-    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel, warp_kernel
 
     dev = torch.device("cuda", 0)
     nv = len(MV_VIEWS)
+    n_img = TRAIN_BATCH * nv
     frames = torch.from_numpy(rng.integers(0, 256, (BATCH, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+    images = torch.from_numpy(rng.uniform(0, 255, (n_img, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    hm_window = multiview_maps(rng, dev).repeat(2, 1, 1, 1).contiguous()  # a 32-frame window's maps
+    return {"frames": frames, "images": images,
+            "coords": warp_coords(engine, forced_draws(engine, n_img, SEED + 8), n_img, dev),
+            "fired": clahe_fired_stacks(engine, MV_STEPS, MV_SEED, n_img),
+            "hm_video": hm_window.repeat(3, 1, 1, 1).contiguous(),  # a video batch's 96 frames
+            "hm_window": hm_window}
+
+
+def multiview_kernel_checks(rng, errors: dict, inputs: dict, phase: str = "3", what: str = "multiview",
+                            grad_seed: int = SEED + 9) -> dict:
+    """Each kernel at a multiview path's shapes against its plain version:
+    the normalize on ``inputs["frames"]`` (one launch over every view), the
+    warp over ``images`` at each of ``coords`` (name -> coordinates),
+    CLAHE over random planes of the ``fired`` view images of each fired
+    step (one input a step), the decode on ``hm_video`` and its backward on
+    ``hm_window``. Phase 3 takes ``multiview_kernel_inputs``, phase 16c
+    16a's. Returns the inputs of the times (the first coordinates)."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    dev = torch.device("cuda", 0)
+    frames, images, hm_video, hm_window = inputs["frames"], inputs["images"], inputs["hm_video"], inputs["hm_window"]
+    n, nv = frames.shape[:2]
     out = normalize_kernel.normalize(frames, torch.bfloat16)
     ref = normalize_kernel.normalize_plain(frames, torch.bfloat16)
     torch.cuda.synchronize()
     ulps = bf16_ulps(out, ref)
-    log(f"phase 3 normalize multiview {tuple(frames.shape)} -> {tuple(out.shape)} bf16: {ulps} bf16 ulps from the "
-        f"plain version (limit {NORMALIZE_MAX_ULP})")
-    check(out.shape == (BATCH, nv, 3, IMAGE, IMAGE) and ulps <= NORMALIZE_MAX_ULP,
-          "normalize of a multiview batch disagrees with its plain version")
+    log(f"phase {phase} normalize {what} {tuple(frames.shape)} -> {tuple(out.shape)} bf16: {ulps} bf16 ulps from "
+        f"the plain version (limit {NORMALIZE_MAX_ULP})")
+    check(out.shape == (n, nv, 3, IMAGE, IMAGE) and ulps <= NORMALIZE_MAX_ULP,
+          f"normalize of a {what} batch disagrees with its plain version")
     errors["normalize"] = max(errors["normalize"], float((out.float() - ref.float()).abs().max()))
 
-    n_img = TRAIN_BATCH * nv
-    draws = forced_draws(engine, n_img, SEED + 8)
-    _, coords, _, _ = engine.sampling_grid(draws, n_img, dev)
-    coords = coords.contiguous()
-    images = torch.from_numpy(rng.uniform(0, 255, (n_img, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
-    errors["warp"] = max(errors["warp"], check_warp(engine, images, draws, f"multiview {TRAIN_BATCH}x{nv} views"))
+    label = f"{what} {images.shape[0] // nv}x{nv} views"
+    errors["warp"] = max(errors["warp"], check_warp_at(images, inputs["coords"], label, phase))
 
     clahe_inputs = []
-    for n_fired in clahe_fired_stacks(engine, MV_STEPS, MV_SEED, n_img):
+    for n_fired in inputs["fired"]:
         planes = torch.from_numpy(rng.uniform(0, 255, (n_fired, 3, IMAGE, IMAGE)).astype(np.float32))
         clip = torch.from_numpy(rng.uniform(1.0, 8.0, n_fired).astype(np.float32))
         err, x_lut = check_clahe(planes.to(dev), clip.to(dev), 16)
         errors["clahe"] = max(errors["clahe"], err)
         clahe_inputs.append(x_lut)
 
-    hm_window = multiview_maps(rng, dev).repeat(2, 1, 1, 1).contiguous()  # a 32-frame window's maps
-    hm_video = hm_window.repeat(3, 1, 1, 1).contiguous()  # a video batch's 96 frames
     kp, conf = decode_kernel.decode(hm_video, DOWNSAMPLE)
     kp_ref, conf_ref = decode_kernel.decode_plain(hm_video, DOWNSAMPLE)
     torch.cuda.synchronize()
     kp_err, conf_err, flips = decode_errors(kp, conf, kp_ref, conf_ref, decode_kernel.GRID_OFFSETS[DOWNSAMPLE])
-    log(f"phase 3 decode multiview maps {tuple(hm_video.shape)}: keypoints max abs err {kp_err:.3e} px (limit "
+    log(f"phase {phase} decode {what} maps {tuple(hm_video.shape)}: keypoints max abs err {kp_err:.3e} px (limit "
         f"{DECODE_KP_TOL_PX}), confidences {conf_err:.3e} (limit {DECODE_CONF_TOL}), windows differing {flips} "
         f"(limit {DECODE_MAX_WINDOW_FLIPS})")
-    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), "decode multiview maps: non-finite")
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(conf).all()), f"decode {what} maps: non-finite")
     check(kp_err <= DECODE_KP_TOL_PX and conf_err <= DECODE_CONF_TOL and flips <= DECODE_MAX_WINDOW_FLIPS,
-          "decode of multiview maps disagrees with its plain version")
+          f"decode of {what} maps disagrees with its plain version")
     errors["decode"] = max(errors["decode"], kp_err)
-    grad, grad_ref = decode_grads(hm_window, DOWNSAMPLE, seed=SEED + 9)
+    grad, grad_ref = decode_grads(hm_window, DOWNSAMPLE, seed=grad_seed)
     err, scale = float((grad - grad_ref).abs().max()), float(grad_ref.abs().max())
-    log(f"phase 3 decode backward multiview maps {tuple(hm_window.shape)}: max abs err {err:.3e} of a largest entry "
-        f"{scale:.3e} ({err / scale:.2e}, limit {DECODE_GRAD_REL_TOL})")
-    check(bool(torch.isfinite(grad).all()) and scale > 0, "decode backward of multiview maps: non-finite or zero")
-    check(err <= DECODE_GRAD_REL_TOL * scale, "decode backward of multiview maps disagrees with its plain version")
+    log(f"phase {phase} decode backward {what} maps {tuple(hm_window.shape)}: max abs err {err:.3e} of a largest "
+        f"entry {scale:.3e} ({err / scale:.2e}, limit {DECODE_GRAD_REL_TOL})")
+    check(bool(torch.isfinite(grad).all()) and scale > 0, f"decode backward of {what} maps: non-finite or zero")
+    check(err <= DECODE_GRAD_REL_TOL * scale, f"decode backward of {what} maps disagrees with its plain version")
     errors["decode_grad"] = max(errors["decode_grad"], err)
-    return {"frames": frames, "images": images, "coords": coords, "clahe": clahe_inputs,
-            "hm_video": hm_video, "hm_window": hm_window}
+    return {"frames": frames, "images": images, "coords": next(iter(inputs["coords"].values())),
+            "clahe": clahe_inputs, "hm_video": hm_video, "hm_window": hm_window}
 
 
-def multiview_times(inputs: dict, card: str) -> dict[str, tuple]:
-    """Phase 13e: each kernel at the shapes the multiview paths give it,
+def multiview_times(inputs: dict, card: str, phase: str = "13e", shapes: dict | None = None) -> dict[str, tuple]:
+    """Phase 13e (or ``phase``, with its ``shapes`` descriptions, name ->
+    text): each kernel at the shapes the multiview paths give it,
     beside its plain version, its bound and, for the warp,
     ``F.grid_sample``: the normalize on a video batch (13c), the warp over a
     step's 32 view images and CLAHE at each fired step's planes (13a; the
@@ -1710,9 +1804,11 @@ def multiview_times(inputs: dict, card: str) -> dict[str, tuple]:
         "decode_grad": (grad_ms, grad_plain_ms, None, grad_bound,
                         f"{tuple(hm.shape)} fp32 multiview maps ({nv} views x {KEYPOINTS}), df {DOWNSAMPLE}"),
     }
+    for name, text in (shapes or {}).items():
+        times[name] = (*times[name][:4], text)
     for name, (ms, plain_ms, library_ms, (bound, bound_by), shape) in times.items():
         lib_text = f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""
-        log(f"phase 13e {name} at the multiview shape {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms"
+        log(f"phase {phase} {name} at the multiview shape {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms"
             f"{lib_text}; bound {bound:.5f} ms ({bound_by}), {bound / ms:.1%} of it reached {card}")
     return times
 
@@ -2820,6 +2916,410 @@ def transformer_phase(rng, card: str) -> dict[str, int]:
     return slice_launches
 
 
+# -- calibrated multiview training (phase 16) --------------------------------------------
+
+
+def calibrated_config(data_dir: Path, keypoint_names: list[str], name: str):
+    """The repo's multiview config as it ships (scripts/configs/
+    config_default_multiview.yaml) on the calibrated synthetic set: phase
+    13a's model and schedule with ``training.imgaug_3d`` and both supervised
+    3D losses at log weight CAL_LOG_WEIGHT; the calibration is found by
+    discovery (``calibrations/<session>.toml``)."""
+    cfg = multiview_config(data_dir, keypoint_names, name, semi=False)
+    cfg.training.imgaug_3d = True
+    cfg.training.rng_seed_data_pt = CAL_SEED
+    cfg.losses.supervised_reprojection_heatmap_mse = {"log_weight": CAL_LOG_WEIGHT}
+    cfg.losses.supervised_pairwise_projections = {"log_weight": CAL_LOG_WEIGHT}
+    return cfg
+
+
+def losses_3d() -> dict:
+    """The two supervised 3D losses at CAL_LOG_WEIGHT, by name."""
+    from lightning_pose_tpu_torch.losses.losses import PairwiseProjectionsLoss, ReprojectionHeatmapLoss
+
+    df = IMAGE // 2**DOWNSAMPLE
+    return {"supervised_pairwise_projections": PairwiseProjectionsLoss(log_weight=CAL_LOG_WEIGHT),
+            "supervised_reprojection_heatmap_mse": ReprojectionHeatmapLoss(IMAGE, IMAGE, df, df, CAL_LOG_WEIGHT)}
+
+
+def stage_3d(preds, keypoints, heatmaps, bbox, calibration, losses: dict) -> dict:
+    """The train step's 3D stage on ``preds (B, 2VK)`` model pixels
+    (``trainer.supervised_3d_inputs``: each pair's triangulation, the median
+    over pairs of the labels' ``keypoints (B, VK, 2)``, the pairs' mean
+    reprojected to model pixels) and the two losses (``losses`` name ->
+    loss; the reprojection loss's targets ``heatmaps``)."""
+    from lightning_pose_tpu_torch.train.trainer import supervised_3d_inputs
+
+    inputs = supervised_3d_inputs(preds, keypoints, bbox, calibration, (IMAGE, IMAGE))
+    pairwise, _ = losses["supervised_pairwise_projections"](stage="train", **inputs)
+    reprojection, _ = losses["supervised_reprojection_heatmap_mse"](heatmaps_targ=heatmaps, stage="train", **inputs)
+    return {"targ_3d": inputs["keypoints_targ_3d"], "pred_3d": inputs["keypoints_pred_3d"],
+            "reprojected": inputs["keypoints_pred_2d_reprojected"], "pairwise": pairwise, "reprojection": reprojection}
+
+
+def float64_stage_card_vs_cpu(card: str) -> None:
+    """Phase 16b: the 3D stage alone in float64 on the card and on the CPU,
+    on 4 cameras (6 pairs) around the scene, 16 samples of 17 keypoints,
+    labels with NaNs (a whole view of one sample, a keypoint in two views
+    of another, 10% at random) and NaN-free predictions a few pixels off
+    them: every output and the pairwise loss's gradient with respect to the
+    predictions within CAL_F64_REL_TOL of its largest entry; the
+    reprojection loss, whose Gaussian maps are float32 in both packages,
+    and its gradient within CAL_MAPS_REL_TOL. The median over pairs equals
+    numpy's nanmedian (the middle two averaged) on each device's pairs."""
+    import torch
+
+    from lightning_pose_tpu_torch.data.anipose import rodrigues
+    from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
+    from lightning_pose_tpu_torch.data.cameras import project_camera_pairs_to_3d
+    from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
+    from lightning_pose_tpu_torch.utils.synthetic import project_points, synthetic_cameras
+
+    nv, b, k = 4, TRAIN_BATCH, KEYPOINTS
+    h, w = CAL_FRAME_HW
+    srng = np.random.default_rng(SEED + 16)
+    cams = synthetic_cameras(nv, h, w, span_degrees=270.0, seed=SEED + 16)
+    points = srng.uniform(-0.5, 0.5, (b, k, 3))
+    labels = np.stack([project_points(points, cams, v) for v in range(nv)], axis=1)  # (B, V, K, 2) frame px
+    bbox = np.tile(np.array([0.0, 0.0, h, w]), (b, nv))
+    to_model = np.array([IMAGE / w, IMAGE / h])
+    keypoints = labels * to_model
+    keypoints[0, 1] = np.nan
+    keypoints[1, [0, 2], 3] = np.nan
+    keypoints[srng.uniform(size=(b, nv, k)) < 0.1] = np.nan
+    preds = labels * to_model + srng.normal(0.0, 2.0, labels.shape)
+    calibration = (cams["intrinsics"], np.stack([np.concatenate([rodrigues(r), t[:, None]], axis=1)
+                                                  for r, t in zip(cams["rotations"], cams["translations"])]),
+                   cams["distortions"])
+    df = IMAGE // 2**DOWNSAMPLE
+    factories = losses_3d()
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)  # noqa: E731
+        cal = tuple(t(np.broadcast_to(c, (b, *c.shape))) for c in calibration)
+        kp = t(keypoints.reshape(b, nv * k, 2))
+        heatmaps = generate_heatmaps(kp, IMAGE, IMAGE, (df, df))
+        x = t(preds.reshape(b, -1)).requires_grad_()
+        res = stage_3d(x, kp, heatmaps, t(bbox), cal, factories)
+        grad_pairwise, = torch.autograd.grad(res["pairwise"], x, retain_graph=True)
+        grad_reprojection, = torch.autograd.grad(res["reprojection"], x)
+        # the labels' pairs from the frame pixels the stage maps them to
+        targ = model_to_frame_batch(kp.reshape(b, -1), t(bbox), IMAGE, IMAGE, num_views=nv)
+        res["targ_pairs"] = project_camera_pairs_to_3d(targ.reshape(b, nv, k, 2), *cal)
+        res = {key: v.detach().cpu().numpy() for key, v in res.items()}
+        res["grad_pairwise"], res["grad_reprojection"] = grad_pairwise.cpu().numpy(), grad_reprojection.cpu().numpy()
+        with warnings.catch_warnings():  # numpy warns on the all-NaN keypoints
+            warnings.simplefilter("ignore", RuntimeWarning)
+            median = np.nanmedian(res["targ_pairs"], axis=1)
+        check(np.array_equal(res["targ_3d"], median, equal_nan=True),
+              f"the median over pairs on {dev} is not numpy's nanmedian")
+        out[dev] = res
+    finite_pairs = np.isfinite(out["cpu"]["targ_pairs"][..., 0]).sum(axis=1)
+    counts = {int(n): int((finite_pairs == n).sum()) for n in np.unique(finite_pairs)}
+    errs = []
+    for key in ("targ_3d", "pred_3d", "reprojected", "pairwise", "grad_pairwise", "reprojection", "grad_reprojection"):
+        a, ref = out["cuda"][key], out["cpu"][key]
+        check(np.array_equal(np.isnan(a), np.isnan(ref)), f"16b {key}: NaNs differ between the card and the CPU")
+        scale = float(np.nanmax(np.abs(ref)))
+        rel = float(np.nanmax(np.abs(a - ref))) / scale
+        limit = CAL_MAPS_REL_TOL if key in ("reprojection", "grad_reprojection") else CAL_F64_REL_TOL
+        errs.append(f"{key} {rel:.2e} (limit {limit:.0e})")
+        check(scale > 0 and rel <= limit, f"16b float64 {key} card vs CPU: {rel:.3e} relative")
+    log(f"phase 16b the 3D stage in float64, card vs CPU: {nv} cameras (span 270 degrees, 6 pairs), {b} samples x "
+        f"{k} keypoints, label NaNs; finite pairs a target keypoint -> count {counts} (6 pairs: an even count, the "
+        f"middle two averaged, equal to numpy's nanmedian on both devices); largest error relative to the largest "
+        f"entry: {', '.join(errs)} {card}")
+
+
+def fp32_conditioning(card: str) -> None:
+    """Phase 16b: how far fp32 triangulation strays when the cameras are
+    far from a small scene (4 cameras 20 scene widths away, 6 pairs, labels
+    0.5 px off their exact projections): each pair's fp32 3D points on the
+    card and on the CPU against float64, as a share of the scene's width,
+    and the median over pairs reprojected, in pixels."""
+    import torch
+
+    from lightning_pose_tpu_torch.data.anipose import rodrigues
+    from lightning_pose_tpu_torch.data.cameras import nanmedian, project_3d_to_2d, project_camera_pairs_to_3d
+    from lightning_pose_tpu_torch.utils.synthetic import project_points, synthetic_cameras
+
+    nv, b, k = 4, TRAIN_BATCH, KEYPOINTS
+    h, w = CAL_FRAME_HW
+    srng = np.random.default_rng(SEED + 19)
+    cams = synthetic_cameras(nv, h, w, span_degrees=270.0, distance=20.0, seed=SEED + 19)
+    labels = np.stack([project_points(srng.uniform(-0.5, 0.5, (b, k, 3)), cams, v) for v in range(nv)], axis=1)
+    labels = labels + srng.normal(0.0, 0.5, labels.shape)
+    extr = np.stack([np.concatenate([rodrigues(r), t[:, None]], axis=1)
+                     for r, t in zip(cams["rotations"], cams["translations"])])
+    out = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("float64", "cpu", torch.float64)):
+        cal = [torch.as_tensor(np.broadcast_to(a, (b, *a.shape)).copy(), dtype=dtype, device=dev)
+               for a in (cams["intrinsics"], extr, cams["distortions"])]
+        pairs = project_camera_pairs_to_3d(torch.as_tensor(labels, dtype=dtype, device=dev), *cal)
+        reprojected = project_3d_to_2d(nanmedian(pairs, dim=1), *cal)
+        out[name] = (pairs.double().cpu(), reprojected.double().cpu())
+    pair_err = {n: (out[n][0] - out["float64"][0]).abs().amax(dim=(0, 2, 3)) for n in ("card", "cpu")}
+    px = {n: float((out[n][1] - out["float64"][1]).abs().max()) for n in ("card", "cpu")}
+    check(all(bool(torch.isfinite(e).all()) for e in pair_err.values()), "fp32 triangulation: non-finite")
+    log(f"phase 16b fp32 conditioning, 4 cameras 20 scene widths from the scene (6 pairs, 0.5 px label noise): "
+        f"each pair's largest 3D error against float64 as a share of the scene's width, card "
+        f"{', '.join(f'{float(e):.2e}' for e in pair_err['card'])}, CPU "
+        f"{', '.join(f'{float(e):.2e}' for e in pair_err['cpu'])}; the median over pairs reprojected, largest "
+        f"error card {px['card']:.3e} px, CPU {px['cpu']:.3e} px {card}")
+
+
+def fp32_reprojection_card_vs_cpu(model, batch: dict, card: str) -> float:
+    """Phase 16b: the trained model in fp32 (TF32 off) on one calibrated
+    batch, its maps decoded on the card, then the 3D stage's reprojected
+    keypoints from those predictions in fp32 on the card and on the CPU and
+    in float64 on the CPU: the card against the CPU in model pixels (limit
+    CAL_REPROJ_TOL_PX), each fp32 result against float64, and the pairs'
+    3D spread between the devices."""
+    import torch
+
+    from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
+    from lightning_pose_tpu_torch.ops.preprocess import normalize_images
+
+    nv = len(MV_VIEWS)
+    model = model.eval().float()
+    with torch.no_grad():
+        maps = model(normalize_images(batch["images"]).permute(0, 1, 4, 2, 3))
+        preds, _ = model.decode(maps)
+    df = IMAGE // 2**DOWNSAMPLE
+    factories = losses_3d()
+    out = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+        cal = tuple(batch[key].to(dev, dtype) for key in ("intrinsic_matrix", "extrinsic_matrix", "distortions"))
+        kp = batch["keypoints"].to(dev, dtype)
+        res = stage_3d(preds.to(dev, dtype), kp, generate_heatmaps(kp, IMAGE, IMAGE, (df, df)),
+                       batch["bbox"].to(dev, dtype), cal, factories)
+        out[name] = {key: v.detach().cpu().double() for key, v in res.items()}
+    diff = float((out["card"]["reprojected"] - out["cpu"]["reprojected"]).abs().max())
+    vs64 = {n: float((out[n]["reprojected"] - out["cpu64"]["reprojected"]).abs().max()) for n in ("card", "cpu")}
+    spread = float((out["card"]["pred_3d"] - out["cpu"]["pred_3d"]).abs().max())
+    scene = float(out["cpu64"]["pred_3d"].abs().max())
+    log(f"phase 16b the fp32 step's reprojected keypoints ({batch['images'].shape[0]} samples x {nv} views x "
+        f"{KEYPOINTS} keypoints, predictions of the trained model decoded on the card): card vs CPU max abs diff "
+        f"{diff:.3e} model px (limit {CAL_REPROJ_TOL_PX}); against float64: card {vs64['card']:.3e}, CPU "
+        f"{vs64['cpu']:.3e} px; the pairs' 3D points card vs CPU {spread:.3e} units (scene within {scene:.2f}); "
+        f"losses card {float(out['card']['pairwise']):.6f} / {float(out['card']['reprojection']):.6f}, CPU "
+        f"{float(out['cpu']['pairwise']):.6f} / {float(out['cpu']['reprojection']):.6f} {card}")
+    check(np.isfinite(diff) and diff <= CAL_REPROJ_TOL_PX, f"16b fp32 reprojected keypoints card vs CPU: {diff} px")
+    return diff
+
+
+def calibrated_warp_coords(cache: dict) -> dict:
+    """Phase 16c's warp coordinates: the 3D augmentation's for a step's
+    TRAIN_BATCH samples of the device cache, every sample augmented."""
+    import torch
+
+    from lightning_pose_tpu_torch.data.bboxes import frame_to_model_matrices, model_to_frame_batch
+    from lightning_pose_tpu_torch.ops import augment3d
+
+    dev = torch.device("cuda", 0)
+    nv = len(MV_VIEWS)
+    idx = torch.arange(TRAIN_BATCH, device=dev)
+    bbox = cache["bbox"][idx]
+    kp_frame = model_to_frame_batch(cache["keypoints"][idx].reshape(TRAIN_BATCH, -1), bbox, IMAGE, IMAGE,
+                                    num_views=nv).reshape(TRAIN_BATCH, -1, 2)
+    draws = augment3d.sample(torch.Generator().manual_seed(SEED + 17), TRAIN_BATCH)
+    draws.apply_u.zero_()
+    cal = tuple(cache[key][idx].float() for key in ("intrinsic_matrix", "extrinsic_matrix", "distortions"))
+    coords, _, applied = augment3d.sampling_coords(kp_frame, *cal, draws, (IMAGE, IMAGE),
+                                                   frame_to_model_matrices(bbox, IMAGE, IMAGE))
+    grid = torch.stack(torch.meshgrid(torch.arange(IMAGE, device=dev), torch.arange(IMAGE, device=dev),
+                                      indexing="xy"), -1)
+    log(f"phase 16c the 3D augmentation's warp coordinates: {int(applied.sum())} of {TRAIN_BATCH} samples "
+        f"augmented, pixels moved up to {float((coords - grid).abs().amax()):.1f} px")
+    return {"3D augmentation": coords.contiguous()}
+
+
+def calibrated_phase(rng, card: str, errors: dict) -> tuple[dict[str, int], dict[str, tuple]]:
+    """Phase 16: train() of the calibrated multiview transformer (16a), the
+    3D stage card against CPU (16b) and the kernels at 16a's shapes (16c).
+    Returns each kernel's launches in 16a's train() and its times at 16a's
+    shapes."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model
+    from lightning_pose_tpu_torch.ops import augment3d, clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.data.bboxes import frame_to_model_matrices, model_to_frame_batch
+    from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_calibrated_multiview_dataset
+
+    dev = torch.device("cuda", 0)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    nv = len(MV_VIEWS)
+    n_img = TRAIN_BATCH * nv
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    float64_stage_card_vs_cpu(card)
+    fp32_conditioning(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_calibrated_multiview_dataset(Path(tmp) / "data", TRAIN_FRAMES, *CAL_FRAME_HW, names, MV_VIEWS,
+                                                  seed=SEED, span_degrees=90.0)
+
+        # -- 16a. train() with its evaluation --------------------------------------
+        cfg = calibrated_config(data, names, "smokecal")
+        model_dir = Path(tmp) / "model"
+        fired = clahe_fired_stacks(engine, MV_STEPS, CAL_SEED, n_img,
+                                   extra_draw=lambda gen: augment3d.sample(gen, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = decode_kernel.grad_launches = 0
+        normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, model_dir, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches,
+                    "warp": warp_kernel.launches, "clahe": clahe_kernel.launches,
+                    "decode_grad": decode_kernel.grad_launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dm = result.data_module
+        check(dm.dataset.is_calibrated, "the calibrated set was not found by discovery")
+        val_logs = [h for h in result.history if "val_supervised_loss" in h]
+        train_logs = [h for h in result.history if "train_heatmap_mse_loss" in h]
+        val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        implied = {"normalize": eval_batches, "decode": MV_STEPS + val_batches + eval_batches, "warp": 2 * MV_STEPS,
+                   "clahe": len(fired), "decode_grad": MV_STEPS}
+        losses_3d = [f"{stage}_{n}_loss" for stage in ("train", "val")
+                     for n in ("supervised_pairwise_projections", "supervised_reprojection_heatmap_mse")]
+        pw = [h["train_supervised_pairwise_projections_loss"] for h in train_logs]
+        rp = [h["train_supervised_reprojection_heatmap_mse_loss"] for h in train_logs]
+        log(f"phase 16a calibrated multiview train(): {MV_STEPS} steps of {TRAIN_BATCH} samples x {nv} views "
+            f"({MV_BACKBONE}, {IMAGE} px from {CAL_FRAME_HW[1]}x{CAL_FRAME_HW[0]} frames, {KEYPOINTS} keypoints a view, "
+            f"the cameras 90 degrees apart and found by discovery, imgaug_3d + dlc, the patch mask, both supervised "
+            f"3D losses at log weight {CAL_LOG_WEIGHT}, bf16) in {elapsed:.1f} s with set-up and evaluation; launches "
+            f"{launches}, implied {implied} (the warp twice a step: the 3D warp over {n_img} view images, then dlc's; "
+            f"the decode once a step with its backward, once a validation and an evaluation batch; CLAHE once a step "
+            f"whose draws fire it, on {fired} view images; normalize once an evaluation batch); pairwise 3D loss "
+            f"{pw[0]:.4f} -> {pw[-1]:.4f}, reprojection loss {rp[0]:.4f} -> {rp[-1]:.4f}; peak device memory "
+            f"{peak:.2f} GiB {card}")
+        check(launches == implied and len(fired) >= 1, f"calibrated train() launches {launches}, implied {implied}")
+        check(len(train_logs) == MV_STEPS and val_logs
+              and all(k in h for h in train_logs for k in losses_3d if k.startswith("train"))
+              and all(k in h for h in val_logs for k in losses_3d if k.startswith("val")),
+              "calibrated train() logged too little, or without the 3D losses")
+        check(all(np.isfinite(v) for h in result.history for k, v in h.items() if "loss" in k),
+              "a logged loss is not finite")
+        check(min(pw + rp) > 0, "a 3D loss is 0")
+        log(f"phase 16a calibrated train()'s evaluation: image_preds/ {'; '.join(check_multiview_preds(model_dir))}")
+
+        # the step at full width, profiled; then the 3D stage alone
+        factories = get_loss_factories(cfg, dm)
+        spe = trainer.calculate_steps_per_epoch(dm)
+        torch.manual_seed(SEED)
+        model = build_model("heatmap_multiview", MV_BACKBONE, KEYPOINTS, DOWNSAMPLE, num_views=nv,
+                            image_size=IMAGE).to(dev, memory_format=torch.channels_last)
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+        state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+        meta = {"model_type": "heatmap_multiview", "downsample_factor": DOWNSAMPLE, "num_views": nv}
+        step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, spe)[2]
+        cache = trainer._device_cache(dm.dataset, dev)
+        check(set(cache) >= {"intrinsic_matrix", "extrinsic_matrix", "distortions"}, "the cache has no cameras")
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+
+        def one_step():
+            idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+            draws = engine.sample(draw_gen, n_img, field_gen)
+            draws_3d = augment3d.sample(draw_gen, TRAIN_BATCH)
+            step(state, cache, idxs, valid, draws, None, None,
+                 trainer.sample_mask_scores(field_gen, n_img, (IMAGE, IMAGE)), draws_3d)
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, device_ms, kernels, busy = profiled_step(one_step)
+        grad_ms = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key) / 5e3
+        warp_ms = sum(e.self_device_time_total for e in kernels if "warp_kernel" in e.key) / 5e3
+        log(f"phase 16a calibrated train step ({MV_BACKBONE}, {IMAGE} px, bf16, {TRAIN_BATCH} samples x {nv} views = "
+            f"{n_img} images, imgaug_3d + dlc, patch mask, both 3D losses, backbone unfrozen): {step_ms:.3f} ms, "
+            f"{n_img / step_ms * 1e3:.1f} images/s, mean of 10 steps by the host clock; torch.profiler over 5 steps: "
+            f"{device_ms:.3f} ms of device time a step, the device busy {busy:.1%}; the two warps {warp_ms:.4f} ms, "
+            f"the decode's backward {grad_ms:.4f} ms a step; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        log("phase 16a largest device-time entries a step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+
+        # the 3D stage alone at the step's shapes: the 3D augmentation (its
+        # warp included) and the 3D losses on decoded predictions, with the
+        # backward to the predictions
+        from torch.profiler import ProfilerActivity, profile
+
+        idx = torch.arange(TRAIN_BATCH, device=dev)
+        batch = {k: v[idx] for k, v in cache.items()}
+        cal = tuple(batch[k].float() for k in ("intrinsic_matrix", "extrinsic_matrix", "distortions"))
+        frame_to_model = frame_to_model_matrices(batch["bbox"], IMAGE, IMAGE)
+        kp_frame = model_to_frame_batch(batch["keypoints"].reshape(TRAIN_BATCH, -1), batch["bbox"], IMAGE, IMAGE,
+                                        num_views=nv).reshape(TRAIN_BATCH, -1, 2)
+        df = IMAGE // 2**DOWNSAMPLE
+        heatmaps = generate_heatmaps(batch["keypoints"], IMAGE, IMAGE, (df, df))
+        preds0 = (batch["keypoints"] + torch.randn_like(batch["keypoints"])).reshape(TRAIN_BATCH, -1)
+        preds0 = torch.nan_to_num(preds0, nan=IMAGE / 2)
+        loss_fns = factories["supervised"].loss_instance_dict
+
+        def stage():
+            augment3d.apply(batch["images"].float(), kp_frame, *cal, augment3d.sample(draw_gen, TRAIN_BATCH),
+                            frame_to_model=frame_to_model)
+            x = preds0.clone().requires_grad_()
+            res = stage_3d(x, batch["keypoints"], heatmaps, batch["bbox"], cal, loss_fns)
+            (res["pairwise"] + res["reprojection"]).backward()
+
+        for _ in range(3):
+            stage()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                stage()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        stage_kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        stage_ms = sum(e.self_device_time_total for e in stage_kernels) / 5e3
+        # the operators that launched the device time: each one's own kernels
+        ops = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        eigh_ms = sum(e.device_time_total for e in events if e.key in ("aten::_linalg_eigh", "LinalgEighBackward0")
+                      and e.device_type == torch.autograd.DeviceType.CPU) / 5e3
+        log(f"phase 16a the 3D stage alone (the 3D augmentation with its warp, the triangulations, eigh forward and "
+            f"backward, the reprojection-loss maps; {TRAIN_BATCH} samples x {nv} views x {KEYPOINTS} keypoints): "
+            f"{stage_ms:.3f} ms of device time ({stage_ms / device_ms:.1%} of the step's {device_ms:.3f} ms), eigh "
+            f"forward and backward {eigh_ms:.3f} ms, {len(stage_kernels)} kernel names; by operator: " + "; ".join(
+                f"{e.key} x{e.count // 5} {e.self_device_time_total / 5e3:.4f} ms" for e in ops[:10]) + f" {card}")
+
+        # -- 16b. the fp32 step's reprojected keypoints, card vs CPU ---------------
+        fp32_reprojection_card_vs_cpu(result.model, batch, card)
+
+        # -- 16c. the kernels at 16a's shapes --------------------------------------
+        model.train()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            imgs = trainer._to_nchw(batch["images"])
+            maps = model(imgs).float().contiguous()
+        inputs = multiview_kernel_checks(rng, errors, {
+            "frames": cache["images"][:32].contiguous(),
+            "images": cache["images"][:TRAIN_BATCH].reshape(n_img, IMAGE, IMAGE, 3).float().contiguous(),
+            "coords": calibrated_warp_coords(cache), "fired": fired, "hm_video": maps, "hm_window": maps,
+        }, "16c", "calibrated", SEED + 18)
+        del state, step, cache, model
+    shapes = {
+        "normalize": f"{tuple(inputs['frames'].shape)} uint8 -> bf16, an evaluation batch of {nv} views",
+        "warp": f"{tuple(inputs['images'].shape)} fp32, {TRAIN_BATCH} samples x {nv} views at the 3D augmentation's "
+                f"coordinates",
+        "clahe": f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {[3 * n for n in fired]} in phase 16a's fired "
+                 f"steps; the mean a launch",
+        "decode": f"{tuple(maps.shape)} fp32 train-mode maps ({nv} views x {KEYPOINTS}), df {DOWNSAMPLE}",
+        "decode_grad": f"{tuple(maps.shape)} fp32 train-mode maps ({nv} views x {KEYPOINTS}), df {DOWNSAMPLE}",
+    }
+    return launches, multiview_times(inputs, card, "16c", shapes)
+
+
 def main() -> int:
     import torch
 
@@ -2955,7 +3455,7 @@ def main() -> int:
     clahe_err6, clahe_inputs6 = check_clahe(clahe_images[:2], clip[:2], 16)
     errors["clahe"] = max(errors["clahe"], clahe_err6, check_clahe(clahe_images[:2], clip[:2], 8)[0])
     context_inputs = context_kernel_checks(rng, engine, errors)
-    multiview_inputs = multiview_kernel_checks(rng, engine, errors)
+    multiview_inputs = multiview_kernel_checks(rng, errors, multiview_kernel_inputs(rng, engine))
     single_view_inputs = sv_kernel_checks(rng, engine, errors)
     transformer_inputs = sv_kernel_checks(rng, engine, errors, "vitb_sam", "ViT-B SAM", "15a")
 
@@ -3195,23 +3695,22 @@ def main() -> int:
     semisup_phase(rng, card)
     context_phase(rng, card)
     context_times(context_inputs, card)
-    # the kernels line holds each kernel's launches on one of this slice's
-    # paths, the ViT-B SAM model's (each earlier path checked its own
-    # above), beside its times at the shapes that path gives it; the
-    # decode's backward runs on no path of this slice and keeps the
-    # multiview transformer's (phase 13b)
-    mv_launches = multiview_phase(rng, card)
-    mv_times = multiview_times(multiview_inputs, card)
+    multiview_phase(rng, card)
+    multiview_times(multiview_inputs, card)
     single_view_phase(rng, card)
     sv_times(single_view_inputs, card)
-    launches = {**transformer_phase(rng, card), "decode_grad": mv_launches["decode_grad"]}
-    times = {**sv_times(transformer_inputs, card, "15d"), "decode_grad": mv_times["decode_grad"]}
+    transformer_phase(rng, card)
+    sv_times(transformer_inputs, card, "15d")
+    # the kernels line holds each kernel's launches on this slice's path,
+    # the calibrated multiview train() of phase 16a (each earlier path
+    # checked its own above), beside its times at that path's shapes (16c)
+    launches, times = calibrated_phase(rng, card, errors)
     paths = {
-        "normalize": "15a the vitb_sam model's predict_on_video_file, first run: 1 a batch",
-        "decode": "15a the vitb_sam model's predict_on_video_file, first run: 1 a batch (0 on its DARK runs)",
-        "warp": "15a the vitb_sam model's train(): 1 a step over 16 images",
-        "clahe": "15a the vitb_sam model's train(): 1 a step whose draws fire it",
-        "decode_grad": "13b the multiview model's semi-supervised train(): 1 a step",
+        "normalize": "16a the calibrated multiview train()'s evaluation: 1 an evaluation batch",
+        "decode": "16a the calibrated multiview train(): 1 a step, validation batch and evaluation batch",
+        "warp": "16a the calibrated multiview train(): 2 a step (the 3D warp, then dlc's) over 32 view images",
+        "clahe": "16a the calibrated multiview train(): 1 a step whose draws fire it",
+        "decode_grad": "16a the calibrated multiview train(): 1 a step (the supervised 3D losses)",
     }
     blocked = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in blocked)

@@ -193,14 +193,51 @@ class Model:
         cfg = Config.from_yaml(str(config_path))
         return cls(model_dir, ModelConfig(cfg), precision=precision, device=device)
 
+    @classmethod
+    def from_dir2(
+        cls,
+        model_dir: str | Path,
+        hydra_overrides: list[str] | None = None,
+        precision: str | None = None,
+        device: str | torch.device = "cuda",
+        data_parallel: bool = False,
+    ) -> "Model":
+        """:meth:`from_dir`, then Hydra-style ``a.b=value`` overrides applied
+        to the config (reference model.py:339)."""
+        model = cls.from_dir(model_dir, precision=precision, device=device, data_parallel=data_parallel)
+        if hydra_overrides:
+            model.cfg.apply_overrides(hydra_overrides)
+        return model
+
     @property
     def ckpt_path(self) -> str | None:
         from lightning_pose_tpu_torch.utils.io import ckpt_path_from_base_path
 
         return ckpt_path_from_base_path(str(self.model_dir), self.cfg.model.model_name)
 
+    # -- output directory conventions (reference model.py:706-742) ----------------
+
     def image_preds_dir(self) -> Path:
         return self.model_dir / "image_preds"
+
+    def video_preds_dir(self) -> Path:
+        return self.model_dir / "video_preds"
+
+    def labeled_videos_dir(self) -> Path:
+        return self.model_dir / "video_preds" / "labeled_videos"
+
+    def cropped_data_dir(self) -> Path:
+        """Where cropzoom's cropped images go."""
+        return self.model_dir / "cropped_images"
+
+    def cropped_videos_dir(self) -> Path:
+        """Where cropzoom's cropped videos go."""
+        return self.model_dir / "cropped_videos"
+
+    def cropped_csv_file_path(self, csv_file_path: str | Path) -> Path:
+        """``image_preds/<csv name>/cropped_<csv name>``."""
+        name = Path(csv_file_path).name
+        return self.image_preds_dir() / name / ("cropped_" + name)
 
     # -- lazy loading -----------------------------------------------------------
 

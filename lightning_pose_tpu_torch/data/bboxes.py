@@ -10,7 +10,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["model_to_norm", "norm_to_frame", "model_to_frame_batch"]
+__all__ = [
+    "frame_to_model_batch",
+    "frame_to_model_matrices",
+    "frame_to_norm",
+    "model_to_frame_batch",
+    "model_to_norm",
+    "norm_to_frame",
+    "norm_to_model",
+]
 
 
 def _maybe_trim_context(keypoints: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
@@ -29,6 +37,24 @@ def model_to_norm(
         [model_width, model_height], dtype=keypoints.dtype, device=keypoints.device
     )
     return keypoints / scale
+
+
+def norm_to_model(
+    keypoints: torch.Tensor, model_width: float, model_height: float
+) -> torch.Tensor:
+    """norm -> model; keypoints ``(..., 2)``."""
+    scale = torch.tensor(
+        [model_width, model_height], dtype=keypoints.dtype, device=keypoints.device
+    )
+    return keypoints * scale
+
+
+def frame_to_norm(keypoints: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
+    """frame -> norm. keypoints ``(B, K, 2)``, bbox ``(B, 4)`` as [x, y, h, w]."""
+    bbox = _maybe_trim_context(keypoints, bbox)
+    x = (keypoints[:, :, 0] - bbox[:, 0:1]) / bbox[:, 3:4]
+    y = (keypoints[:, :, 1] - bbox[:, 1:2]) / bbox[:, 2:3]
+    return torch.stack([x, y], dim=-1)
 
 
 def norm_to_frame(keypoints: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
@@ -60,3 +86,32 @@ def model_to_frame_batch(
     else:
         kp = norm_to_frame(kp, bbox)
     return kp.reshape(-1, num_targets)
+
+
+def frame_to_model_batch(
+    frame_keypoints: torch.Tensor,
+    bbox: torch.Tensor,
+    model_width: float,
+    model_height: float,
+) -> torch.Tensor:
+    """Multiview frame -> model (reference bboxes.py:192): keypoints ``(B,
+    V, K, 2)``, ``bbox (B, 4V)``, view ``v`` through columns ``[4v, 4v +
+    4)``; returns ``(B, V, K, 2)``. Differentiable in the keypoints."""
+    b, v, k, _ = frame_keypoints.shape
+    norm = frame_to_norm(frame_keypoints.reshape(b * v, k, 2), bbox.reshape(b * v, 4))
+    return norm_to_model(norm, model_width, model_height).reshape(b, v, k, 2)
+
+
+def frame_to_model_matrices(bbox: torch.Tensor, model_width: float, model_height: float) -> torch.Tensor:
+    """``(B, V, 3, 3)`` affines from each view's frame pixels to model
+    pixels, from ``bbox (B, 4V)`` ``[x, y, h, w]`` a view: what
+    :func:`frame_to_model_batch` computes, as matrices."""
+    b = bbox.shape[0]
+    boxes = bbox.reshape(b, -1, 4)
+    sx, sy = model_width / boxes[..., 3], model_height / boxes[..., 2]
+    zeros, ones = torch.zeros_like(sx), torch.ones_like(sx)
+    return torch.stack([
+        torch.stack([sx, zeros, -boxes[..., 0] * sx], dim=-1),
+        torch.stack([zeros, sy, -boxes[..., 1] * sy], dim=-1),
+        torch.stack([zeros, zeros, ones], dim=-1),
+    ], dim=-2)

@@ -8,13 +8,17 @@ exempt from the anneal weight (reference factory.py:272-279). The PCA
 losses are fitted on the data module's train split when the factory is
 built. ``pca_multiview`` is ported for the multiview transformer: flat
 per-view keypoint indices in ``data.mirrored_column_matches`` expand to one
-list a view, ``data.num_keypoints`` apart. The supervised 3D losses and the
-mirrored ``pca_multiview`` of a single-view model raise
+list a view, ``data.num_keypoints`` apart. A multiview model with a
+``data.camera_params_file``, or whose dataset found its calibration, adds
+the supervised 3D losses (``supervised_pairwise_projections`` and
+``supervised_reprojection_heatmap_mse``) whose ``log_weight`` the config
+sets. The mirrored ``pca_multiview`` of a single-view model raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import numpy as np
@@ -24,13 +28,17 @@ from lightning_pose_tpu_torch.losses.losses import (
     HeatmapJSLoss,
     HeatmapKLLoss,
     HeatmapMSELoss,
+    PairwiseProjectionsLoss,
     PCALoss,
     RegressionMSELoss,
+    ReprojectionHeatmapLoss,
     TemporalHeatmapLoss,
     TemporalLoss,
     UnimodalLoss,
 )
 from lightning_pose_tpu_torch.models.factory import MULTIVIEW_HEATMAP_ITEM, normalize_model_type
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["LossFactory", "get_loss_classes", "get_loss_factories"]
 
@@ -53,6 +61,8 @@ def get_loss_classes() -> dict[str, type]:
         "unimodal_mse": UnimodalLoss,
         "unimodal_kl": UnimodalLoss,
         "unimodal_js": UnimodalLoss,
+        "supervised_pairwise_projections": PairwiseProjectionsLoss,
+        "supervised_reprojection_heatmap_mse": ReprojectionHeatmapLoss,
     }
 
 
@@ -62,6 +72,9 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
     regression = cfg.model.model_type == "regression"
     if "heatmap" in cfg.model.model_type:
         supervised = {"heatmap_" + cfg.model.heatmap_loss_type: {"log_weight": 0.0}}
+        calibrated = bool(getattr(getattr(data_module, "dataset", None), "is_calibrated", False))
+        if "multiview" in cfg.model.model_type and (cfg.data.get("camera_params_file") or calibrated):
+            supervised.update(_supervised_3d_losses(cfg))
     else:
         supervised = {cfg.model.model_type: {"log_weight": 0.0}}
     unsupervised: dict[str, dict] = {}
@@ -105,6 +118,30 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
         "supervised": LossFactory(supervised, data_module=data_module),
         "unsupervised": LossFactory(unsupervised, data_module=data_module),
     }
+
+
+def _supervised_3d_losses(cfg) -> dict[str, dict]:
+    """The supervised 3D losses whose ``log_weight`` the config sets
+    (reference factory.py:102-128)."""
+    losses = {}
+    pairwise = cfg.losses.get("supervised_pairwise_projections", None)
+    if pairwise is not None and pairwise.get("log_weight") is not None:
+        logger.info("adding supervised pairwise projection loss")
+        losses["supervised_pairwise_projections"] = {"log_weight": pairwise.get("log_weight")}
+    reprojection = cfg.losses.get("supervised_reprojection_heatmap_mse", None)
+    if reprojection is not None and reprojection.get("log_weight") is not None:
+        logger.info("adding supervised reprojection heatmap loss")
+        height = int(cfg.data.image_resize_dims.height)
+        width = int(cfg.data.image_resize_dims.width)
+        df = int(cfg.data.get("downsample_factor", 2))
+        losses["supervised_reprojection_heatmap_mse"] = {
+            "log_weight": reprojection.get("log_weight"),
+            "original_image_height": height,
+            "original_image_width": width,
+            "downsampled_image_height": height // 2**df,
+            "downsampled_image_width": width // 2**df,
+        }
+    return losses
 
 
 class LossFactory:

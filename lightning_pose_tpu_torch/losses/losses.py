@@ -25,7 +25,9 @@ __all__ = [
     "HeatmapMSELoss",
     "Loss",
     "PCALoss",
+    "PairwiseProjectionsLoss",
     "RegressionRMSELoss",
+    "ReprojectionHeatmapLoss",
     "TemporalHeatmapLoss",
     "TemporalLoss",
     "UnimodalLoss",
@@ -43,6 +45,11 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     num = torch.where(mask, values, 0.0).sum()
     den = mask.to(values.dtype).sum()
     return torch.where(den > 0, num / den.clamp(min=1.0), 0.0)
+
+
+def _valid_heatmap_mask(targets: torch.Tensor) -> torch.Tensor:
+    """``(B, K)``: the keypoints whose ``(B, K, h, w)`` target map is not all zero."""
+    return (targets != 0.0).any(dim=3).any(dim=2)
 
 
 def _kl_div_2d(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -98,7 +105,7 @@ class HeatmapLoss(Loss):
         stage: str | None = None,
         **kwargs: Any,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        valid = (heatmaps_targ != 0.0).any(dim=3).any(dim=2)  # (B, K)
+        valid = _valid_heatmap_mask(heatmaps_targ)
         elementwise = self.elementwise(heatmaps_targ, heatmaps_pred)
         mask = valid[..., None, None] if elementwise.ndim == 4 else valid
         scalar = masked_mean(elementwise, mask)
@@ -299,6 +306,84 @@ class UnimodalLoss(Loss):
         else:
             elementwise, mask = _js_div_2d(heatmaps_pred + _EPS, ideal + _EPS), valid
         scalar = masked_mean(elementwise, mask)
+        return scalar, self.log_loss(scalar, stage)
+
+
+class PairwiseProjectionsLoss(Loss):
+    """Distance between the target 3D keypoints and each camera pair's
+    triangulation of the predictions (reference losses.py:1142-1269)."""
+
+    loss_name = "supervised_pairwise_projections"
+
+    def __call__(
+        self,
+        keypoints_targ_3d: torch.Tensor | None,
+        keypoints_pred_3d: torch.Tensor | None,
+        stage: str | None = None,
+        **kwargs: Any,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Targets ``(B, K, 3)``; predictions ``(B, pairs, K, 3)``; a NaN on
+        either side leaves the pair's keypoint out."""
+        if keypoints_targ_3d is None or keypoints_pred_3d is None:
+            raise ValueError(
+                f"3D keypoints not available for {stage} stage. Camera params "
+                "file is required but not found; turn off "
+                "supervised_pairwise_projections loss to avoid this error."
+            )
+        invalid = torch.isnan(keypoints_targ_3d).any(dim=-1)[:, None, :] | torch.isnan(keypoints_pred_3d).any(dim=-1)
+        targ = torch.nan_to_num(keypoints_targ_3d, nan=0.0)[:, None]
+        pred = torch.nan_to_num(keypoints_pred_3d, nan=0.0)
+        dist = torch.sqrt(((targ - pred) ** 2).sum(dim=-1) + 1e-12)
+        scalar = masked_mean(dist, ~invalid)
+        return scalar, self.log_loss(scalar, stage)
+
+
+class ReprojectionHeatmapLoss(Loss):
+    """Squared error times ``h * w`` between the target maps and Gaussian
+    maps at the reprojected 3D predictions (reference losses.py:1272-1402).
+    The Gaussians keep their gradient into the keypoints."""
+
+    loss_name = "supervised_reprojection_heatmap_mse"
+
+    def __init__(
+        self,
+        original_image_height: int,
+        original_image_width: int,
+        downsampled_image_height: int,
+        downsampled_image_width: int,
+        log_weight: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(log_weight=log_weight)
+        self.original_image_height = int(original_image_height)
+        self.original_image_width = int(original_image_width)
+        self.downsampled_image_height = int(downsampled_image_height)
+        self.downsampled_image_width = int(downsampled_image_width)
+
+    def __call__(
+        self,
+        heatmaps_targ: torch.Tensor,
+        keypoints_pred_2d_reprojected: torch.Tensor | None,
+        stage: str | None = None,
+        **kwargs: Any,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Targets ``(B, K, h, w)``; reprojected keypoints ``(B, K, 2)`` in
+        model pixels."""
+        if keypoints_pred_2d_reprojected is None:
+            raise ValueError(
+                f"Reprojected keypoints not available for {stage} stage. "
+                "Camera params file is required but not found; turn off "
+                "supervised_reprojection_heatmap loss to avoid this error."
+            )
+        heatmaps_pred = generate_heatmaps(
+            keypoints_pred_2d_reprojected,
+            height=self.original_image_height,
+            width=self.original_image_width,
+            output_shape=(self.downsampled_image_height, self.downsampled_image_width),
+        )
+        h, w = heatmaps_targ.shape[2], heatmaps_targ.shape[3]
+        elementwise = (heatmaps_targ - heatmaps_pred) ** 2 * (h * w)
+        scalar = masked_mean(elementwise, _valid_heatmap_mask(heatmaps_targ)[..., None, None])
         return scalar, self.log_loss(scalar, stage)
 
 

@@ -39,7 +39,7 @@ ALLOWED_MODEL_TYPES = [
 
 _MODEL_TYPE_ALIASES = {"heatmap_multiview_transformer": "heatmap_multiview"}
 
-MULTIVIEW_HEATMAP_ITEM = "ROADMAP queue 1, item 6b: calibration, 3D and heatmap models on multiview data"
+MULTIVIEW_HEATMAP_ITEM = "ROADMAP queue 1, item 6b-ii: heatmap models on multiview data"
 
 
 def normalize_model_type(model_type: str) -> str:

@@ -101,7 +101,7 @@ class HeatmapTrackerMHCRNN(nn.Module):
         if images.ndim == 6:
             raise NotImplementedError(
                 "multiview context stacks (B, V, 5, 3, H, W) are not ported yet "
-                "(ROADMAP queue 1, item 6b: calibration, 3D and heatmap models on multiview data)"
+                "(ROADMAP queue 1, item 6b-ii: heatmap models on multiview data)"
             )
         if images.ndim != 5:
             raise ValueError(f"the context model takes (B, 5, 3, H, W) stacks, got {tuple(images.shape)}")

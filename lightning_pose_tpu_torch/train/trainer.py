@@ -36,6 +36,20 @@ Its unlabeled window is ``(T, V, H, W, 3)`` frame-synchronized views,
 augmented photometrically only (so the views stay geometrically consistent);
 keypoints map to each view's frame through that view's bbox columns.
 
+A calibrated multiview dataset (``intrinsic_matrix``, ``extrinsic_matrix``
+and ``distortions`` in its samples, which the device cache and the
+validation batches carry) adds two stages. Before the 2D augmentation, the
+3D augmentation (``ops/augment3d.py``) scales and translates the labels'
+triangulation and warps every view image to the reprojection, one warp
+launch over the ``B*V`` images, from draws that follow the 2D draws on the
+same host generator. With a supervised 3D loss configured
+(``supervised_pairwise_projections``, ``supervised_reprojection_heatmap_mse``),
+the maps are decoded with gradient (the decode and its backward kernel on
+the card), mapped to frame pixels and triangulated for every camera pair;
+the target is the median over pairs of the labels' triangulations, and the
+reprojection loss takes the pairs' mean reprojected to model pixels. The
+validation losses include the 3D terms.
+
 The regression model (``regression``) outputs keypoints directly: its
 supervised loss is the coordinate MSE against the augmented labels, its
 confidences are ones, and its unlabeled window's outputs go to the
@@ -94,7 +108,8 @@ from torch import nn
 
 from lightning_pose_tpu_torch.api.model import PredictStep, decode_method_of, resolve_device
 from lightning_pose_tpu_torch.callbacks import PATCH_SIZE, apply_patch_mask, patch_mask_ratio
-from lightning_pose_tpu_torch.data.bboxes import model_to_frame_batch
+from lightning_pose_tpu_torch.data.bboxes import frame_to_model_batch, frame_to_model_matrices, model_to_frame_batch
+from lightning_pose_tpu_torch.data.cameras import nanmedian, project_3d_to_2d, project_camera_pairs_to_3d
 from lightning_pose_tpu_torch.data.heatmaps import generate_heatmaps
 from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
@@ -102,6 +117,7 @@ from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_c
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN, make_context_windows
 from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
 from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
+from lightning_pose_tpu_torch.ops import augment3d
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
 from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
@@ -118,11 +134,14 @@ __all__ = [
     "make_step_fns",
     "run_validation_epoch",
     "sample_mask_scores",
+    "supervised_3d_inputs",
     "train",
     "unsupervised_loss",
 ]
 
 _CACHE_KEYS = ("images", "keypoints", "visibility", "bbox")
+# a calibrated multiview dataset's camera arrays, carried beside them
+_CALIBRATION_KEYS = ("intrinsic_matrix", "extrinsic_matrix", "distortions")
 # the compute type of train() and of its evaluation, as in the JAX package
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -327,6 +346,36 @@ def unsupervised_loss(
     )
 
 
+def supervised_3d_inputs(
+    preds: torch.Tensor,
+    keypoints: torch.Tensor,
+    bbox: torch.Tensor,
+    calibration: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    image_hw: tuple[int, int],
+    reprojection: bool = True,
+) -> dict[str, torch.Tensor]:
+    """The supervised 3D losses' inputs (reference
+    heatmap_tracker_multiview.py:259-323) from ``preds (B, 2VK)`` and the
+    labels ``keypoints (B, VK, 2)`` in model pixels, ``bbox (B, 4V)`` and
+    the cameras ``(intrinsics, extrinsics, distortions)``: every camera
+    pair's triangulation of the predictions, the median over pairs of the
+    labels' (no gradient) and, with ``reprojection``, the pairs' mean
+    reprojected to model pixels."""
+    height, width = image_hw
+    b, num_views = preds.shape[0], calibration[0].shape[1]
+    views = model_to_frame_batch(preds, bbox, width, height, num_views=num_views).reshape(b, num_views, -1, 2)
+    out = {"keypoints_pred_3d": project_camera_pairs_to_3d(views, *calibration)}
+    with torch.no_grad():
+        targ = model_to_frame_batch(keypoints.reshape(b, -1), bbox, width, height, num_views=num_views)
+        out["keypoints_targ_3d"] = nanmedian(
+            project_camera_pairs_to_3d(targ.reshape(b, num_views, -1, 2), *calibration), dim=1
+        )
+    if reprojection:
+        reprojected = project_3d_to_2d(out["keypoints_pred_3d"].mean(dim=1), *calibration)
+        out["keypoints_pred_2d_reprojected"] = frame_to_model_batch(reprojected, bbox, width, height).reshape(b, -1, 2)
+    return out
+
+
 def make_step_fns(
     meta: dict,
     loss_factories: dict,
@@ -353,19 +402,24 @@ def make_step_fns(
       and view), geometric only with the ``dlc`` pipelines and never for
       the multiview model, and its loss is added. The multiview model's
       patch mask, when the config sets one, takes ``mask_scores``: uniform
-      ``(B*V, patches)`` scores (:func:`sample_mask_scores`).
+      ``(B*V, patches)`` scores (:func:`sample_mask_scores`). A calibrated
+      multiview batch (with ``intrinsic_matrix``) under a non-identity
+      pipeline takes ``draws_3d`` (``ops/augment3d.sample``, one draw a
+      sample) for the 3D augmentation.
     - ``eval_step(state, batch, stage) -> (logs, preds, confidences)``.
     - ``train_step_cached(state, cache, idxs, valid, draws, unlabeled=None,
-      video_draws=None, mask_scores=None) -> logs``: the batch is gathered
-      from a device-resident labeled cache by index; rows with ``valid``
-      False are padding (visibility 0, NaN keypoints).
+      video_draws=None, mask_scores=None, draws_3d=None) -> logs``: the
+      batch is gathered from a device-resident labeled cache by index; rows
+      with ``valid`` False are padding (visibility 0, NaN keypoints).
 
     Batches hold ``images (B, H, W, 3)`` (context stacks ``(B, 5, H, W,
     3)``, labeled at their center; multiview ``(B, V, H, W, 3)``),
     ``keypoints (B, K, 2)``, ``visibility (B, K)`` and ``bbox (B, 4)``
-    (multiview: ``K`` over all views, view-major, and ``bbox (B, 4V)``) on
-    the model's device; an unlabeled window holds ``frames (T, H, W, 3)``
-    and ``bbox (T, 4)`` (multiview ``(T, V, H, W, 3)`` and ``(T, 4V)``).
+    (multiview: ``K`` over all views, view-major, and ``bbox (B, 4V)``;
+    calibrated: ``intrinsic_matrix (B, V, 3, 3)``, ``extrinsic_matrix (B, V,
+    3, 4)``, ``distortions (B, V, 5)``) on the model's device; an unlabeled
+    window holds ``frames (T, H, W, 3)`` and ``bbox (T, 4)`` (multiview
+    ``(T, V, H, W, 3)`` and ``(T, 4V)``).
     Logs are 0-d tensors, read when the caller needs them.
     """
     height = int(cfg.data.image_resize_dims.height)
@@ -382,8 +436,17 @@ def make_step_fns(
     is_regression = meta["model_type"] == "regression"
     num_views = int(meta.get("num_views", 1) or 1)
     patch_mask = _patch_mask_schedule(cfg, steps_per_epoch) if is_multiview else None
+    supervised_3d = [n for n in supervised.loss_instance_dict if n.startswith("supervised_")]
 
-    def supervised_loss(model, images, keypoints, visibility, bbox, stage):
+    def inputs_3d(preds, keypoints, bbox, calibration) -> dict:
+        """:func:`supervised_3d_inputs`; without a calibration they are
+        None, and the losses raise."""
+        if not is_multiview or calibration is None:
+            return {"keypoints_targ_3d": None, "keypoints_pred_3d": None, "keypoints_pred_2d_reprojected": None}
+        return supervised_3d_inputs(preds, keypoints, bbox, calibration, (height, width),
+                                    "supervised_reprojection_heatmap_mse" in supervised_3d)
+
+    def supervised_loss(model, images, keypoints, visibility, bbox, stage, calibration=None):
         with torch.autocast(
             images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16
         ):
@@ -413,11 +476,21 @@ def make_step_fns(
                 targets = torch.cat([targets, targets], dim=0)
                 keypoints = torch.cat([keypoints, keypoints], dim=0)
                 bbox = torch.cat([bbox, bbox], dim=0)
-            loss, logs = supervised(
-                stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=outputs
-            )
-            with torch.no_grad():
-                preds, confidences = model.decode(outputs.detach())
+            if supervised_3d:
+                # the 3D losses take the keypoints with gradient: the decode's
+                # backward runs in the step
+                preds, confidences = model.decode(outputs)
+                loss, logs = supervised(
+                    stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=outputs,
+                    **inputs_3d(preds, keypoints, bbox, calibration),
+                )
+                preds, confidences = preds.detach(), confidences.detach()
+            else:
+                loss, logs = supervised(
+                    stage=stage, anneal_weight=None, heatmaps_targ=targets, heatmaps_pred=outputs
+                )
+                with torch.no_grad():
+                    preds, confidences = model.decode(outputs.detach())
         with torch.no_grad():
             preds = model_to_frame_batch(preds, bbox, width, height, num_views=num_views)
             kp_frame = model_to_frame_batch(
@@ -429,13 +502,37 @@ def make_step_fns(
         logs[f"{stage}_supervised_rmse"] = rmse
         return loss, logs, preds, confidences
 
-    def augment_views(state: TrainState, batch: dict, draws: Draws | None, mask_scores: torch.Tensor | None):
-        """The multiview batch's views folded into the batch: augmented one
-        draw a view image, patch-masked, and unfolded again."""
+    def calibration_of(batch: dict) -> tuple[torch.Tensor, ...] | None:
+        """A calibrated batch's camera arrays, fp32 (or None)."""
+        if "intrinsic_matrix" not in batch:
+            return None
+        return tuple(batch[k].to(torch.float32) for k in _CALIBRATION_KEYS)
+
+    def augment_3d(batch: dict, draws_3d: augment3d.Draws3D | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The calibrated batch's 3D augmentation: the labels to frame
+        pixels, and frame to model pixels by each view's bbox (reference
+        datasets.py:825-1120); returns float32 images and model keypoints."""
+        if draws_3d is None:
+            raise ValueError("a calibrated batch needs its 3D draws (ops/augment3d.sample)")
         b = batch["images"].shape[0]
+        kp_frame = model_to_frame_batch(
+            batch["keypoints"].reshape(b, -1), batch["bbox"], width, height, num_views=num_views
+        ).reshape(b, -1, 2)
+        return augment3d.apply(batch["images"].to(torch.float32), kp_frame, *calibration_of(batch), draws_3d,
+                               frame_to_model=frame_to_model_matrices(batch["bbox"], width, height))
+
+    def augment_views(state: TrainState, batch: dict, draws: Draws | None, mask_scores: torch.Tensor | None,
+                      draws_3d: augment3d.Draws3D | None):
+        """The multiview batch's views (after the 3D augmentation when it is
+        calibrated) folded into the batch: augmented one draw a view image,
+        patch-masked, and unfolded again."""
+        b = batch["images"].shape[0]
+        images, keypoints = batch["images"], batch["keypoints"]
+        if "intrinsic_matrix" in batch and not augmenter.identity:
+            images, keypoints = augment_3d(batch, draws_3d)
         images, keypoints, vis = augmenter.apply(
-            batch["images"].reshape(b * num_views, *batch["images"].shape[2:]),
-            batch["keypoints"].reshape(b * num_views, -1, 2),
+            images.reshape(b * num_views, *images.shape[2:]),
+            keypoints.reshape(b * num_views, -1, 2),
             batch["visibility"].reshape(b * num_views, -1),
             draws,
         )
@@ -449,7 +546,7 @@ def make_step_fns(
                 vis.reshape(b, -1))
 
     def train_step(state: TrainState, batch: dict, draws: Draws | None, video_draws: VideoDraws | None = None,
-                   mask_scores: torch.Tensor | None = None) -> dict:
+                   mask_scores: torch.Tensor | None = None, draws_3d: augment3d.Draws3D | None = None) -> dict:
         aw = anneal_weight(
             state.step // steps_per_epoch,
             init_val=float(anneal_cfg.init_val),
@@ -458,7 +555,7 @@ def make_step_fns(
             freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
         )
         if is_multiview:
-            images, keypoints, vis = augment_views(state, batch, draws, mask_scores)
+            images, keypoints, vis = augment_views(state, batch, draws, mask_scores, draws_3d)
         else:
             images, keypoints, vis = augmenter.apply(
                 batch["images"], batch["keypoints"], batch["visibility"], draws
@@ -466,7 +563,7 @@ def make_step_fns(
         visibility = _effective_visibility(keypoints, vis)
         state.model.train()
         total, logs, _, _ = supervised_loss(
-            state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train"
+            state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train", calibration_of(batch)
         )
         if has_unsup and "unlabeled" in batch:
             if video_draws is None:
@@ -504,20 +601,20 @@ def make_step_fns(
         visibility = _effective_visibility(batch["keypoints"], batch["visibility"])
         _, logs, preds, confidences = supervised_loss(
             state.model, _to_nchw(batch["images"]), batch["keypoints"], visibility,
-            batch["bbox"], stage,
+            batch["bbox"], stage, calibration_of(batch),
         )
         return logs, preds, confidences
 
     def train_step_cached(state, cache: dict, idxs: torch.Tensor, valid: torch.Tensor, draws,
                           unlabeled: dict | None = None, video_draws: VideoDraws | None = None,
-                          mask_scores: torch.Tensor | None = None):
+                          mask_scores: torch.Tensor | None = None, draws_3d: augment3d.Draws3D | None = None):
         batch = {k: v.index_select(0, idxs) for k, v in cache.items()}
         batch["visibility"] = torch.where(valid[:, None], batch["visibility"], 0)
         # NaN pad-row labels so the logged pixel RMSE ignores them
         batch["keypoints"] = torch.where(valid[:, None, None], batch["keypoints"], float("nan"))
         if unlabeled is not None:
             batch["unlabeled"] = unlabeled
-        return train_step(state, batch, draws, video_draws, mask_scores)
+        return train_step(state, batch, draws, video_draws, mask_scores, draws_3d)
 
     return train_step, eval_step, train_step_cached
 
@@ -577,17 +674,20 @@ def _check_ported(cfg) -> None:
 def _device_cache(dataset, device: torch.device) -> dict[str, torch.Tensor]:
     """The whole labeled set on the device: uint8 images (``(N, 5, H, W,
     3)`` context stacks for the context model), keypoints, visibility flags
-    and bboxes, by dataset index."""
-    arrays: dict[str, list] = {k: [] for k in _CACHE_KEYS}
+    and bboxes, by dataset index; a calibrated dataset's camera arrays too."""
+    keys = _CACHE_KEYS + (_CALIBRATION_KEYS if getattr(dataset, "is_calibrated", False) else ())
+    arrays: dict[str, list] = {k: [] for k in keys}
     for i in range(len(dataset)):
         sample = dataset[i]
-        for k in _CACHE_KEYS:
+        for k in keys:
             arrays[k].append(np.asarray(sample[k]))
     return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in arrays.items()}
 
 
 def _on_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in _CACHE_KEYS}
+    """A validation batch's arrays (its camera arrays when it has them) on ``device``."""
+    keys = _CACHE_KEYS + tuple(k for k in _CALIBRATION_KEYS if k in batch)
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}
 
 
 def _window_on_device(window: dict, device: torch.device) -> dict[str, torch.Tensor]:
@@ -681,6 +781,9 @@ def train(
             "num_views": num_views,
         }
         masking = meta["model_type"] == "heatmap_multiview" and _patch_mask_schedule(cfg, steps_per_epoch) is not None
+        # the 3D augmentation's draws (calibrated multiview, a non-identity pipeline)
+        draws_3d_on = (meta["model_type"] == "heatmap_multiview" and getattr(dataset, "is_calibrated", False)
+                       and not augmenter.identity)
         _, eval_step, train_step_cached = make_step_fns(
             meta, loss_factories, augmenter, cfg, head_sched, bb_sched, steps_per_epoch, COMPUTE_DTYPE
         )
@@ -753,6 +856,7 @@ def train(
             for idxs, valid in data_module.train_index_batches(epoch, steps=steps_this_epoch):
                 n_images = len(idxs) * num_views
                 draws = None if augmenter.identity else augmenter.sample(draw_gen, n_images, field_gen)
+                draws_3d = augment3d.sample(draw_gen, len(idxs)) if draws_3d_on else None
                 mask_scores = sample_mask_scores(field_gen, n_images, (height, width)) if masking else None
                 unlabeled = video_draws = None
                 if unlabeled_loader is not None:
@@ -770,6 +874,7 @@ def train(
                     unlabeled,
                     video_draws,
                     mask_scores,
+                    draws_3d,
                 )
                 if state.step % log_every == 0:
                     record = {

@@ -16,6 +16,13 @@ the vertical axis by ``v * 90 / (V - 1)`` degrees), frames under
 ``labeled-data/<session>_<view>/``, one ``CollectedData_<view>.csv`` a view,
 and frame-synchronized ``videos/<session>_<view>.mp4``.
 
+``write_calibrated_multiview_dataset`` writes a calibrated multiview
+project: ``V`` pinhole cameras around a scene, each with its intrinsics,
+Rodrigues rotation, translation and 5 distortions, in the anipose TOML
+``calibrations/<session>.toml`` that the dataset discovers beside
+``labeled-data/<session>_<view>/``; the labels are the distorted
+projections of seeded 3D points, so that their triangulations agree.
+
 ``torchvision_resnet_state_dict``, ``torchvision_efficientnet_state_dict``,
 ``hf_vit_state_dict``, ``hf_dinov2_state_dict``, ``hf_dinov3_state_dict``,
 ``hf_sam_vision_state_dict`` and ``hf_sam2_hiera_state_dict`` make seeded
@@ -40,10 +47,14 @@ __all__ = [
     "hf_sam2_hiera_state_dict",
     "hf_sam_vision_state_dict",
     "hf_vit_state_dict",
+    "project_points",
+    "synthetic_cameras",
     "torchvision_efficientnet_state_dict",
     "torchvision_resnet_state_dict",
+    "write_calibrated_multiview_dataset",
     "write_labeled_dataset",
     "write_multiview_dataset",
+    "write_anipose_toml",
     "write_multiview_videos",
     "write_unlabeled_video",
 ]
@@ -192,6 +203,133 @@ def write_multiview_dataset(
         pd.DataFrame(labels.reshape(n_frames, 2 * k), index=names, columns=columns).to_csv(
             root / f"CollectedData_{view}.csv"
         )
+    return root
+
+
+def synthetic_cameras(
+    n_views: int, height: int, width: int, span_degrees: float = 90.0, distance: float = 5.0, seed: int = 0
+) -> dict:
+    """``n_views`` cameras on a circle of radius ``distance`` about the
+    vertical axis, ``span_degrees`` from the first to the last, each looking
+    at the origin (a little tilt and roll drawn from ``seed``), with a focal
+    length that puts a unit cube about the origin across 60% of the width
+    and small Brown-Conrady distortions: ``intrinsics (V, 3, 3)``,
+    ``rotations (V, 3)`` (Rodrigues), ``translations (V, 3)``,
+    ``distortions (V, 5)``, all float64."""
+    from lightning_pose_tpu_torch.data.anipose import rodrigues
+
+    rng = np.random.default_rng(seed)
+    focal = 0.6 * width * distance
+    intrinsics, rotations, translations, distortions = [], [], [], []
+    for v in range(n_views):
+        angle = np.deg2rad(span_degrees * v / max(n_views - 1, 1))
+        rvec = np.array([0.0, angle, 0.0]) + rng.normal(0.0, 0.02, 3)
+        center = distance * np.array([np.sin(angle), 0.0, -np.cos(angle)])
+        intrinsics.append([[focal, 0.0, width / 2.0], [0.0, focal, height / 2.0], [0.0, 0.0, 1.0]])
+        rotations.append(rvec)
+        translations.append(-rodrigues(rvec) @ center)
+        distortions.append([rng.normal(0, 0.05), rng.normal(0, 0.02), rng.normal(0, 1e-3), rng.normal(0, 1e-3), 0.0])
+    return {"intrinsics": np.array(intrinsics), "rotations": np.array(rotations),
+            "translations": np.array(translations), "distortions": np.array(distortions)}
+
+
+def project_points(points: np.ndarray, cameras: dict, view: int) -> np.ndarray:
+    """``(..., 3)`` world points -> ``(..., 2)`` distorted pixels of camera
+    ``view`` of :func:`synthetic_cameras` (cv2's ``projectPoints``)."""
+    from lightning_pose_tpu_torch.data.anipose import rodrigues
+
+    cam = points @ rodrigues(cameras["rotations"][view]).T + cameras["translations"][view]
+    x, y = cam[..., 0] / cam[..., 2], cam[..., 1] / cam[..., 2]
+    k1, k2, p1, p2, k3 = cameras["distortions"][view]
+    r2 = x * x + y * y
+    radial = 1 + k1 * r2 + k2 * r2**2 + k3 * r2**3
+    x_d = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    y_d = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    k = cameras["intrinsics"][view]
+    return np.stack([x_d * k[0, 0] + k[0, 2], y_d * k[1, 1] + k[1, 2]], axis=-1)
+
+
+def write_anipose_toml(path: str | Path, cameras: dict, names: list[str], height: int, width: int) -> Path:
+    """Write :func:`synthetic_cameras` as an anipose calibration TOML, one
+    ``[cam_N]`` section a camera named by ``names``."""
+    def row(values) -> str:
+        return "[ " + ", ".join(repr(float(v)) for v in values) + ",]"
+
+    lines = []
+    for v, name in enumerate(names):
+        k = cameras["intrinsics"][v]
+        lines += [
+            f"[cam_{v}]",
+            f'name = "{name}"',
+            f"size = [ {width}, {height},]",
+            "matrix = [ " + ", ".join(row(r) for r in k) + ",]",
+            f"distortions = {row(cameras['distortions'][v])}",
+            f"rotation = {row(cameras['rotations'][v])}",
+            f"translation = {row(cameras['translations'][v])}",
+            "",
+        ]
+    lines += ["[metadata]", "adjusted = true", "error = 0.0", ""]
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines))
+    return path
+
+
+def write_calibrated_multiview_dataset(
+    root: str | Path,
+    n_frames: int,
+    height: int,
+    width: int,
+    keypoint_names: list[str],
+    view_names: list[str],
+    session: str = "synth",
+    seed: int = 0,
+    nan_fraction: float = 0.05,
+    span_degrees: float = 90.0,
+    frame_map: bool = False,
+) -> Path:
+    """Write a calibrated multiview labeled set under ``root``:
+    ``labeled-data/<session>_<view>/img%04d.png``, ``CollectedData_<view>.csv``
+    and ``calibrations/<session>.toml`` (:func:`synthetic_cameras`, the
+    cameras ``span_degrees`` apart from first to last). The labels are the
+    projections of ``n_frames`` sets of seeded 3D points in a unit cube
+    about the origin, each view's frames a Gaussian blob at each label; a
+    ``nan_fraction`` of each view's labels are NaN. ``frame_map`` also
+    writes ``calibration_frame_map.csv``: one row a labeled frame (the first
+    view's names) whose ``file`` names the TOML. Returns ``root``."""
+    import cv2
+    import pandas as pd
+
+    root = Path(root)
+    (root / "videos").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    cameras = synthetic_cameras(len(view_names), height, width, span_degrees, seed=seed)
+    toml = write_anipose_toml(root / "calibrations" / f"{session}.toml", cameras, view_names, height, width)
+    k = len(keypoint_names)
+    colors = rng.uniform(80, 255, (k, 3))
+    points = rng.uniform(-0.5, 0.5, (n_frames, k, 3))
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    columns = pd.MultiIndex.from_tuples(
+        [("synthetic", kp, c) for kp in keypoint_names for c in ("x", "y")],
+        names=["scorer", "bodyparts", "coords"],
+    )
+    first_names = []
+    for v, view in enumerate(view_names):
+        (root / "labeled-data" / f"{session}_{view}").mkdir(parents=True, exist_ok=True)
+        labels = project_points(points, cameras, v)
+        names = []
+        for i in range(n_frames):
+            name = f"labeled-data/{session}_{view}/img{i:04d}.png"
+            cv2.imwrite(str(root / name), _blob_frame(rng, labels[i], colors, yy, xx)[..., ::-1])
+            names.append(name)
+        labels[rng.uniform(size=(n_frames, k)) < nan_fraction] = np.nan
+        pd.DataFrame(labels.reshape(n_frames, 2 * k), index=names, columns=columns).to_csv(
+            root / f"CollectedData_{view}.csv"
+        )
+        first_names = first_names or names
+    if frame_map:
+        rel = str(toml.relative_to(root))
+        pd.DataFrame({"file": [rel] * n_frames}, index=first_names).to_csv(root / "calibration_frame_map.csv")
     return root
 
 

@@ -117,7 +117,7 @@ def few_torch_threads():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture()
+@pytest.fixture(scope="session")
 def seeded_jax_variables():
     """``fn(flax module, *init inputs, seed=0, **init kwargs) -> variables``:
     numpy trees made from a seed, without running the module's init."""

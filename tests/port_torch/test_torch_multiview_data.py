@@ -1,5 +1,5 @@
 """Slice 7, the multiview data path against the JAX package's: the fused
-multiview samples, the refusal of calibration, the multiview PCA subspace
+multiview samples, what still refuses calibrated data, the multiview PCA subspace
 and ``pca_multiview`` loss, the metrics on a true-multiview data module,
 the frame-synchronized unlabeled and predict loaders (bitwise frames), and
 the per-view prediction dataframes. Data from ``utils/synthetic.py``: two
@@ -80,23 +80,28 @@ def test_multiview_samples_match_jax(mv_root):
 
 
 def test_calibration_raises_not_implemented(mv_root, tmp_path):
-    """A camera_params_file, or a calibration.toml that every frame's
-    session finds, needs the 3D stage: NotImplementedError naming item 6b.
+    """Calibration is ported: a ``camera_params_file``, or a
+    ``calibration.toml`` that every frame's session finds, calibrates the
+    multiview transformer's dataset. A heatmap model on multiview data,
+    calibrated or not, still raises NotImplementedError naming item 6b-ii.
     A frame path without ``labeled-data/<session>_<view>/`` is a
     ValueError, as in the JAX package."""
     import shutil
 
     from lightning_pose_tpu_torch.data.factory import get_dataset
+    from lightning_pose_tpu_torch.utils.synthetic import synthetic_cameras, write_anipose_toml
 
-    cfg = _cfg(mv_root)
-    cfg.data.camera_params_file = "calibration.toml"
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        get_dataset(cfg, str(mv_root))
     root = tmp_path / "calibrated"
     shutil.copytree(mv_root, root, ignore=shutil.ignore_patterns("videos"))
-    (root / "calibration.toml").write_text("[cam_0]\nname = \"cam0\"\n")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        get_dataset(_cfg(root), str(root))
+    write_anipose_toml(root / "calibration.toml", synthetic_cameras(len(VIEWS), 100, 120), VIEWS, 100, 120)
+    cfg = _cfg(root)
+    cfg.data.camera_params_file = "calibration.toml"
+    assert get_dataset(cfg, str(root)).is_calibrated
+    assert get_dataset(_cfg(root), str(root)).is_calibrated  # found by discovery
+    assert not get_dataset(_cfg(mv_root), str(mv_root)).is_calibrated
+    cfg.model.model_type = "heatmap"
+    with pytest.raises(NotImplementedError, match="item 6b-ii"):
+        get_dataset(cfg, str(root))
     csv = root / "CollectedData_cam0.csv"
     df = pd.read_csv(csv, header=[0, 1, 2], index_col=0)
     df.index = [name.replace("synth_cam0/", "") for name in df.index]

@@ -1,7 +1,8 @@
 """The port imports no JAX, nothing of the JAX package and not
 ``transformers``: its whole package, its predict path, its supervised and
 semi-supervised training paths, a pretrained backbone load, a resume run,
-and a transformer backbone's train() with a DARK prediction run in a
+a transformer backbone's train() with a DARK prediction, and the
+calibrated multiview train() with the host triangulation run in a
 subprocess where importing jax, jaxlib, flax, optax, transformers or
 ``lightning_pose_tpu`` raises, and no module of the port names one of them
 in an import."""
@@ -74,6 +75,7 @@ def test_no_port_module_names_jax_or_the_jax_package():
             "models/heads/regression.py"} <= names
     assert {"models/backbones/vit_dino.py", "models/backbones/vit_sam.py", "models/backbones/hiera.py",
             "ops/dark.py"} <= names
+    assert {"data/anipose.py", "data/cameras.py", "ops/augment3d.py"} <= names
     assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
@@ -103,11 +105,12 @@ for name in names:
 blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate",
        "backbones.pretrained", "backbones.efficientnet", "regression_tracker", "heads.regression",
-       "backbones.vit_dino", "backbones.vit_sam", "backbones.hiera", "ops.dark"}
+       "backbones.vit_dino", "backbones.vit_sam", "backbones.hiera", "ops.dark",
+       "data.anipose", "data.cameras", "ops.augment3d"}
 print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
     count, n_blocked, n_new = out.split()
-    assert int(count) >= 30 and n_blocked == "0" and n_new == "12"
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "15"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -350,6 +353,69 @@ print(json.dumps({{
                       "video_preds/session0_side.csv", "video_preds/session0_top.csv"],
         "jax": [],
     }
+
+
+def test_calibrated_multiview_path_runs_without_jax(tmp_path):
+    """The calibrated multiview transformer (a small ViT): train() on a
+    synthetic 2-view set whose anipose TOML the dataset discovers, with the
+    3D augmentation and both supervised 3D losses, then the directory
+    through ``Model.from_dir2`` with an override, one frame a view, and the
+    host triangulation of the predictions with the discovered cameras."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.data.anipose import load_anipose_toml
+from lightning_pose_tpu_torch.data.cameras import CameraGroup
+from lightning_pose_tpu_torch.models.backbones import vit
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_calibrated_multiview_dataset
+
+vit.VIT_CONFIGS["vits"] = (32, 1, 2, 16)
+names, views = ["a", "b", "c"], ["top", "side"]
+data = write_calibrated_multiview_dataset({str(tmp_path / "data")!r}, 6, 100, 120, names, views, seed=1)
+cfg = load_config()
+cfg.data.data_dir = str(data)
+cfg.data.video_dir = "videos"
+cfg.data.csv_file = [f"CollectedData_{{v}}.csv" for v in views]
+cfg.data.view_names = views
+cfg.data.num_keypoints = 3
+cfg.data.keypoint_names = names
+cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+cfg.model.model_type = "heatmap_multiview_transformer"
+cfg.model.backbone = "vits_dino"
+cfg.model.model_name = "nojaxcal"
+cfg.losses.supervised_reprojection_heatmap_mse = {{"log_weight": 3.0}}
+cfg.losses.supervised_pairwise_projections = {{"log_weight": 3.0}}
+cfg.training.imgaug = "dlc"
+cfg.training.imgaug_3d = True
+cfg.training.train_batch_size = 4
+cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+cfg.training.max_steps = cfg.training.min_steps = 2
+cfg.training.unfreezing_step = 1
+cfg.training.log_every_n_steps = 1
+cfg.training.lr_scheduler_params.multisteplr.milestones = None
+cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+model_dir = {str(tmp_path / "model")!r}
+result = train(cfg, model_dir, skip_evaluation=True, device="cpu")
+model = Model.from_dir2(model_dir, ["training.test_batch_size=3"], precision="fp32", device="cpu")
+frame = model.predict_frame(np.zeros((2, 100, 120, 3), dtype=np.uint8))
+cameras = CameraGroup.from_dict(load_anipose_toml(str(data / "calibrations" / "synth.toml")))
+points = cameras.triangulate_fast(frame["keypoints"].reshape(1, 2, 3, 2).astype(np.float64))
+print(json.dumps({{
+    "logged_3d": sum("train_supervised_pairwise_projections_loss" in h for h in result.history),
+    "batch": int(model.cfg.training.test_batch_size),
+    "video_preds": str(model.video_preds_dir()) == model_dir + "/video_preds",
+    "points": list(points.shape),
+    "finite": bool(np.isfinite(frame["keypoints"]).all() and np.isfinite(points).all()),
+    "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+}}))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == {"logged_3d": 2, "batch": 3, "video_preds": True, "points": [1, 3, 3], "finite": True, "jax": []}
 
 
 def test_pretrained_backbone_and_resume_run_without_jax(tmp_path):
