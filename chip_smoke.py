@@ -208,8 +208,42 @@ Phases, each fatal on failure:
         an evaluation batch (32, 2, 256, 256, 3), the warp over 32 view
         images at the 3D augmentation's coordinates, CLAHE at 16a's fired
         planes, the decode and its backward on the trained model's
-        (16, 34, 64, 64) maps. The JSON summary holds 16a's launches and
-        16c's times.
+        (16, 34, 64, 64) maps.
+ 17. the heatmap models on multiview data: the repo's split config as it
+     ships (scripts/configs/config_mirror-mouse-example_split.yaml:
+     resnet50_animal_ap10k from a file in MMPose's layout with seeded random
+     values, 2 views of 7 keypoints, 256 px, batch 16, dlc, pca_multiview at
+     log weight 10.7 over a 16-frame 2-view window, 64-frame predict
+     windows), on a synthetic set in the split layout (top.csv, bot.csv) and
+     a 120-frame 2-view session; cut to 10 steps, the anneal weight from 1
+     and pca_multiview's epsilon 0 so that the unsupervised term runs, the
+     mirrored columns in their flat per-view form (split_config):
+     a. train(cfg, dir) of `heatmap`, the views folded into the batch, with
+        its evaluation (one image_preds directory, legacy copy and test-
+        session CSV a view, the labeled mp4s); launches of the warp (once a
+        step over 32 view images), CLAHE (once a step whose draws fire it),
+        the decode (twice a step, once a validation, evaluation and session
+        batch), its backward (once a step) and the normalize (once an
+        evaluation and session batch), each against that count; the step's
+        ms, busy share and memory; from the directory,
+        predict_on_video_file_multiview of a 2-view 1000-frame session in 3
+        runs, predict_on_label_csv_multiview, predict_frame of one frame a
+        view, fp32 card vs CPU;
+     b. the same for `heatmap_mhcrnn` (5-frame stacks a view: 160 backbone
+        images a step, the window's 12 windows a view; the decode 3 times a
+        step and twice a prediction batch, its backward twice a step), and
+        one step of the repeat_center model (the backbone takes 1 image a
+        view stack, counted by a hook);
+     c. one semi-supervised step of each model card vs CPU (resnet18, 128
+        px, fp32, TF32 off, the same draws): the parameters' gradients;
+     d. each kernel at 17a's and at 17b's shapes against its plain version
+        and timed beside its bound (and F.grid_sample for the warp): the
+        normalize on a predict window (64, 2, 256, 256, 3) and a context
+        evaluation batch (16, 2, 5, 256, 256, 3), the warp over 32 view
+        images and 160 stack images, CLAHE at the fired planes, the decode on
+        the trained models' view-major maps of a predict batch and its
+        backward on their maps of the window. The JSON summary holds 17a's
+        launches and 17d's times at 17a's shapes.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX, of
 the JAX package ``lightning_pose_tpu`` or of ``transformers`` and fails if
@@ -346,7 +380,23 @@ CAL_FRAME_HW = (240, 320)
 CAL_F64_REL_TOL = 1e-9
 CAL_MAPS_REL_TOL = 1e-4
 CAL_REPROJ_TOL_PX = 0.05
-# the device of phase 14's and 15's paths (the checks of phase 3 are the card's)
+# phase 17, the heatmap models on multiview data: the repo's split config
+# (SPLIT_CONFIG, checked to ship these values) and the cuts of length: the
+# train() steps, the test session's frames (the unlabeled stream's
+# sessions), the frames of the 2-view session predicted in
+# SPLIT_VIDEO_RUNS runs (the first cold), the limit of fp32 on the card
+# against the CPU
+SPLIT_CONFIG = "scripts/configs/config_mirror-mouse-example_split.yaml"
+SPLIT_VIEWS = ["top", "bot"]
+SPLIT_KEYPOINTS = 7
+SPLIT_WINDOW = 16  # dali.base.train.sequence_length
+SPLIT_PREDICT = 64  # dali.base.predict.sequence_length and dali.context.predict.sequence_length
+SPLIT_STEPS = 10
+SPLIT_SESSION_FRAMES = 120
+SPLIT_VIDEO_FRAMES = 1000
+SPLIT_VIDEO_RUNS = 3
+SPLIT_TOL_PX = 0.05
+# the device of phase 14's, 15's and 17's paths (the checks of phase 3 are the card's)
 DEVICE = "cuda"
 
 KERNELS = {
@@ -1695,18 +1745,17 @@ def multiview_kernel_checks(rng, errors: dict, inputs: dict, phase: str = "3", w
 
     dev = torch.device("cuda", 0)
     frames, images, hm_video, hm_window = inputs["frames"], inputs["images"], inputs["hm_video"], inputs["hm_window"]
-    n, nv = frames.shape[:2]
     out = normalize_kernel.normalize(frames, torch.bfloat16)
     ref = normalize_kernel.normalize_plain(frames, torch.bfloat16)
     torch.cuda.synchronize()
     ulps = bf16_ulps(out, ref)
     log(f"phase {phase} normalize {what} {tuple(frames.shape)} -> {tuple(out.shape)} bf16: {ulps} bf16 ulps from "
         f"the plain version (limit {NORMALIZE_MAX_ULP})")
-    check(out.shape == (n, nv, 3, IMAGE, IMAGE) and ulps <= NORMALIZE_MAX_ULP,
+    check(out.shape == (*frames.shape[:-3], 3, IMAGE, IMAGE) and ulps <= NORMALIZE_MAX_ULP,
           f"normalize of a {what} batch disagrees with its plain version")
     errors["normalize"] = max(errors["normalize"], float((out.float() - ref.float()).abs().max()))
 
-    label = f"{what} {images.shape[0] // nv}x{nv} views"
+    label = f"{what} {images.shape[0]} view images"
     errors["warp"] = max(errors["warp"], check_warp_at(images, inputs["coords"], label, phase))
 
     clahe_inputs = []
@@ -1813,19 +1862,20 @@ def multiview_times(inputs: dict, card: str, phase: str = "13e", shapes: dict | 
     return times
 
 
-def check_multiview_preds(model_dir: Path) -> list[str]:
+def check_multiview_preds(model_dir: Path, views: list[str] = MV_VIEWS, csv_name: str = "CollectedData_{view}.csv",
+                          keypoints: int = KEYPOINTS) -> list[str]:
     """train()'s evaluation of a multiview model: image_preds/<view csv>/
     predictions.csv and its pixel-error CSV for each view, with their
     legacy copies predictions_<view>*.csv in the model directory."""
     import pandas as pd
 
     found = []
-    for view in MV_VIEWS:
-        preds_dir = model_dir / "image_preds" / f"CollectedData_{view}.csv"
+    for view in views:
+        preds_dir = model_dir / "image_preds" / csv_name.format(view=view)
         files = sorted(f.name for f in preds_dir.glob("*.csv"))
         check(files == ["predictions.csv", "predictions_pixel_error.csv"], f"{preds_dir}: {files}")
         df = pd.read_csv(preds_dir / "predictions.csv", header=[0, 1, 2], index_col=0)
-        check(df.shape == (TRAIN_FRAMES, 3 * KEYPOINTS + 1) and df.columns[-1][0] == "set"
+        check(df.shape == (TRAIN_FRAMES, 3 * keypoints + 1) and df.columns[-1][0] == "set"
               and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(), f"{preds_dir}/predictions.csv: {df.shape}")
         for name in (f"predictions_{view}.csv", f"predictions_{view}_pixel_error.csv"):
             check((model_dir / name).is_file(), f"the legacy copy {name} is missing")
@@ -3320,6 +3370,529 @@ def calibrated_phase(rng, card: str, errors: dict) -> tuple[dict[str, int], dict
     return launches, multiview_times(inputs, card, "16c", shapes)
 
 
+# -- heatmap models on multiview data: the split config (phase 17) ------------------------
+
+
+def split_config(data_dir: Path, backbone_file: Path, model_type: str, name: str):
+    """The repo's split config as it ships (SPLIT_CONFIG: resnet50_animal_ap10k,
+    2 views of 7 keypoints at 256 px, batch 16, dlc, pca_multiview at log
+    weight 10.7 over a 16-frame 2-view window, 64-frame predict windows, the
+    test session predicted and labeled after training) on the synthetic set,
+    with ``model_type`` and the AP10k file. Changed: the length (the 300
+    epochs cut to SPLIT_STEPS steps in step mode, the backbone unfrozen at
+    step UNFREEZE_STEP, milestones at steps 5 and 8); so that the
+    unsupervised term carries gradient from random weights, as in phase 11,
+    the anneal weight starts at 1 (the config's 0.0 keeps the term off for
+    its first 100 epochs) and pca_multiview's epsilon is 0 (the config's
+    null takes the training labels' 99th percentile, which a random head's
+    near-centre keypoints stay below); ``data.mirrored_column_matches`` in
+    its flat per-view form (the shipped list of one list gives
+    pca_multiview one view's 2-D points, both of whose components it
+    keeps: a loss of 0 in both packages)."""
+    from lightning_pose_tpu_torch.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / SPLIT_CONFIG))
+    check(cfg.model.model_type == "heatmap" and cfg.model.backbone == "resnet50_animal_ap10k"
+          and list(cfg.data.view_names) == SPLIT_VIEWS and int(cfg.data.num_keypoints) == SPLIT_KEYPOINTS
+          and int(cfg.data.image_resize_dims.height) == IMAGE == int(cfg.data.image_resize_dims.width)
+          and cfg.training.train_batch_size == TRAIN_BATCH and cfg.training.imgaug == "dlc"
+          and list(cfg.model.losses_to_use) == ["pca_multiview"] and float(cfg.losses.pca_multiview.log_weight) == 10.7
+          and int(cfg.dali.base.train.sequence_length) == SPLIT_WINDOW
+          and int(cfg.dali.base.predict.sequence_length) == SPLIT_PREDICT
+          and int(cfg.dali.context.predict.sequence_length) == SPLIT_PREDICT
+          and list(cfg.data.mirrored_column_matches) == [list(range(SPLIT_KEYPOINTS))], "the split config changed")
+    cfg.data.data_dir = str(data_dir)
+    cfg.data.video_dir = str(data_dir / "videos")
+    cfg.eval.test_videos_directory = str(data_dir / "videos")
+    cfg.data.mirrored_column_matches = list(range(SPLIT_KEYPOINTS))
+    cfg.model.model_type = model_type
+    cfg.model.model_name = name
+    cfg.model.backbone_checkpoint = str(backbone_file)
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    cfg.losses.pca_multiview.epsilon = 0.0
+    tcfg = cfg.training
+    tcfg.max_epochs = tcfg.min_epochs = tcfg.unfreezing_epoch = None
+    tcfg.max_steps = tcfg.min_steps = SPLIT_STEPS
+    tcfg.unfreezing_step = UNFREEZE_STEP
+    tcfg.lr_scheduler_params.multisteplr.milestones = None
+    tcfg.lr_scheduler_params.multisteplr.milestone_steps = [5, 8]
+    return cfg
+
+
+def write_ap10k_file(directory: Path) -> Path:
+    """A torchvision ResNet-50 state dict with seeded random values in
+    MMPose's ``{"state_dict": {"backbone.*"}}`` container, as phase 14
+    writes it (no AP10k weights ship with the repo)."""
+    import torch
+
+    from lightning_pose_tpu_torch.utils.synthetic import torchvision_resnet_state_dict
+
+    path = directory / "resnet50_animal_ap10k_mmpose.pth"
+    resnet = torchvision_resnet_state_dict("resnet50", seed=SEED + 20)
+    torch.save({"state_dict": {f"backbone.{k}": v for k, v in resnet.items()}}, path)
+    return path
+
+
+def window_draws_extra(gen) -> None:
+    """What a semi-supervised train() step draws from the host generator
+    after its 2D draws: the window's scalars (``sample_video_draws``; its
+    noise field comes from the device generator)."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+
+    sample_video_draws(gen, 1, 1, 1, torch.Generator(DEVICE))
+
+
+def check_split_preds(model_dir: Path) -> list[str]:
+    """train()'s evaluation on the split set: check_multiview_preds of the
+    views' label CSVs, and for each view the test session's CSV (one finite
+    row a frame) and labeled mp4."""
+    import pandas as pd
+
+    found = check_multiview_preds(model_dir, SPLIT_VIEWS, "{view}.csv", SPLIT_KEYPOINTS)
+    for view in SPLIT_VIEWS:
+        video = pd.read_csv(model_dir / "video_preds" / f"session0_{view}.csv", header=[0, 1, 2], index_col=0)
+        check(video.shape == (SPLIT_SESSION_FRAMES, 3 * SPLIT_KEYPOINTS) and np.isfinite(video.to_numpy()).all(),
+              f"the test session's CSV of {view}: {video.shape}")
+        check((model_dir / "video_preds" / "labeled_videos" / f"session0_{view}_labeled.mp4").is_file(),
+              f"no labeled test video of {view}")
+        found.append(f"video_preds/session0_{view}.csv and its labeled mp4")
+    return found
+
+
+def split_predict_phase(model_dir: Path, videos: list[Path], context: bool, card: str, phase: str) -> dict:
+    """From a split-config directory: predict_on_video_file_multiview of the
+    1000-frame 2-view session SPLIT_VIDEO_RUNS times (frames/s, the first
+    run's launches against the batches), predict_on_label_csv_multiview,
+    predict_frame of one frame a view (a 5-frame stack a view for the
+    context model) with a bbox, and fp32 card (TF32 off) against the CPU on
+    2 such inputs. Returns the first run's launches, the rates and the
+    card-vs-CPU difference."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    nv, heads = len(SPLIT_VIEWS), 1 + context
+    model = Model.from_dir(model_dir, device=DEVICE)
+    model._load()  # the model's load and weights stay out of the counts and the time
+    torch.cuda.synchronize()
+    rates = []
+    for run in range(SPLIT_VIDEO_RUNS):
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        result = model.predict_on_video_file_multiview(videos, compute_metrics=False)
+        rates.append(SPLIT_VIDEO_FRAMES / (time.perf_counter() - t0))
+        if run == 0:
+            video_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    step = SPLIT_PREDICT - 4 if context else SPLIT_PREDICT
+    batches = math.ceil((SPLIT_VIDEO_FRAMES - 4 * context) / step)
+    for view in SPLIT_VIEWS:
+        df = result.predictions[view]
+        check(df.shape == (SPLIT_VIDEO_FRAMES, 3 * SPLIT_KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"the session CSV of {view}: shape {df.shape} or non-finite values")
+    check(video_launches == {"normalize": batches, "decode": heads * batches},
+          f"split session launches {video_launches}, {batches} batches")
+    log(f"phase {phase} predict_on_video_file_multiview (bf16, without metrics): {nv} views x {SPLIT_VIDEO_FRAMES} "
+        f"frames of 320x240 mp4s in {batches} batches of ({SPLIT_PREDICT}, {nv}, {IMAGE}, {IMAGE}, 3)"
+        + (f" overlapping by 4 ({step} windows of 5 a view, each frame through the backbone 5 times)" if context else "")
+        + f", one finite row per frame and view in one CSV a view; launches {video_launches} (normalize 1, the "
+        f"decode {heads} a batch over {nv * SPLIT_KEYPOINTS} view-major maps a row) in the first run; frames/s of the "
+        f"session (each frame in both views) with the mp4s' decode, the model loaded before: {rates[0]:.1f} in the "
+        f"first run (loader threads started, first calls at these shapes), "
+        f"{', '.join(f'{r:.1f}' for r in rates[1:])} in the next {len(rates) - 1} {card}")
+
+    csvs = [f"{v}.csv" for v in SPLIT_VIEWS]
+    normalize_kernel.launches = decode_kernel.launches = 0
+    t0 = time.perf_counter()
+    labeled = model.predict_on_label_csv_multiview(csvs)
+    elapsed = time.perf_counter() - t0
+    csv_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+    csv_batches = math.ceil(TRAIN_FRAMES / int(model.cfg.training.test_batch_size))
+    check(csv_launches == {"normalize": csv_batches, "decode": heads * csv_batches},
+          f"split label CSV launches {csv_launches}, {csv_batches} batches")
+    for view in SPLIT_VIEWS:
+        df = labeled.predictions[view]
+        check(df.shape == (TRAIN_FRAMES, 3 * SPLIT_KEYPOINTS + 1) and np.isfinite(df.iloc[:, :-1].to_numpy(float)).all(),
+              f"predict_on_label_csv_multiview {view}: shape {df.shape} or non-finite values")
+        check(labeled.metrics[view].pixel_error_df is not None, f"no pixel-error metrics for {view}")
+    log(f"phase {phase} predict_on_label_csv_multiview (bf16): {TRAIN_FRAMES} frames x {nv} views"
+        + (" (5-frame stacks)" if context else "") + f" in {csv_batches} batches, one CSV a view, launches "
+        f"{csv_launches}, {elapsed:.2f} s with metrics {card}")
+
+    srng = np.random.default_rng(SEED + 31 + context)
+    frames = srng.integers(0, 256, (2, nv, *((CONTEXT_FRAMES,) if context else ()), 240, 320, 3), dtype=np.uint8)
+    out = model.predict_frame(frames[0], bbox=(10, 20, 280, 200))
+    check(out["keypoints"].shape == (nv * SPLIT_KEYPOINTS, 2) and np.isfinite(out["keypoints"]).all()
+          and np.isfinite(out["confidence"]).all(), "predict_frame on the split config")
+    fp32 = {d: Model.from_dir(model_dir, precision="fp32", device=d) for d in (DEVICE, "cpu")}
+    res = {d: [m.predict_frame(f) for f in frames] for d, m in fp32.items()}
+    kp_diff = max(float(np.abs(a["keypoints"] - b["keypoints"]).max()) for a, b in zip(res[DEVICE], res["cpu"]))
+    conf_diff = max(float(np.abs(a["confidence"] - b["confidence"]).max()) for a, b in zip(res[DEVICE], res["cpu"]))
+    log(f"phase {phase} predict_frame of {tuple(frames.shape[1:])} with a bbox: finite, {nv * SPLIT_KEYPOINTS} "
+        f"keypoints view-major; fp32 card (TF32 off) vs CPU on 2 such inputs: keypoints max abs diff {kp_diff:.3e} px "
+        f"(limit {SPLIT_TOL_PX}), confidences {conf_diff:.3e}")
+    check(kp_diff <= SPLIT_TOL_PX, f"split predict_frame card vs CPU: {kp_diff} px")
+    return {"launches": video_launches, "rates": rates, "card_vs_cpu_px": kp_diff}
+
+
+def split_step_card_vs_cpu(model_type: str, dm, card: str) -> dict[str, tuple[float, float]]:
+    """Phase 17c: one semi-supervised step of ``model_type`` on the split
+    layout at a small size (resnet18, 128 px, 4 samples x 2 views with dlc,
+    the context model's 5-frame stacks; an 8-frame 2-view window),
+    pca_multiview (fitted on ``dm``) + temporal at weight 1/2, epsilons 0,
+    from the same weights with the same draws replayed: fp32 (TF32 off) on
+    the card, and fp32 and float64 on the CPU (the decode kernel takes fp32
+    maps, so the card's step is fp32). Each fp32 step's parameter gradients
+    against the float64 step's: the largest leaf error (relative to the
+    leaf's largest entry; the last deconv's biases left out, their
+    gradients are 0 up to rounding) and the 2-norm error. Returns them by
+    run."""
+    import copy
+
+    import torch
+
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model, model_meta
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    size, n_lab, n_win, nv, k = 128, 4, 8, len(SPLIT_VIEWS), SPLIT_KEYPOINTS
+    context = model_type == "heatmap_mhcrnn"
+    cfg = load_config(str(Path(__file__).resolve().parent / SPLIT_CONFIG))
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = size
+    cfg.data.mirrored_column_matches = list(range(k))
+    cfg.model.model_type = model_type
+    cfg.model.losses_to_use = ["pca_multiview", "temporal"]
+    for name in ("pca_multiview", "temporal"):
+        cfg.losses[name].log_weight = 0.0
+        cfg.losses[name].epsilon = 0.0
+    cfg.losses.temporal.prob_threshold = 0.0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    factories = get_loss_factories(cfg, dm)
+    torch.manual_seed(SEED + 33)
+    model = build_model(model_type, "resnet18", k, DOWNSAMPLE, image_size=size)
+    single_frame_head = model.head.head_sf if context else model.head
+    with torch.no_grad():  # peaked maps (the head's Xavier gain 0.01 gives near-uniform ones), as the CPU tests scale them
+        for layer in (single_frame_head.deconv0, single_frame_head.deconv1):
+            layer.weight.mul_(300.0)
+    engine = AugmentationEngine("dlc", size, size)
+    gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(DEVICE).manual_seed(SEED)
+    draws = engine.sample(gen, n_lab * nv, field_gen)
+    for name in ("histeq_u", "clahe_u", "emboss_u"):  # no integer-bin ops: they round apart
+        getattr(draws, name).fill_(1.0)
+    video_draws = sample_video_draws(gen, n_win * nv, size, size, field_gen)
+    cpu_draws = type(draws)(**{k_: None if v is None else v.cpu() for k_, v in vars(draws).items()})
+    cpu_video_draws = type(video_draws)(**{k_: v.cpu() for k_, v in vars(video_draws).items()})
+    rng = np.random.default_rng(SEED + 34)
+    stack = (CONTEXT_FRAMES,) if context else ()
+    cache = {
+        "images": torch.from_numpy(rng.integers(0, 256, (6, nv, *stack, size, size, 3), dtype=np.uint8)),
+        "keypoints": torch.from_numpy(rng.uniform(8, size - 8, (6, nv * k, 2)).astype(np.float32)),
+        "visibility": torch.full((6, nv * k), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, size, size] * nv] * 6),
+    }
+    window = {
+        "frames": torch.from_numpy(rng.integers(0, 256, (n_win, nv, size, size, 3), dtype=np.uint8)),
+        "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0] * nv] * n_win),
+    }
+    grads, unsup = {}, {}
+    for run, where, dtype in (("card fp32", DEVICE, torch.float32), ("CPU fp32", "cpu", torch.float32),
+                              ("CPU float64", "cpu", torch.float64)):
+        d = torch.device(where)
+        m = copy.deepcopy(model).to(d, dtype, memory_format=torch.channels_last)
+        if dtype == torch.float64:  # the step normalizes in fp32
+            m.register_forward_pre_hook(lambda mod, args: (args[0].to(torch.float64),))
+        optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, m)
+        state = trainer.TrainState(model=m, optimizer=optimizer)
+        step = trainer.make_step_fns(model_meta(cfg), factories, engine, cfg, head_sched, bb_sched, 10,
+                                     compute_dtype=dtype)[2]
+        on_card = d.type != "cpu"
+        logs = step(
+            state, {k_: v.to(d) for k_, v in cache.items()}, torch.arange(n_lab, device=d),
+            torch.ones(n_lab, dtype=torch.bool, device=d), draws if on_card else cpu_draws,
+            {k_: v.to(d) for k_, v in window.items()}, video_draws if on_card else cpu_video_draws,
+        )
+        check(all(bool(torch.isfinite(v).all()) for v in logs.values()), f"split step, {run}: non-finite logs")
+        grads[run] = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
+        unsup[run] = {n: float(logs[f"train_{n}_loss"]) for n in ("pca_multiview", "temporal")}
+    skip = ("head.deconv1.bias", "head.head_sf.deconv1.bias")
+    ref = grads["CPU float64"]
+    errors = {}
+    for run in ("card fp32", "CPU fp32"):
+        leaf = {n: float((grads[run][n] - g).abs().max() / g.abs().max())
+                for n, g in ref.items() if n not in skip and float(g.abs().max()) > 0}
+        flat, flat_ref = (torch.cat([g.flatten() for n, g in gs.items() if n not in skip]) for gs in (grads[run], ref))
+        worst = max(leaf, key=leaf.get)
+        errors[run] = (leaf[worst], float((flat - flat_ref).norm() / flat_ref.norm()), worst)
+    log(f"phase 17c {model_type} semi-supervised step (resnet18, {size} px, {n_lab} samples x {nv} views"
+        + (f" x {CONTEXT_FRAMES} frames" if context else "") + f" with dlc + a {n_win}-frame {nv}-view window, the "
+        f"same draws; pca_multiview and temporal: " + "; ".join(f"{run} {v}" for run, v in unsup.items())
+        + "): each fp32 step's parameter gradients against the CPU's float64 step: " + "; ".join(
+            f"{run} largest leaf error {e[0]:.3e} of the leaf's largest entry ({e[2]}), 2-norm error {e[1]:.3e}"
+            for run, e in errors.items()) + f" (limits {SEMI_LEAF_REL_TOL} and {SEMI_NORM_REL_TOL}) {card}")
+    check(min(unsup["CPU float64"].values()) > 0, f"split step: an unsupervised loss is 0 ({unsup['CPU float64']})")
+    check(errors["card fp32"][0] <= SEMI_LEAF_REL_TOL and errors["card fp32"][1] <= SEMI_NORM_REL_TOL,
+          f"the {model_type} step's gradients on the card disagree with the CPU's float64 step")
+    return errors
+
+
+def split_train_phase(data: Path, ap10k: Path, model_type: str, tmp: Path, rng, card: str, phase: str) -> dict:
+    """Phase 17a (``heatmap``) or 17b (``heatmap_mhcrnn``): train() of the
+    split config with its evaluation, each kernel's launches against what
+    the code implies, the step's ms, busy share and memory; for the context
+    model, one step of the repeat_center model, its backbone images counted.
+    Returns the launches, the trained result, the fired CLAHE draws and the
+    inputs of the kernel checks at this path's shapes."""
+    import math
+
+    import torch
+
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
+    from lightning_pose_tpu_torch.models.factory import build_model, model_meta
+    from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import make_context_windows
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.train.checkpoints import load_flax_variables, state_dict_to_flax
+
+    dev = torch.device(DEVICE)
+    context = model_type == "heatmap_mhcrnn"
+    nv, k, heads = len(SPLIT_VIEWS), SPLIT_KEYPOINTS, 1 + context
+    n_img = TRAIN_BATCH * nv
+    frames_an_image = CONTEXT_FRAMES if context else 1
+    engine = AugmentationEngine("dlc", IMAGE, IMAGE)
+    cfg = split_config(data, ap10k, model_type, f"smokesplit{'ctx' if context else ''}")
+    model_dir = tmp / model_type
+    fired = clahe_fired_stacks(engine, SPLIT_STEPS, int(cfg.training.rng_seed_data_pt), n_img,
+                               extra_draw=window_draws_extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warp_kernel.launches = clahe_kernel.launches = normalize_kernel.launches = 0
+    decode_kernel.launches = decode_kernel.grad_launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train(cfg, model_dir, device=DEVICE)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches,
+                "warp": warp_kernel.launches, "clahe": clahe_kernel.launches,
+                "decode_grad": decode_kernel.grad_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dm = result.data_module
+    val_logs = [h for h in result.history if "val_supervised_loss" in h]
+    train_logs = [h for h in result.history if "train_unsupervised_loss" in h]
+    val_batches = len(val_logs) * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+    eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+    video_batches = math.ceil((SPLIT_SESSION_FRAMES - 4 * context) / (SPLIT_PREDICT - 4 * context))
+    windows = SPLIT_WINDOW - 4 if context else SPLIT_WINDOW
+    implied = {"normalize": eval_batches + video_batches,
+               "decode": (1 + heads) * SPLIT_STEPS + val_batches + heads * (eval_batches + video_batches),
+               "warp": SPLIT_STEPS, "clahe": len(fired), "decode_grad": heads * SPLIT_STEPS}
+    pca = [h["train_pca_multiview_loss"] for h in train_logs]
+    log(f"phase {phase} {model_type} train() on the split config (resnet50_animal_ap10k from the MMPose file, "
+        f"{IMAGE} px, {nv} views of {k} keypoints, batch {TRAIN_BATCH} = {n_img * frames_an_image} backbone images, "
+        f"dlc, pca_multiview at log weight 10.7 over a {SPLIT_WINDOW}-frame {nv}-view window = "
+        f"{windows * nv * frames_an_image} backbone images, bf16; cut: {SPLIT_STEPS} steps for the config's 300 "
+        f"epochs, unfrozen at step {UNFREEZE_STEP}, milestones at steps 5 and 8, {TRAIN_FRAMES} synthetic frames a "
+        f"view; changed: the anneal weight from 1 at step 0, pca_multiview's epsilon 0, mirrored_column_matches in its "
+        f"flat per-view form) in "
+        f"{elapsed:.1f} s with set-up, the PCA fit and evaluation (the labeled frames, the {SPLIT_SESSION_FRAMES}-frame "
+        f"test session in {video_batches} batches, its labeled mp4s); launches {launches}, implied {implied} (the warp "
+        f"once a step over the {n_img * frames_an_image} view images, the window augmented photometrically; CLAHE "
+        f"once a step whose draws fire it, on {fired} view {'stacks' if context else 'images'}; the decode "
+        + ("3 times a step (both heads' labeled maps in one launch, then each head's window maps with gradient), "
+           "once a validation batch, twice an evaluation and a test-video batch; its backward twice a step"
+           if context else "twice a step (the labeled maps, the window's with gradient), once a validation, an "
+           "evaluation and a test-video batch; its backward once a step")
+        + f"; normalize once an evaluation and a test-video batch); pca_multiview {pca[0]:.3e} -> {pca[-1]:.3e} "
+        f"(max {max(pca):.3e}); peak device memory {peak:.2f} GiB {card}")
+    check(launches == implied and len(fired) >= 1, f"{model_type} split train() launches {launches}, implied {implied}")
+    check(len(train_logs) == SPLIT_STEPS and val_logs and max(pca) > 0,
+          f"{model_type} split train() logged too little, or a zero pca_multiview loss")
+    check(all(np.isfinite(v) for h in result.history for k_, v in h.items() if "loss" in k_),
+          "a logged loss is not finite")
+    log(f"phase {phase} train()'s evaluation: image_preds/ " + "; ".join(check_split_preds(model_dir)))
+
+    # the step at full width, profiled
+    factories = get_loss_factories(cfg, dm)
+    spe = trainer.calculate_steps_per_epoch(dm)
+    torch.manual_seed(SEED)
+    model = build_model(model_type, cfg.model.backbone, k, DOWNSAMPLE).to(dev, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, spe, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer, step=UNFREEZE_STEP)
+    meta = model_meta(cfg)
+    step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, spe)[2]
+    cache = trainer._device_cache(dm.dataset, dev)
+    valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+    draw_gen, field_gen = torch.Generator().manual_seed(SEED), torch.Generator(dev).manual_seed(SEED)
+    window = {
+        "frames": torch.from_numpy(rng.integers(0, 256, (SPLIT_WINDOW, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev),
+        "bbox": torch.tensor([[0.0, 0.0, 240.0, 320.0] * nv] * SPLIT_WINDOW, device=dev),
+    }
+
+    def semi_step(st=state, fn=step):
+        idxs = torch.from_numpy(rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH]).to(dev)
+        draws = engine.sample(draw_gen, n_img, field_gen)
+        return fn(st, cache, idxs, valid, draws, window,
+                  sample_video_draws(draw_gen, SPLIT_WINDOW * nv, IMAGE, IMAGE, field_gen))
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, device_ms, kernels, busy = profiled_step(semi_step)
+    grad_ms = sum(e.self_device_time_total for e in kernels if "decode_grad_kernel" in e.key) / 5e3
+    n_backbone = (n_img + windows * nv) * frames_an_image
+    log(f"phase {phase} {model_type} semi-supervised step (resnet50_animal_ap10k, {IMAGE} px, bf16, {TRAIN_BATCH} "
+        f"samples x {nv} views with dlc + a {SPLIT_WINDOW}-frame {nv}-view window = {n_backbone} backbone images, "
+        f"backbone unfrozen): {step_ms:.3f} ms, {n_backbone / step_ms * 1e3:.1f} backbone images/s, mean of 10 steps "
+        f"by the host clock; torch.profiler over 5 steps: {device_ms:.3f} ms of device time a step, the device busy "
+        f"{busy:.1%}; the decode's backward {grad_ms:.4f} ms a step ({grad_ms / device_ms:.2%} of the device time); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"phase {phase} largest device-time entries a step: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
+
+    if context:
+        # one step of the repeat_center model from the same weights: the
+        # backbone takes each view's center once a stack and a window
+        cfg_rc = split_config(data, ap10k, model_type, "smokesplitrc")
+        cfg_rc.model.mhcrnn_context_mode = "repeat_center"
+        rc = build_model(model_type, cfg.model.backbone, k, DOWNSAMPLE, context_repeat=True)
+        load_flax_variables(rc, *state_dict_to_flax(model.state_dict()))
+        rc = rc.to(dev, memory_format=torch.channels_last)
+        rc_opt, rc_head, rc_bb = trainer.make_optimizer(cfg_rc, spe, rc)
+        rc_state = trainer.TrainState(model=rc, optimizer=rc_opt, step=UNFREEZE_STEP)
+        rc_step = trainer.make_step_fns(model_meta(cfg_rc), factories, engine, cfg_rc, rc_head, rc_bb, spe)[2]
+        seen = []
+        hook = rc.backbone.register_forward_pre_hook(lambda mod, args: seen.append(args[0].shape[0]))
+        logs = semi_step(rc_state, rc_step)
+        torch.cuda.synchronize()
+        hook.remove()
+        check(seen == [n_img, windows * nv] and bool(torch.isfinite(logs["total_loss"]))
+              and float(logs["train_pca_multiview_loss"]) > 0,
+              f"the repeat_center step: backbone batches {seen}, loss {float(logs['total_loss'])}")
+        log(f"phase {phase} one repeat_center step from the same weights: the backbone took {seen} images (the "
+            f"{n_img} labeled view stacks' centers, then the {windows * nv} windows' of the {nv}-view window; adjacent "
+            f"context takes {n_img * CONTEXT_FRAMES} and {windows * nv * CONTEXT_FRAMES}); total loss "
+            f"{float(logs['total_loss']):.4f}, pca_multiview {float(logs['train_pca_multiview_loss']):.4f} {card}")
+        del rc, rc_state, rc_step
+
+    # the kernels' inputs at this path's shapes (17d): a predict batch, the
+    # folded view images (stacks) of a step at dlc's coordinates, the fired
+    # planes, the trained model's maps on a predict batch and on the window
+    trained = result.model.eval()
+    srng = np.random.default_rng(SEED + 35 + context)
+    if context:
+        frames = torch.from_numpy(srng.integers(0, 256, (TRAIN_BATCH, nv, CONTEXT_FRAMES, IMAGE, IMAGE, 3),
+                                                dtype=np.uint8)).to(dev)
+        video = torch.from_numpy(srng.integers(0, 256, (SPLIT_PREDICT, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+        windows_in = make_context_windows(video).transpose(1, 2)
+    else:
+        frames = torch.from_numpy(srng.integers(0, 256, (SPLIT_PREDICT, nv, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
+        windows_in = frames
+    with torch.no_grad(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+        maps = trained(trainer._to_nchw(windows_in))
+        trained.train()
+        ul_in = window["frames"]
+        if context:
+            ul_in = make_context_windows(ul_in).transpose(1, 2)
+        ul_maps = trained(trainer._to_nchw(ul_in))
+    trained.eval()
+    if context:
+        maps, ul_maps = maps[1], ul_maps[1]
+    coords = warp_coords(engine, forced_draws(engine, n_img, SEED + 36), n_img, dev)
+    inputs = {
+        "frames": frames.contiguous(),
+        "images": torch.from_numpy(srng.uniform(0, 255, (n_img * frames_an_image, IMAGE, IMAGE, 3))
+                                   .astype(np.float32)).to(dev),
+        "coords": {name: c.repeat_interleave(frames_an_image, dim=0).contiguous() for name, c in coords.items()},
+        "fired": [n * frames_an_image for n in fired],
+        "hm_video": maps.float().contiguous(),
+        "hm_window": ul_maps.float().contiguous(),
+    }
+    del model, state, step, cache, optimizer
+    return {"launches": launches, "result": result, "fired": fired, "inputs": inputs, "step_ms": step_ms,
+            "device_ms": device_ms, "busy": busy}
+
+
+def split_phase(rng, card: str, errors: dict) -> tuple[dict[str, int], dict[str, tuple]]:
+    """Phase 17: the heatmap models on multiview data, the repo's split config
+    (17a heatmap, 17b heatmap_mhcrnn: train() with evaluation, prediction
+    from the directory), the steps card against CPU (17c) and the kernels at
+    17a's and 17b's shapes (17d). Returns each kernel's launches in 17a's
+    train() and its times at 17a's shapes."""
+    import torch
+
+    from lightning_pose_tpu_torch.utils.synthetic import write_multiview_dataset, write_multiview_videos
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = list(split_config(tmp, tmp, "heatmap", "names").data.keypoint_names)
+        data = write_multiview_dataset(tmp / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, SPLIT_VIEWS,
+                                       seed=SEED, csv_name="{view}.csv")
+        write_multiview_videos(data, "session0", SPLIT_SESSION_FRAMES, 240, 320, SPLIT_VIEWS,
+                               n_blobs=SPLIT_KEYPOINTS, seed=SEED)
+        ap10k = write_ap10k_file(tmp)
+        videos = [write_video(tmp / f"long_{v}.mp4", rng, SPLIT_VIDEO_FRAMES, 240, 320) for v in SPLIT_VIEWS]
+        log(f"phase 17 data: {TRAIN_FRAMES} labeled {IMAGE}x{IMAGE} frames of {len(SPLIT_VIEWS)} views in the split layout "
+            f"(top.csv, bot.csv, labeled-data/synth_<view>/img%04d.png), a {SPLIT_SESSION_FRAMES}-frame 2-view 320x240 "
+            f"session in videos/ (the unlabeled stream and the test session), a {SPLIT_VIDEO_FRAMES}-frame 2-view "
+            f"session to predict, the MMPose-layout ResNet-50 file {ap10k.stat().st_size / 1e6:.1f} MB")
+
+        paths = {}
+        for model_type, phase in (("heatmap", "17a"), ("heatmap_mhcrnn", "17b")):
+            out = split_train_phase(data, ap10k, model_type, tmp, rng, card, phase)
+            out["predict"] = split_predict_phase(tmp / model_type, videos, model_type == "heatmap_mhcrnn", card,
+                                                 phase)
+            paths[model_type] = out
+            torch.cuda.empty_cache()
+
+        # -- 17c. the steps card vs CPU ---------------------------------------------
+        dm = paths["heatmap"]["result"].data_module
+        for model_type in ("heatmap", "heatmap_mhcrnn"):
+            split_step_card_vs_cpu(model_type, dm, card)
+        for model_type, phase in (("heatmap", "17a"), ("heatmap_mhcrnn", "17b")):
+            p = paths[model_type]
+            log(f"phase 17c {phase} {model_type}: launches on its train() {p['launches']} (each as implied), on the "
+                f"first session run {p['predict']['launches']}; fp32 predict_frame card vs CPU "
+                f"{p['predict']['card_vs_cpu_px']:.3e} px")
+
+        # -- 17d. the kernels at 17a's and 17b's shapes ------------------------------
+        times = {}
+        for model_type, phase in (("heatmap", "17a"), ("heatmap_mhcrnn", "17b")):
+            p = paths[model_type]
+            inputs = multiview_kernel_checks(rng, errors, p["inputs"], "17d", f"split {model_type}", SEED + 37)
+            nv, k = len(SPLIT_VIEWS), SPLIT_KEYPOINTS
+            hm, hm_w = inputs["hm_video"], inputs["hm_window"]
+            context = model_type == "heatmap_mhcrnn"
+            shapes = {
+                "normalize": f"{tuple(inputs['frames'].shape)} uint8 -> bf16, "
+                             + ("an evaluation batch of view stacks" if context else "a predict window of 2 views"),
+                "warp": f"{tuple(inputs['images'].shape)} fp32, {TRAIN_BATCH} samples x {nv} views"
+                        + (f" x {CONTEXT_FRAMES} frames, a field a view stack" if context else ", a field an image"),
+                "clahe": f"(planes, {IMAGE}, {IMAGE}) fp32 g=16, planes {[3 * n for n in p['inputs']['fired']]} in "
+                         f"phase {phase}'s fired steps; the mean a launch",
+                "decode": f"{tuple(hm.shape)} fp32 view-major maps ({nv} views x {k}) of the trained model on a "
+                          + (f"predict batch's {hm.shape[0]} windows, multi-frame head" if context else "predict batch")
+                          + f", df {DOWNSAMPLE}",
+                "decode_grad": f"{tuple(hm_w.shape)} fp32 view-major train-mode maps of the {SPLIT_WINDOW}-frame window"
+                               + (" (one head's)" if context else "") + f", df {DOWNSAMPLE}",
+            }
+            times[model_type] = multiview_times(inputs, card, f"17d {phase}", shapes)
+            for name, (ms, plain_ms, library_ms, (bound, _), _) in times[model_type].items():
+                log(f"phase 17d {phase} {name}: launches {p['launches'][name]} on the {model_type} train() path; "
+                    f"{ms:.5f} ms against the plain {plain_ms:.5f} ms, {bound / ms:.1%} of its bound"
+                    + (f", F.grid_sample {library_ms:.5f} ms" if library_ms is not None else ""))
+        dm.close()
+    log(f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return paths["heatmap"]["launches"], times["heatmap"]
+
+
 def main() -> int:
     import torch
 
@@ -3701,16 +4274,18 @@ def main() -> int:
     sv_times(single_view_inputs, card)
     transformer_phase(rng, card)
     sv_times(transformer_inputs, card, "15d")
+    calibrated_phase(rng, card, errors)
     # the kernels line holds each kernel's launches on this slice's path,
-    # the calibrated multiview train() of phase 16a (each earlier path
-    # checked its own above), beside its times at that path's shapes (16c)
-    launches, times = calibrated_phase(rng, card, errors)
+    # the split config's heatmap train() of phase 17a (each earlier path
+    # checked its own above), beside its times at that path's shapes (17d)
+    launches, times = split_phase(rng, card, errors)
     paths = {
-        "normalize": "16a the calibrated multiview train()'s evaluation: 1 an evaluation batch",
-        "decode": "16a the calibrated multiview train(): 1 a step, validation batch and evaluation batch",
-        "warp": "16a the calibrated multiview train(): 2 a step (the 3D warp, then dlc's) over 32 view images",
-        "clahe": "16a the calibrated multiview train(): 1 a step whose draws fire it",
-        "decode_grad": "16a the calibrated multiview train(): 1 a step (the supervised 3D losses)",
+        "normalize": "17a the split config's heatmap train(): 1 an evaluation and a test-video batch",
+        "decode": "17a the split config's heatmap train(): 2 a step (the labeled views, the window with gradient), "
+                  "1 a validation, an evaluation and a test-video batch",
+        "warp": "17a the split config's heatmap train(): 1 a step over 32 view images",
+        "clahe": "17a the split config's heatmap train(): 1 a step whose draws fire it",
+        "decode_grad": "17a the split config's heatmap train(): 1 a step (pca_multiview on the window)",
     }
     blocked = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in blocked)

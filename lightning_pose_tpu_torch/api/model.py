@@ -12,14 +12,17 @@ checkpoint through the parameter bridge, and serves predictions:
 - ``predict_frame`` -> keypoints of one in-memory frame (one frame a view
   for a multiview model)
 - ``predict_on_label_csv_multiview`` and ``predict_on_video_file_multiview``
-  -> the same files, one a view, for the multiview transformer
+  -> the same files, one a view, for a multiview model: the multiview
+  transformer, or ``heatmap`` and ``heatmap_mhcrnn`` trained on multiview
+  data
 
 Ported so far: the single-view ``heatmap`` and ``regression`` models, the
-temporal-context ``heatmap_mhcrnn`` model and the multiview transformer
-(``heatmap_multiview``, uncalibrated), with every backbone the JAX package
-takes, the soft-argmax decode or ``eval.decode_method: dark`` (none for
-regression, whose confidences are 1.0) and RGB transfer. The other options
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+temporal-context ``heatmap_mhcrnn`` model, the multiview transformer
+(``heatmap_multiview``) and the heatmap models on multiview data, with
+every backbone the JAX package takes, the soft-argmax decode or
+``eval.decode_method: dark`` (none for regression, whose confidences are
+1.0) and RGB transfer. The other options raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -93,17 +96,24 @@ class PredictStep:
     sliding windows and ``(B, 5, h, w, 3)`` stacks go in as they are (both
     as repeated centers under ``repeat_center``); the two heads' maps are
     decoded, two decode launches, and merged per keypoint by confidence.
-    The multiview transformer takes ``(B, V, h, w, 3)`` views, one
-    normalize launch over all of them, and decodes its ``V*K`` maps in one
-    launch; keypoints map to each view's frame through that view's bbox.
+    A multiview model (``num_views`` above 1) takes ``(B, V, h, w, 3)``
+    views, one normalize launch over all of them, and decodes its ``V*K``
+    maps in one launch; keypoints map to each view's frame through that
+    view's bbox. A context model on multiview data takes a ``(T, V, h, w,
+    3)`` sequence, tiled into ``(T-4, V, 5, ...)`` windows a view, or ``(B,
+    V, 5, h, w, 3)`` stacks.
     The regression model's outputs are the keypoints: no decode, and
     confidences of 1.0. ``model`` must be in eval mode on the device the
     inputs come on.
     """
 
     def __init__(
-        self, model: nn.Module, height: int, width: int, compute_dtype: torch.dtype, decode_method: str = "softargmax"
+        self, model: nn.Module, height: int, width: int, compute_dtype: torch.dtype, decode_method: str = "softargmax",
+        num_views: int | None = None,
     ):
+        """``num_views``: the view count of the model's meta
+        (``models.factory.model_meta``); by default the multiview
+        transformer's own, else 1."""
         if decode_method not in DECODE_METHODS:
             raise ValueError(f"decode_method must be softargmax|dark, got {decode_method!r}")
         self.model = model
@@ -113,27 +123,33 @@ class PredictStep:
         self.compute_dtype = compute_dtype
         self.is_context = isinstance(model, HeatmapTrackerMHCRNN)
         self.is_regression = isinstance(model, RegressionTracker)
-        self.num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
+        if num_views is None:
+            num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
+        self.num_views = num_views
 
     @torch.inference_mode()
     def __call__(
         self, images_uint8: torch.Tensor, bbox: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(B, h, w, 3)`` uint8 (context stacks ``(B, 5, h, w, 3)``,
-        multiview ``(B, V, h, w, 3)``) and ``(B, 4)`` [x, y, h, w] bboxes
-        (``(B, 4V)`` multiview) -> ``(B', 2K)`` keypoints and ``(B', K)``
-        confidences, float32 (``K`` over all views); ``B' = B - 4`` for a
-        context model's sequence, whose bboxes are trimmed to the window
-        centers."""
+        multiview ``(B, V, h, w, 3)``, multiview context stacks ``(B, V, 5,
+        h, w, 3)``) and ``(B, 4)`` [x, y, h, w] bboxes (``(B, 4V)``
+        multiview) -> ``(B', 2K)`` keypoints and ``(B', K)`` confidences,
+        float32 (``K`` over all views); ``B' = B - 4`` for a context model's
+        sequence, whose bboxes are trimmed to the window centers."""
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(images_uint8.device.type, dtype=torch.bfloat16, enabled=bf16):
             images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
             if self.is_context:
                 repeat = self.model.context_repeat
-                if images.ndim == 4:
+                # a sequence: (T, [V,] 3, h, w); stacks: (B, [V,] 5, 3, h, w)
+                views = int(self.num_views > 1)
+                if images.ndim == 4 + views:
                     images = make_context_windows(images, repeat_center=repeat)
+                    if views:  # (T-4, 5, V, ...) -> (T-4, V, 5, ...)
+                        images = images.transpose(1, 2)
                 elif repeat:
-                    images = repeat_center_stack(images, time_axis=1)
+                    images = repeat_center_stack(images, time_axis=1 + views)
             heatmaps = self.model(images)
         if self.is_regression:
             keypoints, confidences = heatmaps, RegressionTracker.confidences(heatmaps)
@@ -244,7 +260,7 @@ class Model:
     def _load(self) -> None:
         if self._predict_step is not None:
             return
-        from lightning_pose_tpu_torch.models.factory import get_model
+        from lightning_pose_tpu_torch.models.factory import get_model, model_meta
         from lightning_pose_tpu_torch.train.checkpoints import (
             load_checkpoint,
             load_flax_variables,
@@ -266,6 +282,7 @@ class Model:
             width=int(cfg.data.image_resize_dims.width),
             compute_dtype=compute_dtype,
             decode_method=decode_method,
+            num_views=model_meta(cfg)["num_views"],
         )
 
     # -- prediction entry points ------------------------------------------------
@@ -460,7 +477,8 @@ class Model:
             cfg.training.train_frames = 1
         data_dir = str(data_dir or cfg.data.data_dir)
         cfg.data.csv_file = [str(c) for c in csv_file_per_view]
-        dataset = MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline="default")
+        dataset = MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline="default",
+                                          do_context=cfg.model.model_type == "heatmap_mhcrnn")
         data_module = BaseDataModule(
             dataset=dataset,
             train_batch_size=cfg.training.train_batch_size,
@@ -519,7 +537,8 @@ class Model:
                 ``(T, H, W, 3)`` stack around the frame (T is the context
                 length, 5; the frame is index 2); for a multiview model
                 ``(V, H, W, 3)``, one frame a view in ``data.view_names``
-                order.
+                order; for a context model on multiview data ``(V, T, H, W,
+                3)``, a stack a view.
             bbox: optional ``(x, y, w, h)`` crop (the same for every view);
                 keypoints are mapped back to the original frame.
 
@@ -536,10 +555,17 @@ class Model:
                 "Convert with frame.astype(np.uint8) if values are in [0, 255]."
             )
         step = self._predict_step
-        if step.num_views > 1:
-            if frame_rgb.ndim != 4 or frame_rgb.shape[0] != step.num_views or frame_rgb.shape[-1] != 3:
+        nv = step.num_views
+        if nv > 1 and step.is_context:
+            if frame_rgb.ndim != 5 or frame_rgb.shape[0] != nv or frame_rgb.shape[-1] != 3:
                 raise ValueError(
-                    f"Multiview model requires frame_rgb of shape ({step.num_views}, H, W, 3), "
+                    f"Multiview context model requires frame_rgb of shape ({nv}, T, H, W, 3): one temporal "
+                    f"context stack per view in cfg order; got shape {frame_rgb.shape}"
+                )
+        elif nv > 1:
+            if frame_rgb.ndim != 4 or frame_rgb.shape[0] != nv or frame_rgb.shape[-1] != 3:
+                raise ValueError(
+                    f"Multiview model requires frame_rgb of shape ({nv}, H, W, 3), "
                     f"one frame per view in cfg order; got shape {frame_rgb.shape}"
                 )
         elif step.is_context:
@@ -576,7 +602,8 @@ class Model:
         def resize(img: np.ndarray) -> np.ndarray:
             return cv2.resize(img, (step.width, step.height), interpolation=cv2.INTER_LINEAR)
 
-        image = np.stack([resize(f) for f in crop]) if crop.ndim == 4 else resize(crop)
+        flat = crop.reshape(-1, *crop.shape[-3:])
+        image = np.stack([resize(f) for f in flat]).reshape(*crop.shape[:-3], step.height, step.width, 3)
         images = torch.from_numpy(image[None]).to(self.device)
         bboxes = torch.tensor([bbox_row * step.num_views], dtype=torch.float32, device=self.device)
         kp, conf = step(images, bboxes)

@@ -1,18 +1,22 @@
-"""Multiview dataset, uncalibrated (counterpart of
+"""Multiview dataset (counterpart of
 ``lightning_pose_tpu/data/datasets_multiview.py``).
 
 One ``HeatmapDataset`` per view, each with its own label CSV (and bbox CSV),
 checked against each other up front: the same keypoint names and the same
-frame count. A sample fuses the views: images ``(V, H, W, 3)``, keypoints
-``(V*K, 2)`` and visibility ``(V*K,)`` view-major (the model's channel
-order), bboxes ``(4V,)``.
+frame count. A sample fuses the views: images ``(V, H, W, 3)`` (with
+``do_context``, for a context model, ``(V, 5, H, W, 3)`` stacks in
+``model.mhcrnn_context_mode``), keypoints ``(V*K, 2)`` and visibility
+``(V*K,)`` view-major (the model's channel order), bboxes ``(4V,)``.
 
 The optional camera calibration (``data.camera_params_file``: a single
 anipose TOML, a frame-map CSV or the one-row-per-view CSV; or anipose TOMLs
 discovered beside the labeled frames, ``calibrations/<session>.toml`` or
 ``calibration.toml``) adds ``intrinsic_matrix (V, 3, 3)``,
 ``extrinsic_matrix (V, 3, 4)`` and ``distortions (V, 5)`` to each sample;
-the trainer then runs the 3D augmentation and the supervised 3D losses.
+the multiview transformer's trainer then runs the 3D augmentation and the
+supervised 3D losses. A context dataset with a calibration raises
+``ValueError``, as the JAX package's does: the 3D augmentation takes no
+context stacks.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ __all__ = ["MultiviewHeatmapDataset"]
 class MultiviewHeatmapDataset:
     """Fuses per-view ``HeatmapDataset``s; its length is the frame count."""
 
-    def __init__(self, cfg, data_dir: str, imgaug_pipeline=None) -> None:
+    def __init__(self, cfg, data_dir: str, imgaug_pipeline=None, do_context: bool = False) -> None:
         view_names = list(cfg.data.view_names)
         csv_files = cfg.data.csv_file
         if isinstance(csv_files, str):
@@ -54,6 +58,8 @@ class MultiviewHeatmapDataset:
                 imgaug_pipeline=imgaug_pipeline,
                 downsample_factor=int(cfg.data.get("downsample_factor", 2)),
                 bbox_path=bbox_files[i] if bbox_files else None,
+                do_context=do_context,
+                context_mode=cfg.model.get("mhcrnn_context_mode", "adjacent"),
             )
             for i, (view, csv_file) in enumerate(zip(view_names, csv_files))
         }
@@ -69,7 +75,7 @@ class MultiviewHeatmapDataset:
         self.num_keypoints_per_view = first.num_keypoints
         self.num_keypoints = first.num_keypoints * len(view_names)
         self.num_targets = self.num_keypoints * 2
-        self.do_context = False
+        self.do_context = bool(do_context)
         self.imgaug_pipeline = imgaug_pipeline
         # identity swaps over one view's keypoints: the engine augments each
         # view image on its own
@@ -93,6 +99,11 @@ class MultiviewHeatmapDataset:
         self._calib_by_file: dict[str, dict] = {}
         self._calib_file_per_frame: list[str] | None = None
         cam_file = self.cfg.data.get("camera_params_file", None)
+        if cam_file and self.do_context:
+            # reference datasets.py:686,748
+            raise ValueError(
+                "3D augmentations (camera_params_file) are not supported for context (heatmap_mhcrnn) models"
+            )
         if not cam_file:
             self._discover_calibration()
             return
@@ -175,6 +186,12 @@ class MultiviewHeatmapDataset:
             self._calib_by_file = {}
             return
         self._calib_file_per_frame = files
+        if self.do_context:
+            raise ValueError(
+                "found anipose calibration for this dataset, but 3D augmentations are not supported for context "
+                "(heatmap_mhcrnn) models; remove the calibration files or use model_type "
+                "heatmap_multiview_transformer"
+            )
         logger.info(f"discovered anipose calibration for {len(files)} frames ({len(self._calib_by_file)} file(s))")
 
     def _load_view_rows_csv(self, df) -> dict:
@@ -208,7 +225,7 @@ class MultiviewHeatmapDataset:
     def __getitem__(self, idx: int) -> dict:
         samples = [self.view_datasets[view][idx] for view in self.view_names]
         sample = {
-            "images": np.stack([s["images"] for s in samples]),  # (V, H, W, 3)
+            "images": np.stack([s["images"] for s in samples]),  # (V, H, W, 3) or (V, 5, H, W, 3)
             "keypoints": np.concatenate([s["keypoints"] for s in samples], axis=0),  # (V*K, 2)
             "visibility": np.concatenate([s["visibility"] for s in samples], axis=0),
             "bbox": np.concatenate([s["bbox"] for s in samples], axis=0),  # (4V,)

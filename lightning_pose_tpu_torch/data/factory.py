@@ -5,7 +5,9 @@ The dispatch on the config: the single-view ``heatmap`` model, the
 ``regression`` model (the base dataset, no heatmap geometry), the context
 model ``heatmap_mhcrnn`` (5-frame stacks) and the multiview transformer
 ``heatmap_multiview`` (one label CSV a view), over the port's copies of the
-datasets and the data module. Heatmap models on multiview data raise
+datasets and the data module. ``heatmap`` and ``heatmap_mhcrnn`` with more
+than one view take the multiview dataset too (context stacks for the
+latter); ``regression`` with views raises the JAX package's
 ``NotImplementedError``.
 """
 
@@ -14,11 +16,7 @@ from __future__ import annotations
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
 from lightning_pose_tpu_torch.data.datasets import BaseTrackingDataset, HeatmapDataset
 from lightning_pose_tpu_torch.data.datasets_multiview import MultiviewHeatmapDataset
-from lightning_pose_tpu_torch.models.factory import (
-    MULTIVIEW_HEATMAP_ITEM,
-    check_if_semi_supervised,
-    normalize_model_type,
-)
+from lightning_pose_tpu_torch.models.factory import check_if_semi_supervised, normalize_model_type
 
 __all__ = ["get_data_module", "get_dataset", "get_imgaug_pipeline"]
 
@@ -38,14 +36,17 @@ def get_imgaug_pipeline(cfg) -> str | dict:
 
 
 def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> BaseTrackingDataset | MultiviewHeatmapDataset:
-    """The labeled dataset of a single-view ``heatmap``, ``regression`` or
+    """The labeled dataset of a ``heatmap``, ``regression`` or
     ``heatmap_mhcrnn`` config (the latter's samples are context stacks in
     the configured ``model.mhcrnn_context_mode``), or of a multiview
-    transformer config."""
+    transformer config; the heatmap models with more than one view in
+    ``data.view_names`` take the multiview dataset (reference
+    data/factory.py:152-185)."""
     model_type = normalize_model_type(cfg.model.model_type)
     view_names = cfg.data.get("view_names") or []
-    if model_type == "heatmap_multiview":
-        return MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline=imgaug_pipeline or get_imgaug_pipeline(cfg))
+    if model_type == "heatmap_multiview" or (model_type != "regression" and len(view_names) > 1):
+        return MultiviewHeatmapDataset(cfg, data_dir, imgaug_pipeline=imgaug_pipeline or get_imgaug_pipeline(cfg),
+                                       do_context=model_type == "heatmap_mhcrnn")
     common = dict(
         root_directory=data_dir,
         csv_path=cfg.data.csv_file,
@@ -63,8 +64,6 @@ def get_dataset(cfg, data_dir: str, imgaug_pipeline=None) -> BaseTrackingDataset
             # a limit of the JAX package too (its data/factory.py)
             raise NotImplementedError("Multi-view support only available for heatmap-based models")
         return BaseTrackingDataset(do_context=False, **common)
-    if len(view_names) > 1:
-        raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
     return HeatmapDataset(
         **common,
         downsample_factor=int(cfg.data.get("downsample_factor", 2)),

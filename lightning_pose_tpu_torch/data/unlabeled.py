@@ -7,9 +7,10 @@ labeled batch and one unlabeled video window. Here the labeled batches come
 from the data module's index batches, as in supervised training, and the
 train loop takes one window a step from :attr:`unlabeled_loader`; the
 window's augmentation and normalization run on the device in the train
-step. One process: the stream is shard 0 of 1. A multiview transformer
-config reads frame-synchronized sessions, one video a view, found by their
-view names in the video directory.
+step. One process: the stream is shard 0 of 1. A multiview config (more
+than one name in ``data.view_names``, whatever the model) reads
+frame-synchronized sessions, one video a view, found by their view names in
+the video directory.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import logging
 
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
 from lightning_pose_tpu_torch.data.video import MultiviewUnlabeledVideoLoader, UnlabeledVideoLoader
-from lightning_pose_tpu_torch.models.factory import MULTIVIEW_HEATMAP_ITEM, normalize_model_type
 from lightning_pose_tpu_torch.utils.io import check_video_paths, find_video_files_for_views
 
 logger = logging.getLogger(__name__)
@@ -34,11 +34,6 @@ class UnlabeledDataModule(BaseDataModule):
     def __init__(self, cfg, video_dir: str, **kwargs) -> None:
         view_names = cfg.data.get("view_names", None)
         multiview = bool(view_names) and len(view_names) > 1
-        if multiview and normalize_model_type(cfg.model.model_type) != "heatmap_multiview":
-            raise NotImplementedError(
-                f"multiview unlabeled video for {cfg.model.model_type} models is not ported yet "
-                f"({MULTIVIEW_HEATMAP_ITEM})"
-            )
         super().__init__(**kwargs)
         self.cfg = cfg
         self.video_dir = video_dir

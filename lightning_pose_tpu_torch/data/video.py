@@ -328,11 +328,14 @@ class PredictVideoLoader:
 class MultiviewPredictVideoLoader:
     """Frame-synchronized ``(T, V, h, w, 3)`` batches over one video a view
     (reference dali.py:483-506): one :class:`PredictVideoLoader` a view,
-    zipped. The views must have the same frame count."""
+    zipped. The views must have the same frame count. ``do_context``: the
+    batches overlap by 4 frames, for a context model."""
 
-    def __init__(self, video_files: list[str], sequence_length: int, resize_height: int, resize_width: int):
+    def __init__(self, video_files: list[str], sequence_length: int, resize_height: int, resize_width: int,
+                 do_context: bool = False):
         self.video_files = [str(v) for v in video_files]
-        self.loaders = [PredictVideoLoader(v, sequence_length, resize_height, resize_width) for v in self.video_files]
+        self.loaders = [PredictVideoLoader(v, sequence_length, resize_height, resize_width, do_context=do_context)
+                        for v in self.video_files]
         counts = [ld.frame_count for ld in self.loaders]
         if len(set(counts)) != 1:
             raise RuntimeError(

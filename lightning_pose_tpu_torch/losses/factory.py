@@ -6,14 +6,15 @@ coordinate MSE of a regression model, at log weight 0); a factory call
 sums ``anneal_weight * weight * loss`` over its losses, the heatmap losses
 exempt from the anneal weight (reference factory.py:272-279). The PCA
 losses are fitted on the data module's train split when the factory is
-built. ``pca_multiview`` is ported for the multiview transformer: flat
-per-view keypoint indices in ``data.mirrored_column_matches`` expand to one
-list a view, ``data.num_keypoints`` apart. A multiview model with a
+built. ``pca_multiview``: on multiview data (the multiview transformer, or
+a heatmap model whose views fold into the batch) flat per-view keypoint
+indices in ``data.mirrored_column_matches`` expand to one list a view,
+``data.num_keypoints`` apart; otherwise the config's lists of mirrored
+columns are taken as they are. A multiview transformer with a
 ``data.camera_params_file``, or whose dataset found its calibration, adds
 the supervised 3D losses (``supervised_pairwise_projections`` and
 ``supervised_reprojection_heatmap_mse``) whose ``log_weight`` the config
-sets. The mirrored ``pca_multiview`` of a single-view model raises
-``NotImplementedError``.
+sets; a heatmap model on calibrated data adds none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from lightning_pose_tpu_torch.losses.losses import (
     TemporalLoss,
     UnimodalLoss,
 )
-from lightning_pose_tpu_torch.models.factory import MULTIVIEW_HEATMAP_ITEM, normalize_model_type
 
 logger = logging.getLogger(__name__)
 
@@ -79,10 +79,6 @@ def get_loss_factories(cfg, data_module=None) -> dict[str, "LossFactory"]:
         supervised = {cfg.model.model_type: {"log_weight": 0.0}}
     unsupervised: dict[str, dict] = {}
     for loss_name in [name for name in (cfg.model.get("losses_to_use") or []) if name]:
-        if loss_name == "pca_multiview" and normalize_model_type(cfg.model.model_type) != "heatmap_multiview":
-            raise NotImplementedError(
-                f"pca_multiview with a {cfg.model.model_type} model is not ported yet ({MULTIVIEW_HEATMAP_ITEM})"
-            )
         params = dict(cfg.losses[loss_name].to_dict(resolve=True))
         params["loss_name"] = loss_name
         if loss_name.startswith("unimodal") or loss_name.startswith("temporal_heatmap"):
@@ -153,9 +149,8 @@ class LossFactory:
         classes = get_loss_classes()
         unknown = sorted(set(losses_params_dict) - set(classes))
         if unknown:
-            raise NotImplementedError(
-                f"losses {unknown} are not ported yet ({MULTIVIEW_HEATMAP_ITEM})"
-            )
+            # every loss of the JAX package is ported: these are no losses
+            raise ValueError(f"unknown losses {unknown}; the losses are {sorted(classes)}")
         self.loss_instance_dict: dict[str, Any] = {}
         for loss_name, params in losses_params_dict.items():
             params = dict(params)

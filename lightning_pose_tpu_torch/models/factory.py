@@ -3,8 +3,10 @@
 Every model type is ported: the single-view ``heatmap`` and ``regression``
 models, the temporal-context ``heatmap_mhcrnn`` model and the multiview
 transformer (``heatmap_multiview``, alias ``heatmap_multiview_transformer``).
-The heatmap models on multiview data raise ``NotImplementedError``. Weights are initialised as the JAX package's flax
-modules initialise theirs (:func:`init_like_flax`).
+``heatmap`` and ``heatmap_mhcrnn`` on multiview data fold the views into
+the batch; their meta (:func:`model_meta`) records the view count. Weights
+are initialised as the JAX package's flax modules initialise theirs
+(:func:`init_like_flax`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "check_if_semi_supervised",
     "get_model",
     "init_like_flax",
+    "model_meta",
     "normalize_model_type",
 ]
 
@@ -38,8 +41,6 @@ ALLOWED_MODEL_TYPES = [
 ]
 
 _MODEL_TYPE_ALIASES = {"heatmap_multiview_transformer": "heatmap_multiview"}
-
-MULTIVIEW_HEATMAP_ITEM = "ROADMAP queue 1, item 6b-ii: heatmap models on multiview data"
 
 
 def normalize_model_type(model_type: str) -> str:
@@ -148,6 +149,22 @@ def build_model(
     )
 
 
+def model_meta(cfg) -> dict:
+    """What the training loop and the predict step read of the configured
+    model (the JAX package's ``get_model`` meta): ``model_type``,
+    ``downsample_factor`` and ``num_views``, the view count of the
+    multiview transformer and of a heatmap model on multiview data (their
+    targets and bboxes are view-major), else 1."""
+    model_type = normalize_model_type(cfg.model.model_type)
+    view_names = cfg.data.get("view_names") or []
+    folds_views = model_type in ("heatmap", "heatmap_mhcrnn") and len(view_names) > 1
+    return {
+        "model_type": model_type,
+        "downsample_factor": int(cfg.data.get("downsample_factor", 2)),
+        "num_views": len(view_names) if model_type == "heatmap_multiview" or folds_views else 1,
+    }
+
+
 def get_model(cfg, num_keypoints: int | None = None) -> nn.Module:
     """Build the tracker described by the config; ``num_keypoints`` counts
     one view's keypoints."""
@@ -155,8 +172,6 @@ def get_model(cfg, num_keypoints: int | None = None) -> nn.Module:
     num_keypoints = num_keypoints or cfg.data.num_keypoints
     downsample_factor = int(cfg.data.get("downsample_factor", 2))
     view_names = cfg.data.get("view_names") or []
-    if len(view_names) > 1 and model_type not in ("heatmap_multiview", "regression"):
-        raise NotImplementedError(f"{model_type} models on multiview data are not ported yet ({MULTIVIEW_HEATMAP_ITEM})")
     context_repeat = cfg.model.get("mhcrnn_context_mode", "adjacent") == "repeat_center"
     return build_model(
         model_type, cfg.model.backbone, int(num_keypoints), downsample_factor, context_repeat,

@@ -1,7 +1,8 @@
 """Heatmap tracker: backbone + heatmap head, single-frame (counterpart of
 ``lightning_pose_tpu/models/heatmap_tracker.py``). Any backbone name: a
 convnet or a transformer, whose token grid the head takes as a feature
-map (stride 16, or 32 for the SAM2 Hiera trunks)."""
+map (stride 16, or 32 for the SAM2 Hiera trunks). On multiview data the
+views fold into the batch and the maps unfold into view-major channels."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from torch import nn
 
 from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
 from lightning_pose_tpu_torch.models.heads.heatmap import HeatmapHead
+from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import unfold_view_channels
 from lightning_pose_tpu_torch.ops.softargmax import run_subpixelmaxima
 
 __all__ = ["HeatmapTracker"]
@@ -17,7 +19,9 @@ __all__ = ["HeatmapTracker"]
 
 class HeatmapTracker(nn.Module):
     """Normalized images ``(B, 3, H, W)`` -> heatmaps
-    ``(B, K, H/2^df, W/2^df)``, float32."""
+    ``(B, K, H/2^df, W/2^df)``, float32; multiview images ``(B, V, 3, H,
+    W)`` -> ``(B, V*K, H/2^df, W/2^df)``, each view through the same trunk
+    and head."""
 
     def __init__(
         self,
@@ -37,6 +41,9 @@ class HeatmapTracker(nn.Module):
         )
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if images.ndim == 5:
+            b, v = images.shape[:2]
+            return unfold_view_channels(self(images.reshape(b * v, *images.shape[2:])), b, v)
         return self.head(self.backbone(images))
 
     def decode(self, heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,7 +5,9 @@ The labeled forward takes 5-frame context stacks. A video sequence is tiled
 into sliding 5-frame windows by :func:`make_context_windows`. Training
 doubles the batch with the single-frame and multi-frame heads' maps;
 prediction keeps, per keypoint, the head of higher confidence
-(:func:`merge_heads_by_confidence`).
+(:func:`merge_heads_by_confidence`). Multiview context stacks ``(B, V, 5,
+3, H, W)`` fold their views into the batch and unfold into view-major
+channels (:func:`unfold_view_channels`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ __all__ = [
     "make_context_windows",
     "merge_heads_by_confidence",
     "repeat_center_stack",
+    "unfold_view_channels",
 ]
 
 # the window length; the center frame is index 2
@@ -65,9 +68,18 @@ def merge_heads_by_confidence(
     return kp.reshape(kp_sf.shape), torch.maximum(conf_sf, conf_mf)
 
 
+def unfold_view_channels(heatmaps: torch.Tensor, b: int, v: int) -> torch.Tensor:
+    """``(B*V, K, h, w)`` maps of views folded into the batch -> ``(B, V*K,
+    h, w)``, view-major channels (the multiview datasets' keypoint order)."""
+    _, k, h, w = heatmaps.shape
+    return heatmaps.reshape(b, v * k, h, w)
+
+
 class HeatmapTrackerMHCRNN(nn.Module):
     """Normalized context stacks ``(B, 5, 3, H, W)`` -> ``(heatmaps_sf,
-    heatmaps_mf)``, each ``(B, K, H/4, W/4)`` float32.
+    heatmaps_mf)``, each ``(B, K, H/4, W/4)`` float32. Multiview stacks
+    ``(B, V, 5, 3, H, W)`` fold their views into the batch, and both heads'
+    maps unfold into ``(B, V*K, H/4, W/4)``.
 
     ``context_repeat`` (``model.mhcrnn_context_mode=repeat_center``): the
     stacks are 5 copies of their center, so the backbone encodes the center
@@ -99,12 +111,13 @@ class HeatmapTrackerMHCRNN(nn.Module):
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if images.ndim == 6:
-            raise NotImplementedError(
-                "multiview context stacks (B, V, 5, 3, H, W) are not ported yet "
-                "(ROADMAP queue 1, item 6b-ii: heatmap models on multiview data)"
-            )
+            b, v = images.shape[:2]
+            hm_sf, hm_mf = self(images.reshape(b * v, *images.shape[2:]))
+            return unfold_view_channels(hm_sf, b, v), unfold_view_channels(hm_mf, b, v)
         if images.ndim != 5:
-            raise ValueError(f"the context model takes (B, 5, 3, H, W) stacks, got {tuple(images.shape)}")
+            raise ValueError(
+                f"the context model takes (B, 5, 3, H, W) or (B, V, 5, 3, H, W) stacks, got {tuple(images.shape)}"
+            )
         b, t = images.shape[:2]
         if self.context_repeat:
             features = self.backbone(images[:, t // 2])

@@ -35,6 +35,12 @@ normalization, and the model's ``V*K`` maps go against view-major targets.
 Its unlabeled window is ``(T, V, H, W, 3)`` frame-synchronized views,
 augmented photometrically only (so the views stay geometrically consistent);
 keypoints map to each view's frame through that view's bbox columns.
+``heatmap`` and ``heatmap_mhcrnn`` on multiview data (``meta["num_views"]``
+above 1) train the same way with no patch mask, the model folding the views
+into its batch: ``(B, V, H, W, 3)`` views, or ``(B, V, 5, H, W, 3)``
+context stacks whose 5 frames take their view's one draw. The context
+model tiles each view of its window into sliding windows, ``(T-4, V, 5,
+...)``.
 
 A calibrated multiview dataset (``intrinsic_matrix``, ``extrinsic_matrix``
 and ``distortions`` in its samples, which the device cache and the
@@ -115,7 +121,6 @@ from lightning_pose_tpu_torch.data.video import undo_affine_transform_batch
 from lightning_pose_tpu_torch.losses.losses import RegressionRMSELoss
 from lightning_pose_tpu_torch.models.backbones.pretrained import load_backbone_checkpoint
 from lightning_pose_tpu_torch.models.heatmap_tracker_mhcrnn import HeatmapTrackerMHCRNN, make_context_windows
-from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTrackerMultiviewTransformer
 from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
 from lightning_pose_tpu_torch.ops import augment3d
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
@@ -287,11 +292,10 @@ def _effective_visibility(kp: torch.Tensor, visibility: torch.Tensor) -> torch.T
 
 
 def _to_nchw(images: torch.Tensor) -> torch.Tensor:
-    """Normalized ``(B, H, W, 3)`` -> ``(B, 3, H, W)``, channels-last; context
-    stacks ``(B, T, H, W, 3)`` and multiview ``(B, V, H, W, 3)`` ->
-    ``(B, T, 3, H, W)``."""
-    x = normalize_images(images)
-    return x.permute(0, 3, 1, 2) if x.ndim == 4 else x.permute(0, 1, 4, 2, 3)
+    """Normalized ``(..., H, W, 3)`` -> ``(..., 3, H, W)``: ``(B, 3, H, W)``
+    channels-last, context stacks and multiview views ``(B, T, 3, H, W)``,
+    multiview context stacks ``(B, V, 5, 3, H, W)``."""
+    return normalize_images(images).movedim(-1, -3)
 
 
 def unsupervised_loss(
@@ -303,6 +307,7 @@ def unsupervised_loss(
     anneal_weight: float,
     image_hw: tuple[int, int],
     compute_dtype: torch.dtype = torch.bfloat16,
+    num_views: int = 1,
 ) -> tuple[torch.Tensor, dict]:
     """The unsupervised term of a train step on one augmented window (the
     JAX step's unlabeled branch, reference trainer.py:470-577): normalized
@@ -318,16 +323,19 @@ def unsupervised_loss(
     each keypoint's chosen head only, and the multi-frame maps go to the
     losses. Transforms and bboxes are trimmed to the centers.
 
-    The multiview transformer takes ``images (T, V, 3, H, W)`` and ``bbox
-    (T, 4V)``; its ``V*K`` keypoints map to each view's frame.
+    On multiview data (``num_views`` views: the multiview transformer, or a
+    heatmap model that folds the views into its batch) ``images`` is ``(T,
+    V, 3, H, W)`` and ``bbox (T, 4V)``; the ``V*K`` keypoints map to each
+    view's frame. The context model's windows are ``(T-4, V, 5, 3, H, W)``.
 
     The regression model's outputs are the keypoints, with confidences of
     ones and no maps."""
     height, width = image_hw
     is_context = isinstance(model, HeatmapTrackerMHCRNN)
-    num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
     if is_context:
         images = make_context_windows(images, repeat_center=model.context_repeat)
+        if num_views > 1:  # (T-4, 5, V, ...) -> (T-4, V, 5, ...)
+            images = images.transpose(1, 2)
     with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
         heatmaps = model(images)
     if is_context:
@@ -390,17 +398,19 @@ def make_step_fns(
     heatmap model, of the regression model when ``meta["model_type"]`` is
     ``regression``, of the context model when it is ``heatmap_mhcrnn``, or
     of the multiview transformer when it is ``heatmap_multiview``
-    (``meta["num_views"]`` views).
+    (``meta["num_views"]`` views); ``heatmap`` and ``heatmap_mhcrnn`` with
+    ``meta["num_views"]`` above 1 train on multiview data, the views folded
+    into the model's batch.
 
     - ``train_step(state, batch, draws, video_draws=None, mask_scores=None)
       -> logs``: augment with ``draws`` (``augmenter.sample``, one draw per
-      image, per view image for the multiview model; None for an identity
+      image, per view image on multiview data; None for an identity
       pipeline), one optimizer step; ``state.step`` advances. With
       unsupervised losses and an ``unlabeled`` window in the batch, the
       window is augmented with ``video_draws``
       (``ops/video_augment.sample_video_draws``, one noise field per frame
-      and view), geometric only with the ``dlc`` pipelines and never for
-      the multiview model, and its loss is added. The multiview model's
+      and view), geometric only with the ``dlc`` pipelines and never on
+      multiview data, and its loss is added. The multiview model's
       patch mask, when the config sets one, takes ``mask_scores``: uniform
       ``(B*V, patches)`` scores (:func:`sample_mask_scores`). A calibrated
       multiview batch (with ``intrinsic_matrix``) under a non-identity
@@ -413,7 +423,8 @@ def make_step_fns(
       with ``valid`` False are padding (visibility 0, NaN keypoints).
 
     Batches hold ``images (B, H, W, 3)`` (context stacks ``(B, 5, H, W,
-    3)``, labeled at their center; multiview ``(B, V, H, W, 3)``),
+    3)``, labeled at their center; multiview ``(B, V, H, W, 3)``, or ``(B,
+    V, 5, H, W, 3)`` for the context model),
     ``keypoints (B, K, 2)``, ``visibility (B, K)`` and ``bbox (B, 4)``
     (multiview: ``K`` over all views, view-major, and ``bbox (B, 4V)``;
     calibrated: ``intrinsic_matrix (B, V, 3, 3)``, ``extrinsic_matrix (B, V,
@@ -435,6 +446,13 @@ def make_step_fns(
     is_multiview = meta["model_type"] == "heatmap_multiview"
     is_regression = meta["model_type"] == "regression"
     num_views = int(meta.get("num_views", 1) or 1)
+    if num_views > 1 and augmenter.hflip:
+        # the JAX package's step fails here: its multiview dataset's swap
+        # indices span every view's keypoints, the folded images one view's
+        raise ValueError(
+            "Incompatible shapes for broadcasting: training.imgaug_hflip swaps keypoint identities over all "
+            f"{num_views} views' keypoints, and a {meta['model_type']} model augments each view image alone"
+        )
     patch_mask = _patch_mask_schedule(cfg, steps_per_epoch) if is_multiview else None
     supervised_3d = [n for n in supervised.loss_instance_dict if n.startswith("supervised_")]
 
@@ -523,12 +541,13 @@ def make_step_fns(
 
     def augment_views(state: TrainState, batch: dict, draws: Draws | None, mask_scores: torch.Tensor | None,
                       draws_3d: augment3d.Draws3D | None):
-        """The multiview batch's views (after the 3D augmentation when it is
-        calibrated) folded into the batch: augmented one draw a view image,
-        patch-masked, and unfolded again."""
+        """The multiview batch's views (after the 3D augmentation when the
+        multiview transformer's batch is calibrated) folded into the batch:
+        augmented one draw a view image (a view's context stack under one
+        draw), patch-masked, and unfolded again."""
         b = batch["images"].shape[0]
         images, keypoints = batch["images"], batch["keypoints"]
-        if "intrinsic_matrix" in batch and not augmenter.identity:
+        if is_multiview and "intrinsic_matrix" in batch and not augmenter.identity:
             images, keypoints = augment_3d(batch, draws_3d)
         images, keypoints, vis = augmenter.apply(
             images.reshape(b * num_views, *images.shape[2:]),
@@ -554,7 +573,7 @@ def make_step_fns(
             final_val=float(anneal_cfg.final_val),
             freeze_until_epoch=int(anneal_cfg.freeze_until_epoch),
         )
-        if is_multiview:
+        if num_views > 1:
             images, keypoints, vis = augment_views(state, batch, draws, mask_scores, draws_3d)
         else:
             images, keypoints, vis = augmenter.apply(
@@ -569,7 +588,7 @@ def make_step_fns(
             if video_draws is None:
                 raise ValueError("an unlabeled window needs its draws (ops/video_augment.sample_video_draws)")
             ul = batch["unlabeled"]
-            if is_multiview:
+            if num_views > 1:
                 # photometric only, one draw for all views and frames
                 t = ul["frames"].shape[0]
                 frames, transforms = augment_video_sequence(
@@ -581,7 +600,8 @@ def make_step_fns(
                     ul["frames"], video_draws, apply_geometric=augmenter.is_dlc
                 )
             loss_unsup, logs_unsup = unsupervised_loss(
-                state.model, _to_nchw(frames), transforms, ul["bbox"], unsup, aw, (height, width), compute_dtype
+                state.model, _to_nchw(frames), transforms, ul["bbox"], unsup, aw, (height, width), compute_dtype,
+                num_views,
             )
             total = total + loss_unsup
             logs.update({k: v.detach() for k, v in logs_unsup.items()})
@@ -713,7 +733,7 @@ def train(
     from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
     from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
     from lightning_pose_tpu_torch.losses.factory import get_loss_factories
-    from lightning_pose_tpu_torch.models.factory import get_model, normalize_model_type
+    from lightning_pose_tpu_torch.models.factory import get_model, model_meta
     from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
     _check_ported(cfg)
@@ -746,6 +766,7 @@ def train(
         # a multiview model's head is shared by the views: it takes one
         # view's keypoint count
         model = get_model(cfg, num_keypoints=getattr(dataset, "num_keypoints_per_view", dataset.num_keypoints))
+        meta = model_meta(cfg)
         height = int(cfg.data.image_resize_dims.height)
         width = int(cfg.data.image_resize_dims.width)
         # pretrained backbone weights from a local torch file; a ViT's
@@ -774,12 +795,7 @@ def train(
             hflip=bool(cfg.training.get("imgaug_hflip", False)),
             hflip_swap_indices=dataset.hflip_swap_indices,
         )
-        num_views = len(dataset.view_names) if hasattr(dataset, "view_names") else 1
-        meta = {
-            "model_type": normalize_model_type(cfg.model.model_type),
-            "downsample_factor": int(cfg.data.get("downsample_factor", 2)),
-            "num_views": num_views,
-        }
+        num_views = meta["num_views"]
         masking = meta["model_type"] == "heatmap_multiview" and _patch_mask_schedule(cfg, steps_per_epoch) is not None
         # the 3D augmentation's draws (calibrated multiview, a non-identity pipeline)
         draws_3d_on = (meta["model_type"] == "heatmap_multiview" and getattr(dataset, "is_calibrated", False)
@@ -954,7 +970,7 @@ def train(
         model.eval()
         trained = TrainedModel(
             cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history,
-            device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE, decode_method),
+            device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE, decode_method, num_views),
         )
         if not skip_evaluation:
             _evaluate_on_training_dataset(trained)

@@ -36,8 +36,9 @@ def predict_dataset(
     multiview dataset gives one dataframe a view, written by the caller.
 
     ``predict_fn(images_uint8, bbox)`` takes a ``(B, h, w, 3)`` uint8 batch,
-    ``(B, 5, h, w, 3)`` context stacks or ``(B, V, h, w, 3)`` views, and its
-    ``(B, 4)`` (``(B, 4V)``) bboxes on ``device``."""
+    ``(B, 5, h, w, 3)`` context stacks, ``(B, V, h, w, 3)`` views or ``(B,
+    V, 5, h, w, 3)`` view stacks, and its ``(B, 4)`` (``(B, 4V)``) bboxes on
+    ``device``."""
     # every batch is launched before the first result is fetched
     device_preds, valids = [], []
     for batch in data_module.full_batches():

@@ -170,12 +170,15 @@ def write_multiview_dataset(
     session: str = "synth",
     seed: int = 0,
     nan_fraction: float = 0.05,
+    csv_name: str = "CollectedData_{view}.csv",
 ) -> Path:
     """Write ``n_frames`` labeled frames of each view under ``root``:
-    ``labeled-data/<session>_<view>/img%04d.png`` and
-    ``CollectedData_<view>.csv``, the labels of one 3D keypoint set seen by
-    each camera; a ``nan_fraction`` of each view's labels are NaN. Returns
-    ``root``."""
+    ``labeled-data/<session>_<view>/img%04d.png`` (consecutive names, so
+    that a context model's stacks find their neighbours) and the label CSV
+    ``csv_name`` of each view (``"{view}.csv"`` gives the layout of the
+    split mirror-mouse example, ``top.csv`` and ``bot.csv``), the labels of
+    one 3D keypoint set seen by each camera; a ``nan_fraction`` of each
+    view's labels are NaN. Returns ``root``."""
     import cv2
     import pandas as pd
 
@@ -201,7 +204,7 @@ def write_multiview_dataset(
             names.append(name)
         labels[rng.uniform(size=(n_frames, k)) < nan_fraction] = np.nan
         pd.DataFrame(labels.reshape(n_frames, 2 * k), index=names, columns=columns).to_csv(
-            root / f"CollectedData_{view}.csv"
+            root / csv_name.format(view=view)
         )
     return root
 

@@ -206,18 +206,22 @@ def predict_video_multiview(
     ``MultiviewPredictionResult``.
 
     ``predict_fn(images_uint8, bbox)`` takes a ``(T, V, h, w, 3)`` batch and
-    its ``(T, 4V)`` full-frame bboxes on ``device``. A failure of the
+    its ``(T, 4V)`` full-frame bboxes on ``device``; for a context model,
+    ``T`` is ``dali.context.predict.sequence_length``, batches overlap by 4
+    frames, and ``predict_fn`` gives one row per window. A failure of the
     metrics or of a labeled video is logged, as in the JAX package."""
     from lightning_pose_tpu_torch.data.datatypes import MultiviewPredictionResult
     from lightning_pose_tpu_torch.data.video import MultiviewPredictVideoLoader
     from lightning_pose_tpu_torch.utils.predictions import PredictionHandler
 
-    seq_len = int(cfg.dali.base.predict.sequence_length)
+    do_context = cfg.model.model_type == "heatmap_mhcrnn"
+    seq_len = int(cfg.dali["context" if do_context else "base"].predict.sequence_length)
     loader = MultiviewPredictVideoLoader(
         [str(v) for v in video_file_per_view],
         sequence_length=seq_len,
         resize_height=int(cfg.data.image_resize_dims.height),
         resize_width=int(cfg.data.image_resize_dims.width),
+        do_context=do_context,
     )
     bbox = torch.tensor(
         [[c for v in video_file_per_view for c in (0.0, 0.0, *_frame_size(v))]] * seq_len,

@@ -5,7 +5,7 @@ source gives the JAX dataset's camera arrays in every sample, bit for bit
 discovery of ``calibrations/<session>.toml`` or ``calibration.toml``);
 partial discovery turns 3D off with a warning, a camera-name order that
 is not ``view_names`` raises ValueError in both packages, and a context
-model with calibration is refused in both. The loss factory adds the two
+model with calibration is refused in both with the same ValueError. The loss factory adds the two
 supervised 3D losses for a calibrated dataset, as the JAX package's does,
 and the trainer's device cache and validation batches carry the cameras.
 Data from ``utils/synthetic.write_calibrated_multiview_dataset``."""
@@ -142,8 +142,8 @@ def test_calibration_refusals_match_jax(cal_root, tmp_path, case):
     than ``view_names``, a frame map whose rows are not the label CSV's
     frames. A discovered TOML in another order turns 3D off instead. A
     context model with a ``camera_params_file`` or a discovered calibration
-    is refused in both: the JAX dataset raises ValueError, the port's data
-    factory NotImplementedError (multiview context datasets, item 6b-ii)."""
+    is refused in both: each package's dataset raises ValueError, through
+    the class and through the data factory."""
     from lightning_pose_tpu.data.datasets_multiview import MultiviewHeatmapDataset as JaxDataset
     from lightning_pose_tpu_torch.data.datasets_multiview import MultiviewHeatmapDataset
     from lightning_pose_tpu_torch.data.factory import get_dataset
@@ -152,8 +152,13 @@ def test_calibration_refusals_match_jax(cal_root, tmp_path, case):
         cfg = _cfg(cal_root, "calibration_frame_map.csv" if case == "context" else None)
         with pytest.raises(ValueError, match="context"):
             JaxDataset(cfg, str(cal_root), do_context=True)
+        with pytest.raises(ValueError, match="context") as err:
+            MultiviewHeatmapDataset(cfg, str(cal_root), do_context=True)
+        with pytest.raises(ValueError, match="context") as ref_err:
+            JaxDataset(cfg, str(cal_root), do_context=True)
+        assert str(err.value) == str(ref_err.value)
         cfg.model.model_type = "heatmap_mhcrnn"
-        with pytest.raises(NotImplementedError, match="item 6b-ii"):
+        with pytest.raises(ValueError, match="context"):
             get_dataset(cfg, str(cal_root))
         return
     if case == "order":

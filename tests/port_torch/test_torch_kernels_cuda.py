@@ -862,6 +862,170 @@ def test_one_multiview_semisupervised_step_on_card_launches_the_kernels(cuda_dev
     assert state.step == 1
 
 
+# -- the heatmap models on multiview data (views folded into the batch) ------------------
+
+
+@pytest.mark.parametrize("shape", [(64, 2, 256, 256, 3), (16, 2, 5, 256, 256, 3)])
+def test_normalize_kernel_on_folded_view_batches_matches_plain(cuda_device, shape):
+    """A 2-view predict window of the split config (64 frames) and a context
+    model's evaluation batch of 16 samples x 2 views x 5 frames: one launch
+    each, at most 1 bf16 ulp from the plain version."""
+    frames = _frames(shape, seed=21).to(cuda_device)
+    before = normalize_kernel.launches
+    out = normalize_kernel.normalize(frames, torch.bfloat16)
+    ref = normalize_kernel.normalize_plain(frames, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert normalize_kernel.launches == before + 1
+    assert out.shape == ref.shape == (*shape[:-3], 3, 256, 256)
+    assert _bf16_ulps(out, ref) <= 1
+
+
+@pytest.mark.parametrize("stack", [1, 5])
+def test_warp_kernel_over_folded_views_matches_plain(cuda_device, stack):
+    """16 samples x 2 views folded into 32 view images, one field each, and
+    the context model's 32 view stacks of 5 frames (160 images), each
+    stack's field repeated over its frames."""
+    engine = AugmentationEngine("dlc", 256, 256)
+    draws = _forced_draws(engine, 32)
+    _, coords, _, _ = engine.sampling_grid(draws, 32, cuda_device)
+    coords = coords.repeat_interleave(stack, dim=0).contiguous()
+    images = _frames((32 * stack, 256, 256, 3), seed=22).to(cuda_device, torch.float32)
+    out = warp_kernel.warp(images, coords)
+    ref = warp_kernel.warp_plain(images, coords)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+@pytest.mark.parametrize("n", [9, 30])
+def test_clahe_kernel_at_folded_view_planes_matches_plain(cuda_device, n):
+    """CLAHE on the planes of 3 fired view images, and of 2 fired view
+    stacks of 5 frames, at 256 px, g = 16."""
+    x, lut = _clahe_inputs(n, 256, 256, 16, cuda_device, seed=23)
+    out = clahe_kernel.clahe_apply(x, lut, 16)
+    ref = clahe_kernel.clahe_apply_plain(x, lut, 16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=GRAY_TOL)
+
+
+def _mv_heatmap_maps(device, model_type, batch=16, views=2, keypoints=7):
+    """View-major maps of a random-init resnet18 heatmap model (its head
+    peaked) or context model on ``batch`` samples of ``views`` random 256 px
+    views, train mode, bf16: ``(batch, views * keypoints, 64, 64)`` (the
+    context model's multi-frame maps)."""
+    torch.manual_seed(0)
+    model = build_model(model_type, "resnet18", keypoints).to(device, memory_format=torch.channels_last).train()
+    if model_type == "heatmap":
+        with torch.no_grad():
+            for layer in (model.head.deconv0, model.head.deconv1):
+                layer.weight.mul_(300.0)
+    stack = (5,) if model_type == "heatmap_mhcrnn" else ()
+    frames = _frames((batch, views, *stack, 256, 256, 3), seed=24).to(device)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        maps = model(normalize_kernel.normalize(frames, torch.bfloat16))
+    return (maps[1] if model_type == "heatmap_mhcrnn" else maps).float().contiguous()
+
+
+@pytest.mark.parametrize("model_type, batch", [("heatmap", 16), ("heatmap_mhcrnn", 12)])
+def test_decode_and_backward_on_view_major_maps_match_plain(cuda_device, model_type, batch):
+    """The decode and its backward on 14 view-major channels (2 views x 7
+    keypoints, the split config): a heatmap model's labeled batch of 16 and
+    a context model's 12 windows of a 16-frame window, against the plain
+    decode and autograd of it."""
+    hm = _mv_heatmap_maps(cuda_device, model_type, batch)
+    assert hm.shape == (batch, 14, 64, 64)
+    kp, conf = decode_kernel.decode(hm, 2)
+    kp_ref, conf_ref = decode_kernel.decode_plain(hm, 2)
+    _assert_decode_close(kp, conf, kp_ref, conf_ref, 2)
+    grad, grad_ref, _, _ = _decode_grads(hm, 2, seed=5)
+    scale = float(grad_ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(grad).all())
+    assert float((grad - grad_ref).abs().max()) <= GRAD_REL_TOL * scale
+
+
+@pytest.mark.parametrize("model_type", ["heatmap", "heatmap_mhcrnn"])
+def test_mv_heatmap_predict_step_on_card_matches_cpu(cuda_device, model_type):
+    """A heatmap model's and a context model's predict step on 2-view data,
+    fp32, card against the CPU: a 12-frame 2-view window (the context model's
+    8 windows a view) and, for the context model, (3, 2, 5, ...) stacks;
+    normalize once, the decode once (twice for the context model's heads)."""
+    torch.manual_seed(2)
+    model = build_model(model_type, "resnet18", 5).eval()
+    cpu = PredictStep(model, 128, 128, torch.float32, num_views=2)
+    card_model = build_model(model_type, "resnet18", 5)
+    card_model.load_state_dict(model.state_dict())
+    card = PredictStep(card_model.eval().to(cuda_device, memory_format=torch.channels_last), 128, 128,
+                       torch.float32, num_views=2)
+    context = model_type == "heatmap_mhcrnn"
+    inputs = [_frames((12, 2, 128, 128, 3), seed=25)] + ([_frames((3, 2, 5, 128, 128, 3), seed=26)] if context else [])
+    for frames in inputs:
+        bbox = torch.tensor([[0.0, 0.0, 120.0, 160.0, 5.0, 7.0, 90.0, 100.0]] * frames.shape[0])
+        before = (normalize_kernel.launches, decode_kernel.launches)
+        kp, conf = card(frames.to(cuda_device), bbox.to(cuda_device))
+        torch.cuda.synchronize()
+        assert (normalize_kernel.launches - before[0], decode_kernel.launches - before[1]) == (1, 1 + context)
+        kp_ref, conf_ref = cpu(frames, bbox)
+        rows = (8 if frames.ndim == 5 else 3) if context else 12
+        assert kp.shape == kp_ref.shape == (rows, 20)
+        torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=KP_TOL_PX)
+        torch.testing.assert_close(conf.cpu(), conf_ref, rtol=0, atol=CONF_TOL)
+
+
+@pytest.mark.parametrize("model_type", ["heatmap", "heatmap_mhcrnn"])
+def test_one_mv_heatmap_semisupervised_step_on_card_launches_the_kernels(cuda_device, model_type):
+    """A resnet18 step on 2-view data on the card (bf16, 128 px): 4 samples
+    x 2 views with dlc (the context model's 5-frame stacks under one draw a
+    view), pca-free unsupervised temporal loss over an 8-frame 2-view window
+    (photometric only): the warp once (the view images; the window is not
+    warped), the decode forward twice for the heatmap model (labeled,
+    window) and three times for the context model (both heads' labeled
+    maps in one launch, then each head's window maps), its backward once a
+    decoded window map set; finite losses."""
+    from lightning_pose_tpu_torch.config import load_config
+    from lightning_pose_tpu_torch.losses.factory import LossFactory
+    from lightning_pose_tpu_torch.ops.video_augment import sample_video_draws
+    from lightning_pose_tpu_torch.train import trainer
+
+    cfg = load_config()
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.training.max_epochs = 2
+    cfg.training.unfreezing_epoch = 0
+    cfg.callbacks.anneal_weight.freeze_until_epoch = 0
+    cfg.callbacks.anneal_weight.init_val = 1.0
+    torch.manual_seed(0)
+    model = build_model(model_type, "resnet18", 5).to(cuda_device, memory_format=torch.channels_last)
+    optimizer, head_sched, bb_sched = trainer.make_optimizer(cfg, 10, model)
+    state = trainer.TrainState(model=model, optimizer=optimizer)
+    engine = AugmentationEngine("dlc", 128, 128)
+    factories = {
+        "supervised": LossFactory({"heatmap_mse": {"log_weight": 0.0}}),
+        "unsupervised": LossFactory({"temporal": {"log_weight": 0.0}}),
+    }
+    meta = {"model_type": model_type, "downsample_factor": 2, "num_views": 2}
+    step = trainer.make_step_fns(meta, factories, engine, cfg, head_sched, bb_sched, 10)[2]
+    context = model_type == "heatmap_mhcrnn"
+    rng = np.random.default_rng(8)
+    cache = {
+        "images": _frames((6, 2, *((5,) if context else ()), 128, 128, 3), seed=27),
+        "keypoints": torch.from_numpy(rng.uniform(0, 128, (6, 10, 2)).astype(np.float32)),
+        "visibility": torch.full((6, 10), 2, dtype=torch.int64),
+        "bbox": torch.tensor([[0.0, 0.0, 128.0, 128.0] * 2] * 6),
+    }
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    window = {"frames": _frames((8, 2, 128, 128, 3), seed=28).to(cuda_device),
+              "bbox": torch.tensor([[0.0, 0.0, 120.0, 160.0] * 2] * 8, device=cuda_device)}
+    gen, field_gen = torch.Generator().manual_seed(2), torch.Generator(cuda_device).manual_seed(2)
+    draws = engine.sample(gen, 8, field_gen)
+    video_draws = sample_video_draws(gen, 16, 128, 128, field_gen)
+    before = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    logs = step(state, cache, torch.arange(4, device=cuda_device), torch.ones(4, dtype=torch.bool, device=cuda_device),
+                draws, window, video_draws)
+    torch.cuda.synchronize()
+    after = (warp_kernel.launches, decode_kernel.launches, decode_kernel.grad_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == ((1, 3, 2) if context else (1, 2, 1))
+    assert bool(torch.isfinite(logs["total_loss"])) and bool(torch.isfinite(logs["train_unsupervised_loss"]))
+    assert state.step == 1
+
+
 # -- EfficientNet, regression, pretrained backbones and resume ----------------------------
 
 

@@ -223,9 +223,15 @@ def test_context_repeat_encodes_the_center_once_with_equal_outputs(jax_tracker_v
 
 
 def test_tracker_refuses_multiview_stacks_and_other_downsample_factors():
-    model = build_model("heatmap_mhcrnn", "resnet18", KEYPOINTS)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model(torch.zeros(1, 2, 5, 3, IMAGE, IMAGE))
+    """Multiview stacks ``(B, V, 5, 3, H, W)`` fold into the batch
+    (``test_torch_mv_heatmap_model.py`` holds them to the JAX module);
+    stacks of any other rank, and downsample factors but 2, are refused."""
+    model = build_model("heatmap_mhcrnn", "resnet18", KEYPOINTS).eval()
+    with torch.no_grad():
+        sf, mf = model(torch.zeros(1, 2, 5, 3, IMAGE, IMAGE))
+    assert sf.shape == mf.shape == (1, 2 * KEYPOINTS, IMAGE // 4, IMAGE // 4)
+    with pytest.raises(ValueError, match="stacks"):
+        model(torch.zeros(1, 1, 2, 5, 3, IMAGE, IMAGE))
     with pytest.raises(ValueError, match="downsample_factor"):
         build_model("heatmap_mhcrnn", "resnet18", KEYPOINTS, downsample_factor=3)
 

@@ -1,5 +1,5 @@
 """Slice 7, the multiview data path against the JAX package's: the fused
-multiview samples, what still refuses calibrated data, the multiview PCA subspace
+multiview samples, the dispatch of calibrated data, the multiview PCA subspace
 and ``pca_multiview`` loss, the metrics on a true-multiview data module,
 the frame-synchronized unlabeled and predict loaders (bitwise frames), and
 the per-view prediction dataframes. Data from ``utils/synthetic.py``: two
@@ -8,6 +8,7 @@ views of one 3D keypoint set, uncalibrated."""
 from __future__ import annotations
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,10 +83,15 @@ def test_multiview_samples_match_jax(mv_root):
 def test_calibration_raises_not_implemented(mv_root, tmp_path):
     """Calibration is ported: a ``camera_params_file``, or a
     ``calibration.toml`` that every frame's session finds, calibrates the
-    multiview transformer's dataset. A heatmap model on multiview data,
-    calibrated or not, still raises NotImplementedError naming item 6b-ii.
-    A frame path without ``labeled-data/<session>_<view>/`` is a
-    ValueError, as in the JAX package."""
+    multiview transformer's dataset. A heatmap model on calibrated
+    multiview data takes the calibrated multiview dataset, as in the JAX
+    package, and its loss factory adds no supervised 3D loss (the JAX
+    package gates them on the multiview transformer). A frame path without
+    ``labeled-data/<session>_<view>/`` is a ValueError, as in the JAX
+    package."""
+    from lightning_pose_tpu.data.factory import get_dataset as jax_get_dataset
+    from lightning_pose_tpu.losses.factory import get_loss_factories as jax_factories
+    from lightning_pose_tpu_torch.losses.factory import get_loss_factories
     import shutil
 
     from lightning_pose_tpu_torch.data.factory import get_dataset
@@ -100,8 +106,15 @@ def test_calibration_raises_not_implemented(mv_root, tmp_path):
     assert get_dataset(_cfg(root), str(root)).is_calibrated  # found by discovery
     assert not get_dataset(_cfg(mv_root), str(mv_root)).is_calibrated
     cfg.model.model_type = "heatmap"
-    with pytest.raises(NotImplementedError, match="item 6b-ii"):
-        get_dataset(cfg, str(root))
+    cfg.losses.supervised_pairwise_projections = {"log_weight": 1.0}
+    ds, ref_ds = get_dataset(cfg, str(root)), jax_get_dataset(cfg, str(root))
+    assert type(ds).__name__ == type(ref_ds).__name__ == "MultiviewHeatmapDataset"
+    assert ds.is_calibrated and ref_ds.is_calibrated and not ds.do_context
+    np.testing.assert_array_equal(ds[0]["intrinsic_matrix"], ref_ds[0]["intrinsic_matrix"])
+    dm = SimpleNamespace(dataset=ds)
+    assert list(get_loss_factories(cfg, dm)["supervised"].loss_instance_dict) == ["heatmap_mse"]
+    assert list(jax_factories(cfg, SimpleNamespace(dataset=ref_ds))["supervised"].loss_instance_dict) == [
+        "heatmap_mse"]
     csv = root / "CollectedData_cam0.csv"
     df = pd.read_csv(csv, header=[0, 1, 2], index_col=0)
     df.index = [name.replace("synth_cam0/", "") for name in df.index]

@@ -1,8 +1,9 @@
 """The port imports no JAX, nothing of the JAX package and not
 ``transformers``: its whole package, its predict path, its supervised and
 semi-supervised training paths, a pretrained backbone load, a resume run,
-a transformer backbone's train() with a DARK prediction, and the
-calibrated multiview train() with the host triangulation run in a
+a transformer backbone's train() with a DARK prediction, the heatmap
+models' train() and prediction on multiview data, and the calibrated
+multiview train() with the host triangulation run in a
 subprocess where importing jax, jaxlib, flax, optax, transformers or
 ``lightning_pose_tpu`` raises, and no module of the port names one of them
 in an import."""
@@ -353,6 +354,83 @@ print(json.dumps({{
                       "video_preds/session0_side.csv", "video_preds/session0_top.csv"],
         "jax": [],
     }
+
+
+def test_heatmap_models_on_multiview_data_run_without_jax(tmp_path):
+    """``heatmap`` and ``heatmap_mhcrnn`` (resnet18) on the split layout of a
+    2-view set: semi-supervised train() with pca_multiview over the
+    synchronized window, with its evaluation (the labeled views, a 2-view
+    test session), then, from each directory, the session, the labeled CSVs
+    and predict_frame."""
+    out = _run(f"""
+import json, sys
+import numpy as np
+import torch
+from lightning_pose_tpu_torch.config import load_config
+from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.train.trainer import train
+from lightning_pose_tpu_torch.utils.synthetic import write_multiview_dataset, write_multiview_videos
+
+torch.set_num_threads(2)
+names, views = ["a", "b", "c"], ["top", "bot"]
+data = write_multiview_dataset({str(tmp_path / "data")!r}, 10, 100, 120, names, views, seed=1, csv_name="{{view}}.csv")
+videos = write_multiview_videos(data, "session0", 9, 96, 128, views, n_blobs=3, seed=0)
+report = {{"jax": []}}
+for model_type, frame_shape in (("heatmap", (2, 100, 120, 3)), ("heatmap_mhcrnn", (2, 5, 100, 120, 3))):
+    cfg = load_config()
+    cfg.data.data_dir = str(data)
+    cfg.data.video_dir = "videos"
+    cfg.data.csv_file = [f"{{v}}.csv" for v in views]
+    cfg.data.view_names = views
+    cfg.data.num_keypoints = 3
+    cfg.data.keypoint_names = names
+    cfg.data.mirrored_column_matches = [0, 1, 2]
+    cfg.data.image_resize_dims.height = cfg.data.image_resize_dims.width = 128
+    cfg.model.model_type = model_type
+    cfg.model.backbone = "resnet18"
+    cfg.model.model_name = model_type
+    cfg.model.losses_to_use = ["pca_multiview"]
+    cfg.dali.base.train.sequence_length = 6
+    cfg.dali.base.predict.sequence_length = cfg.dali.context.predict.sequence_length = 8
+    cfg.training.train_batch_size = 4
+    cfg.training.max_epochs = cfg.training.min_epochs = cfg.training.unfreezing_epoch = None
+    cfg.training.max_steps = cfg.training.min_steps = 2
+    cfg.training.unfreezing_step = 1
+    cfg.training.log_every_n_steps = 1
+    cfg.training.lr_scheduler_params.multisteplr.milestones = None
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+    cfg.eval.test_videos_directory = str(data / "videos")
+    model_dir = {str(tmp_path)!r} + "/" + model_type
+    result = train(cfg, model_dir, device="cpu")
+    model = Model.from_dir(model_dir, precision="fp32", device="cpu")
+    session = model.predict_on_video_file_multiview([str(v) for v in videos],
+                                                    output_dir={str(tmp_path)!r} + "/preds_" + model_type)
+    labeled = model.predict_on_label_csv_multiview(cfg.data.csv_file, compute_metrics=False).predictions
+    frame = model.predict_frame(np.zeros(frame_shape, dtype=np.uint8))
+    report[model_type] = {{
+        "video": {{v: list(df.shape) for v, df in session.predictions.items()}},
+        "labeled": {{v: list(df.shape) for v, df in labeled.items()}},
+        "frame": list(frame["keypoints"].shape),
+        "finite": bool(np.isfinite(frame["keypoints"]).all()),
+        "unsupervised_logged": sum("train_unsupervised_loss" in h for h in result.history),
+        "evaluated": sorted(p for p in ["image_preds/top.csv/predictions.csv", "image_preds/bot.csv/predictions.csv",
+                                        "video_preds/session0_top.csv", "video_preds/session0_bot.csv"]
+                            if (result.model_dir / p).is_file()),
+    }}
+report["jax"] = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print(json.dumps(report))
+""")
+    report = json.loads(out.strip().splitlines()[-1])
+    expected = {
+        "video": {"top": [9, 9], "bot": [9, 9]},
+        "labeled": {"top": [10, 10], "bot": [10, 10]},
+        "frame": [6, 2],
+        "finite": True,
+        "unsupervised_logged": 2,
+        "evaluated": ["image_preds/bot.csv/predictions.csv", "image_preds/top.csv/predictions.csv",
+                      "video_preds/session0_bot.csv", "video_preds/session0_top.csv"],
+    }
+    assert report == {"jax": [], "heatmap": expected, "heatmap_mhcrnn": expected}
 
 
 def test_calibrated_multiview_path_runs_without_jax(tmp_path):

@@ -473,29 +473,42 @@ def test_factories_build_the_semisupervised_module(semisup_data):
 @pytest.mark.parametrize(
     "change, error, match",
     [
-        ({"losses_to_use": ["pca_multiview"]}, NotImplementedError, "item 6"),
+        ({"losses_to_use": ["pca_singleview"], "view_names": ["top", "bot"]}, NotImplementedError,
+         "not implemented for multiview data"),
         ({"video_transfer_format": "yuv420"}, NotImplementedError, "item 5"),
-        ({"view_names": ["top", "bot"]}, NotImplementedError, "item 6"),
+        ({"view_names": ["top", "bot"], "model_type": "regression"}, NotImplementedError, "heatmap-based models"),
     ],
 )
 def test_factories_refuse_what_is_not_ported(semisup_data, change, error, match):
+    """What the port refuses, as the JAX package does (pca_singleview on
+    multiview data, a regression model on multiview data) or until its
+    ROADMAP item (yuv420)."""
+    from lightning_pose_tpu.data.factory import get_dataset as jax_get_dataset
+    from lightning_pose_tpu.losses.factory import get_loss_factories as jax_factories
     from lightning_pose_tpu_torch.data.factory import get_data_module
-    from lightning_pose_tpu_torch.data.unlabeled import UnlabeledDataModule
     from lightning_pose_tpu_torch.losses.factory import get_loss_factories
 
     from lightning_pose_tpu_torch.data.factory import get_dataset
 
     cfg = _semisup_cfg(semisup_data)
+    if "view_names" in change:
+        cfg.data.view_names = change["view_names"]
     with pytest.raises(error, match=match):
         if "losses_to_use" in change:
             cfg.model.losses_to_use = change["losses_to_use"]
             get_loss_factories(cfg)
-        elif "view_names" in change:
-            cfg.data.view_names = change["view_names"]
-            UnlabeledDataModule(cfg=cfg, video_dir=str(semisup_data / "videos"), dataset=None)
+        elif "model_type" in change:
+            cfg.model.model_type = change["model_type"]
+            get_dataset(cfg, str(semisup_data))
         else:
             cfg.training.video_transfer_format = change["video_transfer_format"]
             get_data_module(cfg, get_dataset(cfg, str(semisup_data)), str(semisup_data / "videos"))
+    if "view_names" in change:  # the JAX package's own refusals
+        with pytest.raises(error, match=match):
+            if "losses_to_use" in change:
+                jax_factories(cfg)
+            else:
+                jax_get_dataset(cfg, str(semisup_data))
 
 
 def test_empty_loss_factory_total_lies_on_the_inputs_device():

@@ -161,9 +161,13 @@ def test_rmse_and_loss_factory_match_jax():
         assert set(logs) == set(ref_logs)
         np.testing.assert_allclose(float(out), float(ref), rtol=LOSS_TOL)
         np.testing.assert_allclose(float(logs[f"heatmap_{loss_type}_weight"]), 0.5)
-    cfg.model.losses_to_use = ["pca_multiview"]  # the unsupervised losses not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every loss is ported; a PCA loss needs a data module to fit on
+    cfg.model.losses_to_use = ["pca_multiview"]
+    cfg.data.mirrored_column_matches = [[0, 1], [2, 1]]
+    with pytest.raises(ValueError, match="data_module"):
         get_loss_factories(cfg)
+    with pytest.raises(AssertionError, match="data_module"):
+        jax_factories(cfg)
 
 
 # -- schedules -------------------------------------------------------------------------
