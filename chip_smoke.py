@@ -71,8 +71,8 @@ Phases, each fatal on failure:
         frames/s, device busy share (torch.profiler) and peak memory;
      b. from its directory: predict_on_video_file of a 1000-frame mp4 (11
         batches of 92 windows; normalize once and decode twice a batch, one
-        finite row per frame), run 3 times: frames/s of the first (cold) run
-        and of the two after it; predict_on_label_csv, predict_frame of a
+        finite row per frame), run twice: frames/s of the first (cold) run
+        and of the one after it; predict_on_label_csv, predict_frame of a
         (5, H, W, 3) stack, and fp32 card (TF32 off) vs CPU;
      c. the directory with mhcrnn_context_mode repeat_center: the backbone
         takes one image a window (counted by a hook), and the outputs equal
@@ -108,7 +108,7 @@ Phases, each fatal on failure:
         backward's share and the largest entries;
      c. from 13a's directory: predict_on_video_file_multiview of a 2-view
         1000-frame 320x240 session (11 batches of (96, 2, 256, 256, 3);
-        normalize and decode once a batch), run 3 times, the first cold;
+        normalize and decode once a batch), run twice, the first cold;
      d. predict_on_label_csv_multiview, and predict_frame of one frame a
         view at fp32 on the card (TF32 off) against the CPU;
      e. each kernel at the multiview shapes beside its plain version and
@@ -165,7 +165,7 @@ Phases, each fatal on failure:
         its evaluation (launches of the warp, CLAHE and the decode against
         what the code implies), the step's ms, busy share, memory and
         largest entries; predict_on_video_file of a 1000-frame 320x240 mp4
-        in 3 runs (the first cold); the directory with
+        in 2 runs (the first cold); the directory with
         eval.decode_method dark: the video and predict_on_label_csv with
         no decode launch; predict_frame fp32 card vs CPU, soft-argmax and
         DARK; the predict step at batch 96 with each decode, alternating;
@@ -226,7 +226,7 @@ Phases, each fatal on failure:
         batch), its backward (once a step) and the normalize (once an
         evaluation and session batch), each against that count; the step's
         ms, busy share and memory; from the directory,
-        predict_on_video_file_multiview of a 2-view 1000-frame session in 3
+        predict_on_video_file_multiview of a 2-view 1000-frame session in 2
         runs, predict_on_label_csv_multiview, predict_frame of one frame a
         view, fp32 card vs CPU;
      b. the same for `heatmap_mhcrnn` (5-frame stacks a view: 160 backbone
@@ -242,8 +242,34 @@ Phases, each fatal on failure:
         evaluation batch (16, 2, 5, 256, 256, 3), the warp over 32 view
         images and 160 stack images, CLAHE at the fired planes, the decode on
         the trained models' view-major maps of a predict batch and its
-        backward on their maps of the window. The JSON summary holds 17a's
-        launches and 17d's times at 17a's shapes.
+        backward on their maps of the window.
+ 18. the command line, ``litpose-torch`` (in process through
+     ``lightning_pose_tpu_torch.cli.main.main``), on the default model
+     (ResNet-50 heatmap, 256 px, 17 keypoints, dlc, bf16) and a synthetic
+     labeled set, with the CLI's INFO log read for frames/s and seconds:
+     a. ``train`` of 10 steps of batch 16 from a config file, with its
+        evaluation; launches of the warp (1 a step), CLAHE (1 a step whose
+        seeded draws fire it), the decode (1 a step, validation and
+        evaluation batch) and the normalize (1 an evaluation batch), each
+        against that count;
+     b. ``predict`` of a 1000-frame 320x240 mp4 three ways, at bf16 and at
+        fp32: eager, ``--compile``, and ``--runtime exported`` after
+        ``export`` (fp32: ``Model.export``); each route's frames/s,
+        compile or export seconds and launches of normalize and decode
+        (1 a batch, and 1 more for compile()'s canonical batch); the
+        exported graph names the ops ``lightning_pose_tpu_torch::normalize``
+        and ``::decode``; the compiled and exported CSVs held to the eager
+        one (TF32 off; ROUTE_TOL_PX, ROUTE_CONF_TOL by precision); the predict
+        step at batch 96 through each route;
+     c. the cropzoom pipeline: ``create_bbox`` of the video and the labeled
+        frames from 18a's predictions, ``smooth_bbox``, ``crop`` of both,
+        ``train --detector_model`` (10 steps on the crops, its evaluation
+        predicting the cropped video), ``predict --bbox_dir`` and ``remap``
+        of the cropped video's CSV: shapes, finite values, launches.
+     The JSON summary holds phase 18's launches (normalize and decode of
+     18b's eager predict, the warp and CLAHE of 18a's train) beside phase
+     7's times at those shapes, and the decode's backward's launches in
+     17a's train() beside 17d's times (no path of phase 18 runs it).
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX, of
 the JAX package ``lightning_pose_tpu`` or of ``transformers`` and fails if
@@ -325,7 +351,7 @@ CONTEXT_STEPS = 10
 CONTEXT_FRAMES = 5
 CONTEXT_WINDOWS = WINDOW - 4
 CONTEXT_VIDEO_FRAMES = 1000
-CONTEXT_VIDEO_RUNS = 3
+CONTEXT_VIDEO_RUNS = 2
 CONTEXT_SEED = 4
 CONTEXT_TOL_PX = 0.05
 CONTEXT_CONF_TOL = 1e-3
@@ -348,7 +374,7 @@ MV_STEPS = 10
 MV_SEED = 5
 MV_LR = 5e-5
 MV_VIDEO_FRAMES = 1000
-MV_VIDEO_RUNS = 3
+MV_VIDEO_RUNS = 2
 MV_TOL_PX = 0.05
 
 # the rest of single-view training (phase 14): train() steps of the resume
@@ -356,7 +382,7 @@ MV_TOL_PX = 0.05
 # the EfficientNet and regression configurations, the frames of their
 # synthetic video and the runs over it (the first cold), the limit of fp32
 # on the card against the CPU
-RESUME_STEPS = 16
+RESUME_STEPS = 8
 SV_STEPS = 10
 SV_VIDEO_FRAMES = 1000
 SV_VIDEO_RUNS = 2
@@ -394,8 +420,20 @@ SPLIT_PREDICT = 64  # dali.base.predict.sequence_length and dali.context.predict
 SPLIT_STEPS = 10
 SPLIT_SESSION_FRAMES = 120
 SPLIT_VIDEO_FRAMES = 1000
-SPLIT_VIDEO_RUNS = 3
+SPLIT_VIDEO_RUNS = 2
 SPLIT_TOL_PX = 0.05
+# phase 18, the command line: train steps, the video's frames, the crop side of
+# the cropzoom pipeline, and the limits of the compiled and exported routes'
+# CSVs against the eager one, by precision (TF32 off): inductor's fused
+# kernels and its convolution choices sum in another order than eager's (at
+# bf16 they also round at other places), and the decode's temperature-1000
+# softmax magnifies that (measured on the card: 4.6e-05 px at fp32 and
+# 1.0e-03 px at bf16 compiled, the exported program bitwise at bf16)
+CLI_STEPS = 10
+CLI_VIDEO_FRAMES = 1000
+CLI_CROP = 192
+ROUTE_TOL_PX = {"fp32": 0.05, "bf16": 0.5}
+ROUTE_CONF_TOL = {"fp32": 1e-3, "bf16": 0.01}
 # the device of phase 14's, 15's and 17's paths (the checks of phase 3 are the card's)
 DEVICE = "cuda"
 
@@ -2846,7 +2884,7 @@ def transformer_phase(rng, card: str) -> dict[str, int]:
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         log("phase 15a largest device-time entries a step: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms" for e in top))
-        rates, video_launches, vres = video_runs(model_dir, video, 3)
+        rates, video_launches, vres = video_runs(model_dir, video, 2)
         batches = math.ceil(SV_VIDEO_FRAMES / BATCH)
         df = vres.predictions
         check(df.shape == (SV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
@@ -3893,6 +3931,345 @@ def split_phase(rng, card: str, errors: dict) -> tuple[dict[str, int], dict[str,
     return paths["heatmap"]["launches"], times["heatmap"]
 
 
+# -- phase 18: the litpose-torch command line ----------------------------------------
+
+
+class LogCapture:
+    """The messages the port's loggers emit while it is entered (the CLI
+    logs each video's frames/s and the compile and export seconds)."""
+
+    def __init__(self, name: str = "lightning_pose_tpu_torch"):
+        import logging
+
+        self.logger = logging.getLogger(name)
+        self.messages: list[str] = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = Handler(logging.INFO)
+
+    def __enter__(self):
+        import logging
+
+        self.messages.clear()
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def number(self, pattern: str) -> float:
+        """The number that ``pattern``'s one group matches in the one message
+        that it matches."""
+        import re
+
+        found = [m.group(1) for m in (re.search(pattern, msg) for msg in self.messages) if m]
+        check(len(found) == 1, f"log messages matching {pattern!r}: {found}")
+        return float(found[0])
+
+
+def cli_config(data_dir: Path, keypoint_names: list[str], name: str, path: Path) -> Path:
+    """Phase 18's config file: the default model (train_config) cut to
+    CLI_STEPS steps, written as YAML for ``litpose-torch train``."""
+    cfg = train_config(data_dir, keypoint_names)
+    cfg.model.model_name = name
+    cfg.training.max_steps = cfg.training.min_steps = CLI_STEPS
+    cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [5, 8]
+    cfg.save(str(path))
+    return path
+
+
+def read_preds(path: Path):
+    import pandas as pd
+
+    return pd.read_csv(path, header=[0, 1, 2], index_col=0)
+
+
+def route_diffs(df, ref) -> tuple[float, float, float]:
+    """Keypoints' largest and median absolute difference in pixels, and the
+    confidences' largest, of two prediction CSVs of one video."""
+    xy = df.columns.get_level_values("coords").isin(["x", "y"])
+    d = np.abs(df.loc[:, xy].to_numpy(float) - ref.loc[:, xy].to_numpy(float))
+    c = np.abs(df.loc[:, ~xy].to_numpy(float) - ref.loc[:, ~xy].to_numpy(float))
+    return float(d.max()), float(np.median(d)), float(c.max())
+
+
+def exported_ops(path: Path) -> set[str]:
+    """The port's ops that a saved program's graphs name (the autocast
+    region is a graph of its own)."""
+    import torch
+
+    program = torch.export.load(str(path))
+    return {
+        str(node.target)
+        for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+        for node in gm.graph.nodes
+        if node.op == "call_function" and str(node.target).startswith("lightning_pose_tpu_torch.")
+    }
+
+
+def cli_predict_routes(model_dir: Path, video: Path, out: Path, precision: str, card: str,
+                       phase: str) -> dict[str, dict]:
+    """``litpose-torch predict`` of ``video`` three ways at ``precision``:
+    eager, ``--compile``, and ``--runtime exported`` after an export (at
+    bf16 ``litpose-torch export``; at fp32 ``Model.export``, since the
+    command exports at the default precision as the JAX command does).
+    Each route's CSV, frames/s, compile or export seconds and launches of
+    normalize and decode."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.cli.main import main as cli
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel
+
+    batches = -(-CLI_VIDEO_FRAMES // BATCH)
+    routes = {}
+    for route in ("eager", "compiled", "exported"):
+        args = ["predict", str(model_dir), str(video), "--skip_viz", "--overwrite", "--precision", precision]
+        # the bf16 eager route writes video_preds/, where create_bbox reads the detector's predictions
+        if (route, precision) != ("eager", "bf16"):
+            args += ["--output_dir", str(out / f"{route}_{precision}")]
+        extra_s = None
+        if route == "exported":
+            with LogCapture() as logs:
+                if precision == "bf16":
+                    check(cli(["export", str(model_dir)]) == 0, "litpose-torch export failed")
+                else:
+                    Model.from_dir(model_dir, precision=precision).export(model_dir / "exports_torch")
+            extra_s = logs.number(r"exported the prediction program .* in ([0-9.]+) s")
+            ops = exported_ops(model_dir / "exports_torch" / "predict.pt2")
+            check(ops == {"lightning_pose_tpu_torch.normalize.default", "lightning_pose_tpu_torch.decode.default"},
+                  f"the exported graph's ops: {ops}")
+            args += ["--runtime", "exported"]
+        if route == "compiled":
+            args += ["--compile"]
+        torch.cuda.synchronize()
+        normalize_kernel.launches = decode_kernel.launches = 0
+        t0 = time.perf_counter()
+        with LogCapture() as logs:
+            check(cli(args) == 0, f"litpose-torch {' '.join(args)} failed")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        if route == "compiled":
+            extra_s = logs.number(r"compiled the prediction program .* in ([0-9.]+) s")
+        fps = logs.number(r"predicted \d+ frames of .* \(([0-9.]+) frames/s\)")
+        launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+        # compile() runs the canonical batch once before the video's batches
+        expected = batches + (route == "compiled")
+        check(all(n == expected for n in launches.values()),
+              f"{route} {precision} route launches {launches}, expected {expected} ({batches} batches)")
+        csv = (model_dir / "video_preds" if (route, precision) == ("eager", "bf16") else out / f"{route}_{precision}")
+        df = read_preds(csv / f"{video.stem}.csv")
+        check(df.shape == (CLI_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+              f"{route} {precision} CSV: shape {df.shape} or non-finite values")
+        routes[route] = {"df": df, "fps": fps, "seconds": extra_s, "launches": launches, "command_s": elapsed}
+        what = {"compiled": "compile", "exported": "export"}.get(route)
+        log(f"phase {phase} predict {route} ({precision}): {fps:.1f} frames/s over the {CLI_VIDEO_FRAMES}-frame "
+            f"320x240 mp4 ({batches} batches of {BATCH}), the command {elapsed:.1f} s with load and metrics"
+            + (f", {what} {extra_s:.1f} s" if what else "")
+            + f"; launches {launches} = {batches} batches" + (" + compile()'s canonical batch" if route == "compiled"
+                                                              else "") + f" {card}")
+    return routes
+
+
+def cli_step_times(model_dir: Path, card: str) -> None:
+    """The predict step at the canonical batch (96, 256, 256, 3), bf16,
+    through each route in this process: eager, compiled (the compile of
+    18b is in the inductor caches), and the exported program of 18b,
+    alternating over rounds."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+
+    models = {route: Model.from_dir(model_dir) for route in ("eager", "compiled", "exported")}
+    models["eager"]._load()
+    t0 = time.perf_counter()
+    models["compiled"].compile()
+    compile_s = time.perf_counter() - t0
+    models["exported"].use_exported_runtime(model_dir / "exports_torch" / "predict.pt2")
+    images, bbox = models["eager"]._canonical_inputs()
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(0, 256, tuple(images.shape), dtype=np.uint8)).to(
+        images.device)
+    rounds = {route: [] for route in models}
+    for _ in range(3):
+        for route, m in models.items():
+            rounds[route].append(cuda_ms(lambda: m._predict_fn(images, bbox), iters=10))
+    med = {route: float(np.median(r)) for route, r in rounds.items()}
+    log(f"phase 18b predict step (ResNet-50, {IMAGE} px, bf16, batch {BATCH}), medians of 3 alternating rounds of 10 "
+        f"calls: eager {med['eager']:.3f} ms, compiled {med['compiled']:.3f} ms ({med['eager'] / med['compiled']:.2f}x), "
+        f"exported {med['exported']:.3f} ms ({med['eager'] / med['exported']:.2f}x); rounds "
+        + "; ".join(f"{r} {' '.join(f'{x:.3f}' for x in v)}" for r, v in rounds.items())
+        + f"; the second compile of the same graph in this process {compile_s:.1f} s {card}")
+
+
+def cli_phase(rng, card: str) -> dict[str, int]:
+    """Phase 18: the port's command line at full width, in process through
+    ``lightning_pose_tpu_torch.cli.main.main``. 18a ``train``; 18b
+    ``predict`` of a video eager, compiled and exported, bf16 and fp32; 18c
+    the cropzoom pipeline. Returns the launches of 18a's train (warp,
+    CLAHE) and of 18b's eager predict (normalize, decode)."""
+    import logging
+    import math
+
+    import cv2
+    import torch
+
+    from lightning_pose_tpu_torch.cli.main import main as cli
+    from lightning_pose_tpu_torch.config import Config
+    from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
+    from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
+    from lightning_pose_tpu_torch.train.trainer import calculate_steps_per_epoch
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset
+
+    t_phase = time.perf_counter()
+    # the command line's logging.basicConfig finds this handler and adds none:
+    # its INFO lines stay off the smoke's output (LogCapture reads them)
+    if not logging.root.handlers:
+        logging.basicConfig(level=logging.WARNING)
+    for handler in logging.root.handlers:
+        handler.setLevel(logging.WARNING)
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = write_labeled_dataset(tmp / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        video = write_video(tmp / "session.mp4", rng, CLI_VIDEO_FRAMES, 240, 320)
+        config = cli_config(data, names, "smokecli", tmp / "config.yaml")
+        model_dir = tmp / "model"
+
+        # -- 18a. train ---------------------------------------------------------------
+        fired = clahe_fired_stacks(AugmentationEngine("dlc", IMAGE, IMAGE), CLI_STEPS, seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        warp_kernel.launches = clahe_kernel.launches = decode_kernel.launches = normalize_kernel.launches = 0
+        t0 = time.perf_counter()
+        check(cli(["train", str(config), "--output_dir", str(model_dir)]) == 0, "litpose-torch train failed")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        train_launches = {"warp": warp_kernel.launches, "clahe": clahe_kernel.launches,
+                          "decode": decode_kernel.launches, "normalize": normalize_kernel.launches}
+        cfg = Config.from_yaml(str(model_dir / "config.yaml"))
+        dm = get_data_module(cfg, get_dataset(cfg, str(data)))
+        epochs = math.ceil(CLI_STEPS / calculate_steps_per_epoch(dm))
+        val_batches = epochs * math.ceil(len(dm.val_dataset) / dm.val_batch_size)
+        eval_batches = math.ceil(TRAIN_FRAMES / dm.test_batch_size)
+        expected = {"warp": CLI_STEPS, "clahe": len(fired), "decode": CLI_STEPS + val_batches + eval_batches,
+                    "normalize": eval_batches}
+        log(f"phase 18a litpose-torch train: {CLI_STEPS} steps of {TRAIN_BATCH} (ResNet-50, {IMAGE} px, dlc, bf16) "
+            f"with its evaluation in {elapsed:.1f} s; launches {train_launches}, implied {expected} ({epochs} "
+            f"validations of {val_batches // epochs} batch(es), {eval_batches} evaluation batches, CLAHE on the "
+            f"{len(fired)} steps whose seeded draws fire it) {card}")
+        check(train_launches == expected, f"litpose-torch train launches {train_launches}, implied {expected}")
+        check(len(fired) >= 1, f"the seeded draws fire CLAHE in none of {CLI_STEPS} steps")
+        check(len(list(model_dir.glob("tb_logs/smokecli/version_0/checkpoints/*-best.ckpt"))) == 1,
+              "litpose-torch train wrote no best checkpoint")
+        files = check_image_preds(model_dir, "CollectedData.csv", ["pixel_error"])
+        log(f"phase 18a train's evaluation: image_preds/CollectedData.csv/ {files}")
+
+        # -- 18b. predict three ways ----------------------------------------------------
+        bf16 = cli_predict_routes(model_dir, video, tmp / "routes", "bf16", card, "18b")
+        cli_step_times(model_dir, card)
+        fp32 = cli_predict_routes(model_dir, video, tmp / "routes", "fp32", card, "18b")
+        for precision, routes in (("bf16", bf16), ("fp32", fp32)):
+            for route in ("compiled", "exported"):
+                px, med, conf = route_diffs(routes[route]["df"], routes["eager"]["df"])
+                log(f"phase 18b {route} vs eager CSV ({precision}, TF32 off): keypoints max abs diff {px:.3e} px, "
+                    f"median {med:.3e} px, confidences {conf:.3e} (limits {ROUTE_TOL_PX[precision]} px, "
+                    f"{ROUTE_CONF_TOL[precision]})")
+                check(px <= ROUTE_TOL_PX[precision] and conf <= ROUTE_CONF_TOL[precision],
+                      f"the {route} route's {precision} CSV is {px} px / {conf} from the eager one")
+        px, med, _ = route_diffs(bf16["eager"]["df"], fp32["eager"]["df"])
+        log(f"phase 18b eager bf16 vs eager fp32 CSV: keypoints max abs diff {px:.3e} px, median {med:.3e} px "
+            f"(the spread that bf16 alone gives this model)")
+        torch.cuda.empty_cache()
+
+        # -- 18c. the cropzoom pipeline -----------------------------------------------
+        t0 = time.perf_counter()
+        smoothed = tmp / "smoothed"
+        csv = data / "CollectedData.csv"
+        check(cli(["create_bbox", str(model_dir), str(video), str(csv), "--crop_size", str(CLI_CROP)]) == 0,
+              "create_bbox failed")
+        check(cli(["smooth_bbox", str(model_dir / "video_preds"), "--output_dir", str(smoothed)]) == 0,
+              "smooth_bbox failed")
+        check(cli(["crop", str(model_dir), str(video), "--bbox_dir", str(smoothed)]) == 0, "crop of the video failed")
+        check(cli(["crop", str(model_dir), str(csv)]) == 0, "crop of the labeled frames failed")
+        bboxes = {"video": pd_read(model_dir / "video_preds" / f"{video.stem}_bbox.csv"),
+                  "smoothed": pd_read(smoothed / f"{video.stem}_bbox.csv"),
+                  "labeled": pd_read(model_dir / "image_preds" / "CollectedData.csv" / "bbox.csv")}
+        for name, df in bboxes.items():
+            n = TRAIN_FRAMES if name == "labeled" else CLI_VIDEO_FRAMES
+            check(list(df.columns) == ["x", "y", "h", "w"] and df.shape == (n, 4) and (df[["h", "w"]] == CLI_CROP).all().all(),
+                  f"{name} bboxes: shape {df.shape} or sizes")
+        cropped = model_dir / "cropped_videos" / f"cropped_{video.name}"
+        cap = cv2.VideoCapture(str(cropped))
+        crop_shape = tuple(int(cap.get(p)) for p in (cv2.CAP_PROP_FRAME_COUNT, cv2.CAP_PROP_FRAME_HEIGHT,
+                                                       cv2.CAP_PROP_FRAME_WIDTH))
+        cap.release()
+        check(crop_shape == (CLI_VIDEO_FRAMES, CLI_CROP, CLI_CROP), f"cropped video {crop_shape}")
+        images = sorted((model_dir / "cropped_images").rglob("*.png"))
+        check(len(images) == TRAIN_FRAMES and cv2.imread(str(images[0])).shape == (CLI_CROP, CLI_CROP, 3),
+              f"cropped images: {len(images)}")
+        cropped_csv = read_preds(model_dir / "image_preds" / "CollectedData.csv" / "cropped_CollectedData.csv")
+        check(cropped_csv.shape == (TRAIN_FRAMES, 2 * KEYPOINTS), f"cropped labels {cropped_csv.shape}")
+        crop_s = time.perf_counter() - t0
+
+        pose_dir = tmp / "pose"
+        pose_config = cli_config(data, names, "smokepose", tmp / "pose.yaml")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli(["train", str(pose_config), "--detector_model", str(model_dir), "--output_dir", str(pose_dir)]) == 0,
+              "litpose-torch train --detector_model failed")
+        torch.cuda.synchronize()
+        pose_s = time.perf_counter() - t0
+        pose_cfg = Config.from_yaml(str(pose_dir / "config.yaml"))
+        check(pose_cfg.data.data_dir == str(model_dir / "cropped_images")
+              and pose_cfg.data.csv_file.endswith("cropped_CollectedData.csv"), "train --detector_model's paths")
+        check_image_preds(pose_dir, "cropped_CollectedData.csv", ["pixel_error"])
+        # its evaluation predicted the cropped video (the test videos are the detector's cropped_videos/)
+        in_crop = read_preds(pose_dir / "video_preds" / f"cropped_{video.stem}.csv")
+        check(in_crop.shape == (CLI_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(in_crop.to_numpy()).all(),
+              f"the pose model's cropped-video CSV {in_crop.shape}")
+
+        t0 = time.perf_counter()
+        normalize_kernel.launches = decode_kernel.launches = 0
+        check(cli(["predict", str(pose_dir), str(video), "--bbox_dir", str(smoothed), "--skip_viz"]) == 0,
+              "predict --bbox_dir failed")
+        bbox_launches = {"normalize": normalize_kernel.launches, "decode": decode_kernel.launches}
+        check(all(n == -(-CLI_VIDEO_FRAMES // BATCH) for n in bbox_launches.values()),
+              f"predict --bbox_dir launches {bbox_launches}")
+        remapped = tmp / "remapped.csv"
+        check(cli(["remap", str(pose_dir / "video_preds" / f"cropped_{video.stem}.csv"),
+                   str(smoothed / f"{video.stem}_bbox.csv"), "--output_file", str(remapped)]) == 0, "remap failed")
+        predict_s = time.perf_counter() - t0
+        in_frame = read_preds(pose_dir / "video_preds" / f"{video.stem}.csv")
+        back = read_preds(remapped)
+        for name, df in (("predict --bbox_dir", in_frame), ("remap", back)):
+            check(df.shape == (CLI_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+                  f"{name} CSV: shape {df.shape} or non-finite values")
+        xy = in_frame.columns.get_level_values("coords").isin(["x", "y"])
+        diff = np.abs(in_frame.loc[:, xy].to_numpy(float) - back.loc[:, xy].to_numpy(float))
+        log(f"phase 18c cropzoom: create_bbox (--crop_size {CLI_CROP}) of the {CLI_VIDEO_FRAMES}-frame video and the "
+            f"{TRAIN_FRAMES} labeled frames, smooth_bbox, crop of both in {crop_s:.1f} s; train --detector_model "
+            f"({CLI_STEPS} steps on the cropped frames, its evaluation predicting the cropped video) in {pose_s:.1f} s; "
+            f"predict --bbox_dir (launches {bbox_launches}) and remap of the cropped-video CSV in {predict_s:.1f} s; "
+            f"all finite, {CLI_VIDEO_FRAMES} x {3 * KEYPOINTS}; predict --bbox_dir against remap: median "
+            f"{np.median(diff):.2f} px (the mp4 re-encode of the crops and the two resize paths differ) {card}")
+    log(f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return {"normalize": bf16["eager"]["launches"]["normalize"], "decode": bf16["eager"]["launches"]["decode"],
+            "warp": train_launches["warp"], "clahe": train_launches["clahe"]}
+
+
+def pd_read(path: Path):
+    import pandas as pd
+
+    return pd.read_csv(path, index_col=0)
+
+
 def main() -> int:
     import torch
 
@@ -4275,16 +4652,28 @@ def main() -> int:
     transformer_phase(rng, card)
     sv_times(transformer_inputs, card, "15d")
     calibrated_phase(rng, card, errors)
-    # the kernels line holds each kernel's launches on this slice's path,
-    # the split config's heatmap train() of phase 17a (each earlier path
-    # checked its own above), beside its times at that path's shapes (17d)
-    launches, times = split_phase(rng, card, errors)
+    split_launches, split_times = split_phase(rng, card, errors)
+    cli_launches = cli_phase(rng, card)
+    # the kernels line holds each kernel's launches on this slice's path, the
+    # command line of phase 18 (each earlier path checked its own above),
+    # beside its times at that path's shapes, which phase 7 took: normalize
+    # and decode at 18b's predict batch, the warp and CLAHE at 18a's train
+    # batch. The decode's backward runs on no path of phase 18 (its training
+    # is supervised): it keeps phase 17a's launches and 17d's times
+    shapes7 = {
+        "normalize": f"{tuple(frames_bf16.shape)} uint8 -> bf16, 18b's predict batch (phase 7's times)",
+        "decode": f"{tuple(hm.shape)} fp32 at df {DOWNSAMPLE}, 18b's predict batch of peaked maps (phase 7's times)",
+        "warp": f"({TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3) fp32 at a dlc grid, 18a's train batch (phase 7's times)",
+        "clahe": f"{tuple(clahe_x.shape)} fp32 g=16, every plane of 18a's train batch (phase 7's times)",
+    }
+    times = {name: (*times[name], bounds[name], shapes7[name]) for name in shapes7}
+    times["decode_grad"] = split_times["decode_grad"]
+    launches = {**cli_launches, "decode_grad": split_launches["decode_grad"]}
     paths = {
-        "normalize": "17a the split config's heatmap train(): 1 an evaluation and a test-video batch",
-        "decode": "17a the split config's heatmap train(): 2 a step (the labeled views, the window with gradient), "
-                  "1 a validation, an evaluation and a test-video batch",
-        "warp": "17a the split config's heatmap train(): 1 a step over 32 view images",
-        "clahe": "17a the split config's heatmap train(): 1 a step whose draws fire it",
+        "normalize": f"18b litpose-torch predict (eager, bf16) of a {CLI_VIDEO_FRAMES}-frame mp4: 1 a batch of {BATCH}",
+        "decode": f"18b litpose-torch predict (eager, bf16) of a {CLI_VIDEO_FRAMES}-frame mp4: 1 a batch of {BATCH}",
+        "warp": f"18a litpose-torch train of the default model: 1 a step over {TRAIN_BATCH} images",
+        "clahe": "18a litpose-torch train of the default model: 1 a step whose seeded draws fire it",
         "decode_grad": "17a the split config's heatmap train(): 1 a step (pca_multiview on the window)",
     }
     blocked = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")

@@ -11,6 +11,15 @@ beside a plain PyTorch version, which runs on CPU tensors.
 
 import os
 
+# the distribution's version (the two packages ship in one); the pyproject
+# value for a checkout that is not installed
+try:
+    from importlib.metadata import version as _pkg_version
+
+    __version__ = _pkg_version("lightning-pose-tpu")
+except Exception:  # not installed
+    __version__ = "0.2.0"
+
 # Absolute path to the repository root, for the ``${LP_ROOT_PATH:}`` config
 # resolver.
 LP_ROOT_PATH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -21,13 +21,18 @@ temporal-context ``heatmap_mhcrnn`` model, the multiview transformer
 (``heatmap_multiview``) and the heatmap models on multiview data, with
 every backbone the JAX package takes, the soft-argmax decode or
 ``eval.decode_method: dark`` (none for regression, whose confidences are
-1.0) and RGB transfer. The other options raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+1.0) and RGB transfer. ``compile`` runs the predictions through
+``torch.compile``; ``export`` saves the prediction program with
+``torch.export`` (``exports_torch/predict.pt2``), and
+``use_exported_runtime`` runs the predictions through such a file. The
+other options (data-parallel prediction, yuv420 transfer) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from pathlib import Path
 
 import numpy as np
@@ -83,7 +88,7 @@ def compute_dtype_for(precision: str | None) -> torch.dtype:
     return _PRECISIONS[key]
 
 
-class PredictStep:
+class PredictStep(nn.Module):
     """uint8 frames and bboxes -> frame-space keypoints and confidences
     (the reference's ``predict_step``).
 
@@ -105,6 +110,11 @@ class PredictStep:
     The regression model's outputs are the keypoints: no decode, and
     confidences of 1.0. ``model`` must be in eval mode on the device the
     inputs come on.
+
+    ``forward`` is the program that ``torch.export`` and ``torch.compile``
+    take (normalize and decode are the registered ops
+    ``lightning_pose_tpu_torch::normalize`` and ``::decode``); calling the
+    step runs it eagerly under ``torch.inference_mode``.
     """
 
     def __init__(
@@ -116,6 +126,7 @@ class PredictStep:
         transformer's own, else 1."""
         if decode_method not in DECODE_METHODS:
             raise ValueError(f"decode_method must be softargmax|dark, got {decode_method!r}")
+        super().__init__()
         self.model = model
         self.decode_method = decode_method
         self.height = height
@@ -127,8 +138,12 @@ class PredictStep:
             num_views = model.num_views if isinstance(model, HeatmapTrackerMultiviewTransformer) else 1
         self.num_views = num_views
 
-    @torch.inference_mode()
-    def __call__(
+    def __call__(self, images_uint8: torch.Tensor, bbox: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eager step: :meth:`forward` with no autograd."""
+        with torch.inference_mode():
+            return super().__call__(images_uint8, bbox)
+
+    def forward(
         self, images_uint8: torch.Tensor, bbox: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(B, h, w, 3)`` uint8 (context stacks ``(B, 5, h, w, 3)``,
@@ -185,6 +200,10 @@ class Model:
         self.precision = precision
         self.device = resolve_device(device)
         self._predict_step: PredictStep | None = None
+        # the call that runs the predictions: the eager step, its compiled
+        # forward, or the exported program of use_exported_runtime
+        self._predict_fn = None
+        self._exported_runtime_active = False
 
     @classmethod
     def from_dir(
@@ -284,6 +303,7 @@ class Model:
             decode_method=decode_method,
             num_views=model_meta(cfg)["num_views"],
         )
+        self._predict_fn = self._predict_step
 
     # -- prediction entry points ------------------------------------------------
 
@@ -351,7 +371,7 @@ class Model:
         preds_file = out_dir / "predictions.csv"
         # the written CSV keeps the 'set' column: the metrics tell labeled
         # from video predictions by it (reference metrics.py:211-216)
-        df = predict_dataset(cfg, data_module, self._predict_step, self.device, str(preds_file))
+        df = predict_dataset(cfg, data_module, self._predict_fn, self.device, str(preds_file))
 
         metrics_result = None
         if compute_metrics:
@@ -402,7 +422,7 @@ class Model:
         return predict_video(
             video_file=str(video_file),
             cfg=self.cfg,
-            predict_fn=self._predict_step,
+            predict_fn=self._predict_fn,
             model_dir=str(self.model_dir),
             device=self.device,
             preds_file=preds_file,
@@ -438,7 +458,7 @@ class Model:
             video_file_per_view=[str(v) for v in video_file_per_view],
             view_names=view_names,
             cfg=self.cfg,
-            predict_fn=self._predict_step,
+            predict_fn=self._predict_fn,
             model_dir=str(self.model_dir),
             device=self.device,
             generate_labeled_video=generate_labeled_video,
@@ -488,7 +508,7 @@ class Model:
             val_probability=cfg.training.get("val_prob", None),
             torch_seed=cfg.training.get("rng_seed_data_pt", 42),
         )
-        view_to_df = predict_dataset(cfg, data_module, self._predict_step, self.device)
+        view_to_df = predict_dataset(cfg, data_module, self._predict_fn, self.device)
         out, out_metrics = {}, {}
         for view, csv_file in zip(view_names, cfg.data.csv_file):
             df = view_to_df[view]
@@ -513,7 +533,10 @@ class Model:
 
     def _video_transfer_format(self) -> str:
         """Resolve ``cfg.eval.video_transfer_format``: ``auto`` is ``rgb`` off
-        the TPU."""
+        the TPU, and so is the exported runtime's (its input shapes are
+        RGB)."""
+        if self._exported_runtime_active:
+            return "rgb"
         fmt = str(self.cfg.eval.get("video_transfer_format", "auto")).lower()
         if fmt == "yuv420":
             raise NotImplementedError(
@@ -606,16 +629,108 @@ class Model:
         image = np.stack([resize(f) for f in flat]).reshape(*crop.shape[:-3], step.height, step.width, 3)
         images = torch.from_numpy(image[None]).to(self.device)
         bboxes = torch.tensor([bbox_row * step.num_views], dtype=torch.float32, device=self.device)
-        kp, conf = step(images, bboxes)
+        kp, conf = self._predict_fn(images, bboxes)
         return {
             "keypoints": kp[0].reshape(-1, 2).cpu().numpy().astype(np.float32),
             "confidence": conf[0].cpu().numpy().astype(np.float32),
         }
 
-    # -- not ported yet ---------------------------------------------------------
+    # -- compile / export ---------------------------------------------------------
+
+    def _runner(self, program, images_shape: tuple[int, ...] | None = None):
+        """``(images_uint8, bbox) -> (keypoints, confidences)`` through
+        ``program`` under ``torch.inference_mode``; with ``images_shape``,
+        other image shapes raise."""
+
+        def run(images_uint8: torch.Tensor, bbox: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            if images_shape is not None and tuple(images_uint8.shape) != images_shape:
+                raise ValueError(
+                    f"exported program expects images {images_shape}, got {tuple(images_uint8.shape)}; "
+                    "use the eager runtime for non-video batch shapes"
+                )
+            with torch.inference_mode():
+                return program(images_uint8, bbox)
+
+        return run
+
+    def _canonical_inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Zero frames and full-frame bboxes of the canonical video batch:
+        ``(T, H, W, 3)`` uint8, ``(T, V, H, W, 3)`` for a multiview model,
+        ``T`` the model's ``dali.{base,context}.predict.sequence_length``."""
+        step = self._predict_step
+        seq_len = int(self.cfg.dali["context" if step.is_context else "base"]["predict"]["sequence_length"])
+        views = (step.num_views,) if step.num_views > 1 else ()
+        images = torch.zeros((seq_len, *views, step.height, step.width, 3), dtype=torch.uint8, device=self.device)
+        bbox = torch.tensor([[0.0, 0.0, step.height, step.width] * step.num_views] * seq_len, device=self.device)
+        return images, bbox
 
     def compile(self) -> None:
-        raise NotImplementedError("compile is not ported yet (ROADMAP queue 1, item 9: API and CLI remainder)")
+        """``torch.compile`` the live checkpoint's step (default mode, static
+        shapes) and run it once at the canonical video batch, so that the
+        predictions after it run compiled (reference model.py:409). Under
+        :meth:`use_exported_runtime` it only runs the exported program once
+        at that batch, as the JAX package's compile() warms up whatever
+        program it serves."""
+        self._load()
+        t0 = time.perf_counter()
+        images, bbox = self._canonical_inputs()
+        if not self._exported_runtime_active:
+            self._predict_fn = self._runner(torch.compile(self._predict_step.forward, dynamic=False))
+        self._predict_fn(images, bbox)
+        what = "ran the exported program once" if self._exported_runtime_active else "compiled the prediction program"
+        logger.info(f"{what} at {tuple(images.shape)} in {time.perf_counter() - t0:.1f} s")
 
     def export(self, output_dir: str | Path | None = None) -> str:
-        raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 9: API and CLI remainder)")
+        """``torch.export`` the live checkpoint's prediction program at the
+        canonical video batch and save it as ``<output_dir>/predict.pt2``
+        (default ``<model_dir>/exports_torch``), the counterpart of the JAX
+        package's ``jax.export`` (reference model.py:615-704). The autocast
+        region and the bbox remap are inside the program; normalize and
+        decode are its ops ``lightning_pose_tpu_torch::normalize`` and
+        ``::decode``. Returns the path."""
+        self._load()
+        t0 = time.perf_counter()
+        images, bbox = self._canonical_inputs()
+        with torch.no_grad():
+            program = torch.export.export(self._predict_step, (images, bbox))
+        out_dir = Path(output_dir or (self.model_dir / "exports_torch"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / "predict.pt2"
+        torch.export.save(program, str(path))
+        logger.info(f"exported the prediction program at {tuple(images.shape)} to {path} in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        return str(path)
+
+    def use_exported_runtime(self, path: str | Path | None = None) -> None:
+        """Run the predictions through a saved export instead of the live
+        checkpoint (the reference's ``--runtime onnx``, model.py:469-594).
+        ``path`` defaults to the single ``.pt2`` under
+        ``<model_dir>/exports_torch``. The program has the fixed input
+        shapes of the canonical video batch; other batch shapes raise."""
+        self._load()
+        if path is None:
+            export_dir = self.model_dir / "exports_torch"
+            candidates = sorted(export_dir.glob("*.pt2"))
+            if len(candidates) != 1:
+                raise FileNotFoundError(
+                    f"expected exactly one .pt2 under {export_dir}, found {len(candidates)}; run "
+                    "`litpose-torch export` first or pass an explicit path"
+                )
+            path = candidates[0]
+        program = Model.load_exported(path)
+        images_shape = next(
+            tuple(node.meta["val"].shape) for node in program.graph.nodes if node.op == "placeholder"
+        )
+        self._predict_fn = self._runner(program, images_shape)
+        self._exported_runtime_active = True
+        logger.info(f"predictions now run the exported program at {path}")
+
+    @staticmethod
+    def load_exported(path: str | Path) -> torch.fx.GraphModule:
+        """Load a saved prediction program (the ORT-runtime analog,
+        reference model.py:469-594) as a module ``(images_uint8, bbox) ->
+        (keypoints, confidences)`` on the device it was exported on. The
+        port's ops are registered first."""
+        from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel  # noqa: F401
+
+        return torch.export.load(str(path)).module()

@@ -8,9 +8,11 @@ trains through its XLA decode and differentiates it by autodiff. Each
 source's header says what bounds it on the H100 and how it is laid out.
 This module holds the upsample matrices, the plain PyTorch version of the
 decode (the reference's XLA path,
-``lightning_pose_tpu/ops/softargmax.py:123-147``), and the wrapper that
-picks between them by device and, on the card, between the forward-only
-launch and the autograd function of the two kernels.
+``lightning_pose_tpu/ops/softargmax.py:123-147``), the registered op
+``lightning_pose_tpu_torch::decode`` (the kernel on CUDA, the plain version
+on the CPU; ``torch.export`` and ``torch.compile`` see it as one node), and
+the wrapper that picks between the op and, on the card under autograd, the
+autograd function of the two kernels.
 
 Heatmaps are ``(B, K, h, w)`` here, the layout the port's head emits: the
 kernel walks them as ``B*K`` maps of ``(h, w)`` with no transpose.
@@ -43,8 +45,11 @@ __all__ = [
     "upsample_matrix",
 ]
 
-# launches of the CUDA kernels in this process: the forward (``launches``)
-# and the backward (``grad_launches``); only the wrappers add to them
+# launches of the CUDA kernels in this process: the forward (``launches``),
+# added to by ``_launch``, the CUDA body of the registered ops
+# ``lightning_pose_tpu_torch::decode`` and ``::decode_with_lse``, whoever
+# calls them (the wrappers, an exported or compiled graph); and the backward
+# (``grad_launches``), added to by its launch
 launches = 0
 grad_launches = 0
 
@@ -476,6 +481,53 @@ def _launch_grad(
     return grad
 
 
+# the decode as a registered PyTorch op, so that ``torch.export`` keeps it
+# in its graph and ``torch.compile`` takes it without a graph break: the
+# CUDA implementation is the kernel, the CPU one the plain version.
+# ``decode_with_lse`` (CUDA only) also returns each map's base-2
+# log-sum-exp, which the backward kernel reads
+@torch.library.custom_op(
+    "lightning_pose_tpu_torch::decode", mutates_args=(), device_types="cuda",
+    tags=(torch.Tag.needs_fixed_stride_order,),
+)
+def _decode_op(heatmaps: torch.Tensor, downsample_factor: int, temperature: float) -> tuple[torch.Tensor, torch.Tensor]:
+    b, k, h, w = heatmaps.shape
+    ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
+    return _launch(heatmaps, ops, downsample_factor, temperature)
+
+
+@_decode_op.register_kernel("cpu")
+def _(heatmaps, downsample_factor, temperature):
+    return decode_plain(heatmaps, downsample_factor, temperature)
+
+
+@_decode_op.register_fake
+def _(heatmaps, downsample_factor, temperature):
+    b, k = heatmaps.shape[:2]
+    dtype = torch.promote_types(heatmaps.dtype, torch.float32)
+    return heatmaps.new_empty((b, 2 * k), dtype=dtype), heatmaps.new_empty((b, k), dtype=dtype)
+
+
+@torch.library.custom_op(
+    "lightning_pose_tpu_torch::decode_with_lse", mutates_args=(), device_types="cuda",
+    tags=(torch.Tag.needs_fixed_stride_order,),
+)
+def _decode_with_lse_op(
+    heatmaps: torch.Tensor, downsample_factor: int, temperature: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, k, h, w = heatmaps.shape
+    ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
+    lse2 = torch.empty(b * k, dtype=torch.float32, device=heatmaps.device)
+    keypoints, confidences = _launch(heatmaps, ops, downsample_factor, temperature, lse2)
+    return keypoints, confidences, lse2
+
+
+@_decode_with_lse_op.register_fake
+def _(heatmaps, downsample_factor, temperature):
+    b, k = heatmaps.shape[:2]
+    return (heatmaps.new_empty((b, 2 * k)), heatmaps.new_empty((b, k)), heatmaps.new_empty((b * k,)))
+
+
 class _DecodeFunction(torch.autograd.Function):
     """The decode kernel forward and the backward kernel, for CUDA heatmaps
     that require grad. The confidences carry no gradient."""
@@ -483,10 +535,9 @@ class _DecodeFunction(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
     def forward(ctx, heatmaps, downsample_factor, temperature):
-        b, k, h, w = heatmaps.shape
-        ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
-        lse2 = torch.empty(b * k, dtype=torch.float32, device=heatmaps.device)
-        keypoints, confidences = _launch(heatmaps, ops, downsample_factor, temperature, lse2)
+        keypoints, confidences, lse2 = torch.ops.lightning_pose_tpu_torch.decode_with_lse(
+            heatmaps, downsample_factor, temperature
+        )
         ctx.save_for_backward(heatmaps, keypoints, lse2)
         ctx.downsample_factor, ctx.temperature = downsample_factor, temperature
         ctx.mark_non_differentiable(confidences)
@@ -510,19 +561,23 @@ def decode(
     temperature: float = 1000.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused decode of ``(B, K, h, w)`` heatmaps (drop-in for
-    :func:`decode_plain`).
+    :func:`decode_plain`), through the op ``lightning_pose_tpu_torch::decode``.
 
     A CUDA tensor runs the CUDA kernel; where grad mode is on and the
     heatmaps require grad, it runs the kernel and the backward kernel as an
     autograd function, so the keypoints carry a gradient. A CPU tensor runs
-    :func:`decode_plain`, differentiable by autograd. Anything else raises.
+    :func:`decode_plain`: through the op, or, where it needs a gradient,
+    directly under autograd. Anything else raises.
     """
     if heatmaps.ndim != 4:
         raise ValueError(f"decode takes (B, K, h, w) heatmaps, got {tuple(heatmaps.shape)}")
     if downsample_factor not in GRID_OFFSETS:
         raise ValueError(f"downsample_factor must be 0-3, got {downsample_factor}")
+    needs_grad = torch.is_grad_enabled() and heatmaps.requires_grad
     if heatmaps.device.type == "cpu":
-        return decode_plain(heatmaps, downsample_factor, temperature)
+        if needs_grad:
+            return decode_plain(heatmaps, downsample_factor, temperature)
+        return torch.ops.lightning_pose_tpu_torch.decode(heatmaps, downsample_factor, float(temperature))
     if heatmaps.device.type != "cuda":
         raise ValueError(f"decode runs on cpu or cuda, not {heatmaps.device}")
     if heatmaps.dtype != torch.float32:
@@ -535,7 +590,6 @@ def decode(
     b, k, h, w = heatmaps.shape
     if b * k * 4 >= 2**31:
         raise ValueError(f"the decode kernel takes fewer than 2**29 maps a launch, got {b * k}")
-    if torch.is_grad_enabled() and heatmaps.requires_grad:
+    if needs_grad:
         return _DecodeFunction.apply(heatmaps, downsample_factor, temperature)
-    ops = _device_operands(h, w, downsample_factor, _layout(), heatmaps.device)
-    return _launch(heatmaps, ops, downsample_factor, temperature)
+    return torch.ops.lightning_pose_tpu_torch.decode(heatmaps, downsample_factor, float(temperature))

@@ -19,7 +19,9 @@ The output is written ``(..., H, W, 3)`` contiguous and returned as the
 ``(..., 3, H, W)`` permutation: for ``(B, H, W, 3)`` frames a channels-last
 tensor, which the first convolution reads without a copy; multiview
 ``(B, V, H, W, 3)`` batches go through as they are, one launch over all
-views.
+views. The kernel runs inside the registered op
+``lightning_pose_tpu_torch::normalize``, which ``torch.export`` keeps as one
+node of its graph and ``torch.compile`` calls as it is.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from lightning_pose_tpu_torch.ops.preprocess import (
 
 __all__ = ["launches", "normalize", "normalize_plain"]
 
-# launches of the Triton kernel in this process; only ``normalize`` adds to it
+# launches of the Triton kernel in this process; the CUDA body of the
+# registered op ``lightning_pose_tpu_torch::normalize`` (``_normalize_op``)
+# adds one per launch, whether ``normalize`` or an exported or compiled
+# graph calls the op
 launches = 0
 
 _BLOCK = 4096
@@ -89,34 +94,19 @@ def _get_kernel():
     return _kernel
 
 
-def normalize(
-    images_uint8: torch.Tensor, out_dtype: torch.dtype = torch.float32
-) -> torch.Tensor:
-    """uint8 ``(..., H, W, 3)`` (frames ``(B, H, W, 3)``, or multiview
-    ``(B, V, H, W, 3)``) -> normalized ``(..., 3, H, W)``.
-
-    A CUDA tensor runs the Triton kernel; a CPU tensor runs
-    :func:`normalize_plain`. Anything else raises.
-    """
+# the kernel as a registered PyTorch op, so that ``torch.export`` keeps it
+# in its graph and ``torch.compile`` takes it without a graph break: the
+# CUDA implementation is the Triton kernel, the CPU one the plain version.
+# It returns the ``(..., H, W, 3)`` buffer; the wrapper takes the
+# ``(..., 3, H, W)`` view outside, so that the op's output strides are the
+# plain contiguous ones
+@torch.library.custom_op(
+    "lightning_pose_tpu_torch::normalize", mutates_args=(), device_types="cuda",
+    tags=(torch.Tag.needs_fixed_stride_order,),
+)
+def _normalize_op(images_uint8: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     global launches
-    if images_uint8.dtype != torch.uint8:
-        raise TypeError(f"normalize takes uint8 frames, got {images_uint8.dtype}")
-    if images_uint8.ndim < 4 or images_uint8.shape[-1] != 3:
-        raise ValueError(
-            f"normalize takes (..., H, W, 3) frames, got {tuple(images_uint8.shape)}"
-        )
-    if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"normalize writes bf16 or fp32, not {out_dtype}")
-    if images_uint8.device.type == "cpu":
-        return normalize_plain(images_uint8, out_dtype)
-    if images_uint8.device.type != "cuda":
-        raise ValueError(f"normalize runs on cpu or cuda, not {images_uint8.device}")
-    if not images_uint8.is_contiguous():
-        raise ValueError("normalize needs contiguous (..., H, W, 3) frames")
     n = images_uint8.numel()
-    if n >= 2**31:
-        raise ValueError(f"normalize indexes with int32; {n} elements is too many")
-
     triton, kernel = _get_kernel()
     out = torch.empty(images_uint8.shape, dtype=out_dtype, device=images_uint8.device)
     if n:
@@ -126,4 +116,42 @@ def normalize(
                 images_uint8, out, n, *scale, *bias, BLOCK=_BLOCK, num_warps=8,
             )
         launches += 1
-    return out.movedim(-1, -3)
+    return out
+
+
+@_normalize_op.register_kernel("cpu")
+def _(images_uint8, out_dtype):
+    return normalize_images(images_uint8).to(out_dtype)
+
+
+@_normalize_op.register_fake
+def _(images_uint8, out_dtype):
+    return torch.empty_like(images_uint8, dtype=out_dtype, memory_format=torch.contiguous_format)
+
+
+def normalize(
+    images_uint8: torch.Tensor, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """uint8 ``(..., H, W, 3)`` (frames ``(B, H, W, 3)``, or multiview
+    ``(B, V, H, W, 3)``) -> normalized ``(..., 3, H, W)``, through the op
+    ``lightning_pose_tpu_torch::normalize``.
+
+    A CUDA tensor runs the Triton kernel; a CPU tensor runs the plain
+    version (:func:`normalize_plain`'s formula). Anything else raises.
+    """
+    if images_uint8.dtype != torch.uint8:
+        raise TypeError(f"normalize takes uint8 frames, got {images_uint8.dtype}")
+    if images_uint8.ndim < 4 or images_uint8.shape[-1] != 3:
+        raise ValueError(
+            f"normalize takes (..., H, W, 3) frames, got {tuple(images_uint8.shape)}"
+        )
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"normalize writes bf16 or fp32, not {out_dtype}")
+    if images_uint8.device.type == "cuda":
+        if not images_uint8.is_contiguous():
+            raise ValueError("normalize needs contiguous (..., H, W, 3) frames")
+        if images_uint8.numel() >= 2**31:
+            raise ValueError(f"normalize indexes with int32; {images_uint8.numel()} elements is too many")
+    elif images_uint8.device.type != "cpu":
+        raise ValueError(f"normalize runs on cpu or cuda, not {images_uint8.device}")
+    return torch.ops.lightning_pose_tpu_torch.normalize(images_uint8, out_dtype).movedim(-1, -3)

@@ -25,6 +25,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "LabeledData",
     "check_video_paths",
+    "collect_video_files_by_view",
     "ckpt_path_from_base_path",
     "find_video_files_for_views",
     "fix_empty_first_row",
@@ -344,6 +345,24 @@ def check_video_paths(
     for f in flat:
         assert str(f).endswith(".mp4"), "video files must be mp4 format!"
     return filenames
+
+
+def collect_video_files_by_view(
+    video_files: list[Path], view_names: list[str]
+) -> dict[str, Path]:
+    """Match exactly one video file per view by filename (reference utils/io.py:467)."""
+    assert len(video_files) == len(view_names), f"{len(video_files)} != {len(view_names)}"
+    matched: dict[str, Path] = {}
+    for view_name in view_names:
+        hits = [
+            Path(f) for f in video_files if _view_in_filename(Path(f).stem, view_name)
+        ]
+        if len(hits) > 1:
+            raise ValueError(f"File matches multiple views: {hits[1]}")
+        if not hits:
+            raise ValueError(f"File not found for view: {view_name}")
+        matched[view_name] = hits[0]
+    return matched
 
 
 def extract_view_name_from_video(

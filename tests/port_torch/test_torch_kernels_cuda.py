@@ -1190,3 +1190,55 @@ def test_dark_predict_step_on_card_launches_no_decode(cuda_device):
     torch.cuda.synchronize()
     assert (normalize_kernel.launches - normalizes, decode_kernel.launches - decodes) == (1, 0)
     torch.testing.assert_close(kp.cpu(), kp_ref, rtol=0, atol=KP_TOL_PX)
+
+
+def test_registered_ops_on_cuda_pass_opcheck(cuda_device):
+    """``lightning_pose_tpu_torch::normalize`` and ``::decode`` (and the
+    training variant ``::decode_with_lse``) on CUDA tensors: their fake
+    implementations give the real outputs' shapes, dtypes and strides
+    (``torch.library.opcheck``), and they launch the kernels."""
+    frames = _frames((4, 16, 24, 3)).to(cuda_device)
+    hm = _peaked_maps(3, 5, 16, 16).to(cuda_device)
+    tests = ("test_schema", "test_faketensor", "test_aot_dispatch_static")
+    torch.library.opcheck(torch.ops.lightning_pose_tpu_torch.normalize.default, (frames, torch.bfloat16),
+                          test_utils=tests)
+    torch.library.opcheck(torch.ops.lightning_pose_tpu_torch.decode.default, (hm, 2, 1000.0), test_utils=tests)
+    torch.library.opcheck(torch.ops.lightning_pose_tpu_torch.decode_with_lse.default, (hm, 2, 1000.0),
+                          test_utils=tests)
+    normalize_kernel.launches = decode_kernel.launches = 0
+    out = torch.ops.lightning_pose_tpu_torch.normalize(frames, torch.float32)
+    kp, conf = torch.ops.lightning_pose_tpu_torch.decode(hm, 2, 1000.0)
+    assert normalize_kernel.launches == decode_kernel.launches == 1
+    torch.testing.assert_close(out.movedim(-1, -3), normalize_kernel.normalize_plain(frames), rtol=0, atol=1e-5)
+    _assert_decode_close(kp, conf, *decode_kernel.decode_plain(hm, 2), 2)
+
+
+@pytest.mark.parametrize("route", ["export", "compile"])
+def test_exported_and_compiled_predict_step_on_cuda_launch_the_kernels(cuda_device, tmp_path, route):
+    """A resnet18 predict step (bf16) through ``torch.export`` (saved and
+    loaded) and ``torch.compile``: the graph keeps the two ops, each call
+    launches each kernel once, and the outputs are the eager step's."""
+    torch.manual_seed(0)
+    model = build_model("heatmap", "resnet18", 4, 2).eval().to(cuda_device, memory_format=torch.channels_last)
+    step = PredictStep(model, 128, 128, torch.bfloat16)
+    frames = _frames((8, 128, 128, 3)).to(cuda_device)
+    bbox = torch.tensor([[0.0, 0.0, 120.0, 160.0]] * 8, device=cuda_device)
+    kp_ref, conf_ref = step(frames, bbox)
+    if route == "export":
+        with torch.no_grad():
+            torch.export.save(torch.export.export(step, (frames, bbox)), str(tmp_path / "p.pt2"))
+        program = torch.export.load(str(tmp_path / "p.pt2"))
+        ops = {str(n.target) for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+               for n in gm.graph.nodes if str(n.target).startswith("lightning_pose_tpu_torch.")}
+        assert ops == {"lightning_pose_tpu_torch.normalize.default", "lightning_pose_tpu_torch.decode.default"}
+        fn = program.module()
+    else:
+        fn = torch.compile(step.forward, dynamic=False)
+    with torch.inference_mode():
+        fn(frames, bbox)
+        normalize_kernel.launches = decode_kernel.launches = 0
+        kp, conf = fn(frames, bbox)
+    torch.cuda.synchronize()
+    assert normalize_kernel.launches == decode_kernel.launches == 1
+    torch.testing.assert_close(kp, kp_ref, rtol=0, atol=0.5)
+    torch.testing.assert_close(conf, conf_ref, rtol=0, atol=0.01)

@@ -77,6 +77,8 @@ def test_no_port_module_names_jax_or_the_jax_package():
     assert {"models/backbones/vit_dino.py", "models/backbones/vit_sam.py", "models/backbones/hiera.py",
             "ops/dark.py"} <= names
     assert {"data/anipose.py", "data/cameras.py", "ops/augment3d.py"} <= names
+    assert {"cli/main.py", "cli/commands/predict.py", "migrations/migrations.py", "utils/cropzoom.py",
+            "data/extractor.py"} <= names
     assert "decode_grad.cu" in _imported_sources(REPO / "lightning_pose_tpu_torch" / "ops" / "decode_kernel.py")
     found = {
         str(f.relative_to(REPO)): sorted(n for n in _imported_modules(f) if n.split(".")[0] in BLOCKED)
@@ -107,11 +109,14 @@ blocked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.interpolate",
        "backbones.pretrained", "backbones.efficientnet", "regression_tracker", "heads.regression",
        "backbones.vit_dino", "backbones.vit_sam", "backbones.hiera", "ops.dark",
-       "data.anipose", "data.cameras", "ops.augment3d"}
+       "data.anipose", "data.cameras", "ops.augment3d",
+       "cli.main", "cli.friendly", "cli.types", "cli.commands.train", "cli.commands.predict", "cli.commands.export",
+       "cli.commands.create_bbox", "cli.commands.smooth_bbox", "cli.commands.crop", "cli.commands.remap",
+       "cli.commands.run_app", "migrations.migrations", "utils.cropzoom", "data.extractor"}
 print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
     count, n_blocked, n_new = out.split()
-    assert int(count) >= 30 and n_blocked == "0" and n_new == "15"
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "29"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
@@ -132,6 +137,33 @@ print(json.dumps({{
     report = json.loads(out.strip().splitlines()[-1])
     assert report == {"shape": [20, 12], "finite": True, "frame": [4, 2], "jax": []}
     assert (tmp_path / "blobs.csv").is_file()
+
+
+def test_cli_runs_without_jax(slice_model_dir, slice_video, tmp_path):
+    """``litpose-torch`` (``python -m lightning_pose_tpu_torch.cli.main``):
+    predict, export, predict with the exported runtime, and the cropzoom
+    commands on the predictions (create_bbox, smooth_bbox, crop, remap)."""
+    model_dir = tmp_path / "model"
+    out = _run(f"""
+import json, shutil, sys
+shutil.copytree({str(slice_model_dir)!r}, {str(model_dir)!r})
+from lightning_pose_tpu_torch.cli.main import main
+model, video = {str(model_dir)!r}, {str(slice_video)!r}
+assert main(["predict", model, video, "--skip_viz", "--device", "cpu"]) == 0
+assert main(["export", model, "--device", "cpu"]) == 0
+assert main(["predict", model, video, "--skip_viz", "--runtime", "exported", "--overwrite", "--device", "cpu",
+             "--output_dir", {str(tmp_path / "exported")!r}]) == 0
+assert main(["create_bbox", model, video, "--device", "cpu"]) == 0
+assert main(["smooth_bbox", model + "/video_preds", "--output_dir", {str(tmp_path / "smoothed")!r}]) == 0
+assert main(["crop", model, video, "--bbox_dir", {str(tmp_path / "smoothed")!r}, "--device", "cpu"]) == 0
+assert main(["remap", model + "/video_preds/blobs.csv", {str(tmp_path / "smoothed" / "blobs_bbox.csv")!r}]) == 0
+print(json.dumps({{"jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED]}}))
+""")
+    assert json.loads(out.strip().splitlines()[-1]) == {"jax": []}
+    for path in ("exports_torch/predict.pt2", "video_preds/blobs_bbox.csv", "cropped_videos/cropped_blobs.mp4",
+                 "video_preds/remapped_blobs.csv"):
+        assert (model_dir / path).is_file(), path
+    assert (tmp_path / "exported" / "blobs.csv").is_file()
 
 
 def test_training_path_runs_without_jax(tmp_path):

@@ -127,12 +127,59 @@ def test_unported_options_raise(slice_model_dir, slice_video, tmp_path, override
             model.predict_frame(np.zeros((64, 64, 3), dtype=np.uint8))
 
 
-def test_unported_entry_points_raise(slice_model_dir, port_model, slice_video):
+def test_unported_entry_points_raise(slice_model_dir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model.from_dir(slice_model_dir, device="cpu", data_parallel=True)
-    for method in (port_model.compile, port_model.export):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method()
+
+
+@pytest.mark.parametrize("method", ["compile", "export", "compile_exported"])
+def test_compile_and_export_are_ported(slice_model_dir, tmp_path, monkeypatch, method):
+    """Ported in slice 12. ``compile`` hands the step's forward to
+    ``torch.compile`` with static shapes, runs it once at the canonical
+    video batch and predicts through it (``torch.compile`` is stood in for
+    by a recorder: inductor on the CPU is slow, and test_torch_export.py
+    runs it once); ``export`` writes a ``.pt2`` whose graph calls both
+    registered ops and predicts as the eager step; under the exported
+    runtime ``compile`` only runs the exported program once, as the JAX
+    package's compile() does."""
+    model = Model.from_dir(slice_model_dir, precision="fp32", device="cpu")
+    model._load()
+    canonical, bbox = model._canonical_inputs()
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(0, 256, tuple(canonical.shape), dtype=np.uint8))
+    compiled, runs = [], []
+
+    def record(fn, **kwargs):
+        compiled.append((fn, kwargs))
+
+        def run(images_uint8, boxes):
+            runs.append(tuple(images_uint8.shape))
+            return fn(images_uint8, boxes)
+
+        return run
+
+    monkeypatch.setattr(torch, "compile", record)
+    if method == "compile":
+        model.compile()
+        assert compiled == [(model._predict_step.forward, {"dynamic": False})]
+        assert runs == [tuple(canonical.shape)]
+    else:
+        path = Path(model.export(tmp_path))
+        assert path == tmp_path / "predict.pt2"
+        program = torch.export.load(str(path))
+        ops = {str(node.target) for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+               for node in gm.graph.nodes if str(node.target).startswith("lightning_pose_tpu_torch.")}
+        assert ops == {"lightning_pose_tpu_torch.normalize.default", "lightning_pose_tpu_torch.decode.default"}
+        model.use_exported_runtime(path)
+        if method == "compile_exported":
+            served = model._predict_fn
+            model.compile()
+            assert compiled == [] and model._predict_fn is served
+    assert model._predict_fn is not model._predict_step
+    kp, conf = model._predict_fn(images, bbox)
+    kp_eager, conf_eager = model._predict_step(images, bbox)
+    np.testing.assert_allclose(kp.numpy(), kp_eager.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(conf.numpy(), conf_eager.numpy(), rtol=0, atol=1e-6)
 
 
 def test_cuda_device_without_cuda_raises(slice_model_dir):
