@@ -8,7 +8,7 @@ Phases, each fatal on failure:
      ``nvidia-smi`` name and power limit.
   2. build: every kernel from the sources in the checkout, the CUDA sources
      (decode, its backward, warp, CLAHE) by one nvcc each, started together,
-     then the Triton kernel (normalize) by its first call.
+     then the Triton kernels (normalize, I420) by their first calls.
   3. kernel vs plain PyTorch version on the card, at the product shapes;
      the decode's backward kernel against autograd of the plain decode (544
      maps, 64 -> 256; a rectangular shape; df 3), and the decode forward
@@ -266,10 +266,32 @@ Phases, each fatal on failure:
         ``train --detector_model`` (10 steps on the crops, its evaluation
         predicting the cropped video), ``predict --bbox_dir`` and ``remap``
         of the cropped video's CSV: shapes, finite values, launches.
+  19. the yuv420 transfer and multi-GPU:
+     a. the I420 kernel (Triton) against its plain version at the predict
+        batch (96, 384, 256) -> bf16 and fp32, the multiview batch (64, 2,
+        384, 256) -> bf16 and the unlabeled window (32, 384, 256) -> fp32
+        RGB (1 bf16 ulp, 1e-4 gray), each timed with the L2 flushed beside
+        its bound;
+     b. phase 8's trained directory predicts a 1000-frame mp4 through the
+        yuv420 and the rgb transfer: frames/s of each over alternating runs
+        (bf16), launches (yuv420: the I420 kernel and decode 1 a batch,
+        normalize none), the yuv420 keypoints against the rgb ones at fp32
+        (median under 1 px, 95th percentile under 3 px);
+     c. a semi-supervised train() of 6 steps on an I420 unlabeled stream:
+        the I420 kernel 1 a step;
+     d. train() as rank 0 of an NCCL group of one (``LP_TPU_COORDINATOR``,
+        ``LP_TPU_NUM_PROCESSES=1``, ``LP_TPU_PROCESS_ID=0``), and with
+        ``training.num_gpus: 2`` (one rank a visible GPU), against the same
+        run without either (within the spread of two such runs, cuDNN
+        deterministic), then ``Model.from_dir(..., data_parallel=True)`` and
+        ``litpose-torch predict --data_parallel`` on the one card against
+        the plain route, bitwise.
      The JSON summary holds phase 18's launches (normalize and decode of
      18b's eager predict, the warp and CLAHE of 18a's train) beside phase
-     7's times at those shapes, and the decode's backward's launches in
-     17a's train() beside 17d's times (no path of phase 18 runs it).
+     7's times at those shapes, the decode's backward's launches in 17a's
+     train() beside 17d's times (no path of phase 18 runs it), and the I420
+     kernel's launches in 19b's yuv420 predict beside 19a's times at its
+     predict batch.
 The last lines are a JSON summary of the kernels, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX, of
 the JAX package ``lightning_pose_tpu`` or of ``transformers`` and fails if
@@ -279,6 +301,7 @@ any was loaded.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -434,6 +457,25 @@ CLI_VIDEO_FRAMES = 1000
 CLI_CROP = 192
 ROUTE_TOL_PX = {"fp32": 0.05, "bf16": 0.5}
 ROUTE_CONF_TOL = {"fp32": 1e-3, "bf16": 0.01}
+# phase 19, the yuv420 transfer and multi-GPU: the multiview batch of the
+# I420 checks (frames, views), the video's frames and runs a route, the
+# semi-supervised yuv420 train() steps and the world-size-1 train() steps;
+# the I420 kernel's limits against its plain version (bf16 within 1 ulp of
+# the plain value, or 2e-6 where that value is within 2e-6 of 0, where the
+# fp32 values the two round differ by that much; fp32 within 1e-4 gray);
+# the yuv420 route's keypoints against the rgb route's (the JAX package's
+# tests/ops/test_yuv.py limits)
+I420_MV = (64, 2)
+YUV_VIDEO_FRAMES = 1000
+YUV_VIDEO_RUNS = 2
+YUV_STEPS = 6
+GROUP_STEPS = 6
+I420_BF16_FLOOR = 2e-6
+I420_GRAY_TOL = 1e-4
+YUV_MEDIAN_PX = 1.0
+YUV_P95_PX = 3.0
+# phase 8's trained directory, kept for phase 19b
+TRAINED: dict[str, Path] = {}
 # the device of phase 14's, 15's and 17's paths (the checks of phase 3 are the card's)
 DEVICE = "cuda"
 
@@ -462,6 +504,11 @@ KERNELS = {
         "route": "cuda",
         "source": "lightning_pose_tpu_torch/csrc/decode_grad.cu",
         "replaces": "none: the gradient of lightning_pose_tpu/ops/softargmax.py:123-147, XLA autodiff",
+    },
+    "i420": {
+        "route": "triton",
+        "source": "lightning_pose_tpu_torch/ops/yuv_kernel.py",
+        "replaces": "none: lightning_pose_tpu/ops/yuv.py:27-62, plain XLA",
     },
 }
 
@@ -1187,6 +1234,11 @@ def train_phase(rng, card: str) -> None:
               f"the trained dir's CSV: shape {df.shape} or non-finite values")
         check(all(n > 0 for n in predict_launches.values()), f"predict launches {predict_launches}")
         log(f"phase 8 predict from the trained dir: {df.shape[0]} rows, finite, launches {predict_launches}")
+        # phase 19b predicts from this directory: its config and best checkpoint
+        TRAINED["dir"] = Path(tempfile.mkdtemp(prefix="smoke19_")) / "model"
+        (TRAINED["dir"] / best[0].relative_to(model_dir)).parent.mkdir(parents=True)
+        shutil.copy(model_dir / "config.yaml", TRAINED["dir"] / "config.yaml")
+        shutil.copy(best[0], TRAINED["dir"] / best[0].relative_to(model_dir))
         label_csv_phase(model_dir, card)
 
         # -- 9. the train step's times -------------------------------------------
@@ -4264,6 +4316,283 @@ def cli_phase(rng, card: str) -> dict[str, int]:
             "warp": train_launches["warp"], "clahe": train_launches["clahe"]}
 
 
+# -- phase 19: the yuv420 transfer and multi-GPU ------------------------------------------
+
+
+def bf16_within(out, ref, floor: float) -> tuple[bool, int]:
+    """Whether bf16 ``out`` is within one bf16 ulp of ``ref`` everywhere (or
+    ``floor`` of it, near 0), and the largest distance in ulps where
+    ``|ref| >= 1/64``."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    _, exponent = torch.frexp(r)
+    spacing = torch.where(r == 0, torch.zeros_like(r), torch.ldexp(torch.ones_like(r), exponent - 8))
+    diff = (o - r).abs()
+    ok = bool((diff <= torch.clamp(spacing, min=floor)).all())
+    big = r.abs() >= 1 / 64
+    return ok, int((diff[big] / spacing[big]).max()) if bool(big.any()) else 0
+
+
+def i420_batch(rng, n: int):
+    """I420 of ``n`` seeded RGB frames at the product size, on the card."""
+    import torch
+
+    from lightning_pose_tpu_torch import native
+
+    rgb = rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+    return torch.from_numpy(native.batch_rgb_to_i420(rgb)).to("cuda")
+
+
+def i420_phase(rng, card: str, errors: dict) -> tuple:
+    """Phase 19a: the I420 kernel against its plain version on the card at
+    the predict batch (bf16 and fp32), the multiview predict batch (bf16)
+    and the unlabeled window (fp32 RGB), each timed with the L2 flushed
+    beside its bound. Returns the predict batch's ``(ms, plain_ms, None,
+    (bound_ms, bound_by), shape)``."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import yuv, yuv_kernel
+
+    std = torch.tensor(yuv.IMAGENET_STD, device="cuda")
+    batch, window = i420_batch(rng, BATCH), i420_batch(rng, WINDOW)
+    mv = i420_batch(rng, I420_MV[0] * I420_MV[1]).reshape(*I420_MV, *batch.shape[1:])
+    err = 0.0
+    for label, x in (("predict batch", batch), ("multiview batch", mv)):
+        flat = x.reshape(-1, *x.shape[-2:])
+        out = yuv_kernel.i420_to_normalized(flat, torch.bfloat16).movedim(1, -1)
+        ref = yuv.i420_to_normalized_rgb(flat, torch.bfloat16)
+        ok, ulps = bf16_within(out, ref, I420_BF16_FLOOR)
+        e = float((out.float() - ref.float()).abs().max())
+        log(f"phase 19a I420 kernel {label} {tuple(x.shape)} uint8 -> bf16 normalized: max abs err {e:.3e}, "
+            f"{ulps} ulp where |value| >= 1/64, within 1 ulp (or {I420_BF16_FLOOR} near 0) everywhere: {ok}")
+        check(ok and ulps <= 1, f"I420 kernel {label} bf16 disagrees with its plain version")
+        err = max(err, e)
+    gray = float(((yuv_kernel.i420_to_normalized(batch, torch.float32).movedim(1, -1)
+                   - yuv.i420_to_normalized_rgb(batch)).abs() * 255 * std).max())
+    rgb_err = float((yuv_kernel.i420_to_rgb(window) - yuv.i420_to_rgb(window)).abs().max())
+    log(f"phase 19a I420 kernel fp32: normalized predict batch {gray:.3e} gray, RGB window {tuple(window.shape)} "
+        f"{rgb_err:.3e} gray (limit {I420_GRAY_TOL})")
+    check(gray <= I420_GRAY_TOL and rgb_err <= I420_GRAY_TOL, "I420 kernel fp32 disagrees with its plain version")
+    errors["i420"] = err
+    cases = {
+        "predict batch -> bf16": (batch, lambda: yuv_kernel.i420_to_normalized(batch, torch.bfloat16),
+                                  lambda: yuv.i420_to_normalized_rgb(batch, torch.bfloat16), 2),
+        "predict batch -> fp32": (batch, lambda: yuv_kernel.i420_to_normalized(batch, torch.float32),
+                                  lambda: yuv.i420_to_normalized_rgb(batch), 4),
+        "multiview batch -> bf16": (mv, lambda: yuv_kernel.i420_to_normalized(mv.reshape(-1, *mv.shape[-2:]),
+                                                                             torch.bfloat16),
+                                    lambda: yuv.i420_to_normalized_rgb(mv.reshape(-1, *mv.shape[-2:]),
+                                                                       torch.bfloat16), 2),
+        "window -> fp32 RGB": (window, lambda: yuv_kernel.i420_to_rgb(window), lambda: yuv.i420_to_rgb(window), 4),
+    }
+    out = None
+    for label, (x, kernel, plain, out_bytes) in cases.items():
+        ms, plain_ms = flushed_ms(kernel), flushed_ms(plain)
+        n_bytes = x.numel() + x.numel() // 3 * 2 * 3 * out_bytes  # 1.5 B in, 3 channels out a pixel
+        bound_ms, bound_by = bound_of(n_bytes, 0)
+        log(f"phase 19a I420 kernel {label} {tuple(x.shape)}, L2 flushed: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; "
+            f"bound {bound_ms:.5f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), {bound_ms / ms:.1%} of it reached {card}")
+        if out is None:
+            out = (ms, plain_ms, None, (bound_ms, bound_by),
+                   f"{tuple(x.shape)} uint8 I420 -> bf16 normalized, 19b's predict batch")
+    return out
+
+
+def yuv_predict_phase(rng, card: str) -> dict[str, int]:
+    """Phase 19b: phase 8's trained directory predicts a 1000-frame mp4 of
+    smooth blobs through the yuv420 and the rgb transfer: frames/s of each
+    route over alternating runs (bf16), the launches of a run, and the
+    yuv420 keypoints against the rgb ones (fp32). Returns the yuv420
+    route's launches."""
+    import torch
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel, yuv_kernel
+    from lightning_pose_tpu_torch.utils.synthetic import write_unlabeled_video
+
+    model_dir = TRAINED["dir"]
+    batches = -(-YUV_VIDEO_FRAMES // BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        video = write_unlabeled_video(Path(tmp), "blobs", YUV_VIDEO_FRAMES, 240, 320, n_blobs=KEYPOINTS, seed=SEED)
+        models = {}
+        for fmt in ("yuv420", "rgb"):
+            models[fmt] = Model.from_dir(model_dir)
+            models[fmt].cfg.eval.video_transfer_format = fmt
+            models[fmt]._load()
+        rates, launches = {"yuv420": [], "rgb": []}, {}
+        for run in range(YUV_VIDEO_RUNS):
+            for fmt in (("yuv420", "rgb") if run % 2 == 0 else ("rgb", "yuv420")):
+                torch.cuda.synchronize()
+                normalize_kernel.launches = decode_kernel.launches = yuv_kernel.launches = 0
+                t0 = time.perf_counter()
+                df = models[fmt].predict_on_video_file(video, compute_metrics=False,
+                                                       output_dir=Path(tmp) / fmt).predictions
+                rates[fmt].append(YUV_VIDEO_FRAMES / (time.perf_counter() - t0))
+                counts = {"i420": yuv_kernel.launches, "normalize": normalize_kernel.launches,
+                          "decode": decode_kernel.launches}
+                launches.setdefault(fmt, counts)
+                check(df.shape == (YUV_VIDEO_FRAMES, 3 * KEYPOINTS) and np.isfinite(df.to_numpy()).all(),
+                      f"{fmt} route: shape {df.shape} or non-finite values")
+        check(launches["yuv420"] == {"i420": batches, "normalize": 0, "decode": batches},
+              f"yuv420 route launches {launches['yuv420']}, expected the I420 kernel and decode {batches} each")
+        check(launches["rgb"] == {"i420": 0, "normalize": batches, "decode": batches},
+              f"rgb route launches {launches['rgb']}")
+        log(f"phase 19b predict_on_video_file (bf16, without metrics) of a {YUV_VIDEO_FRAMES}-frame 320x240 mp4 "
+            f"from phase 8's directory, {batches} batches of {BATCH}, alternating runs: yuv420 "
+            f"{' '.join(f'{r:.1f}' for r in rates['yuv420'])} frames/s, rgb "
+            f"{' '.join(f'{r:.1f}' for r in rates['rgb'])} frames/s; launches yuv420 {launches['yuv420']}, "
+            f"rgb {launches['rgb']} {card}")
+        preds = {}
+        for fmt in ("yuv420", "rgb"):
+            model = Model.from_dir(model_dir, precision="fp32")
+            model.cfg.eval.video_transfer_format = fmt
+            preds[fmt] = model.predict_on_video_file(video, compute_metrics=False,
+                                                     output_dir=Path(tmp) / f"{fmt}32").predictions
+        xy = np.isin(preds["rgb"].columns.get_level_values("coords"), ["x", "y"])
+        dev = np.abs(preds["yuv420"].loc[:, xy].to_numpy() - preds["rgb"].loc[:, xy].to_numpy())
+        median, p95 = float(np.median(dev)), float(np.quantile(dev, 0.95))
+        log(f"phase 19b yuv420 against rgb keypoints (fp32, TF32 off), {dev.size} coordinates: median {median:.4f} px "
+            f"(limit {YUV_MEDIAN_PX}), 95th percentile {p95:.4f} px (limit {YUV_P95_PX}), max {dev.max():.3f} px")
+        check(median < YUV_MEDIAN_PX and p95 < YUV_P95_PX, "the yuv420 route strays from the rgb route")
+    return launches["yuv420"]
+
+
+def yuv_train_phase(card: str) -> None:
+    """Phase 19c: a semi-supervised train() with
+    ``training.video_transfer_format: yuv420``: the I420 kernel converts
+    each step's window."""
+    import torch
+
+    from lightning_pose_tpu_torch.ops import decode_kernel, warp_kernel, yuv_kernel
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_labeled_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        write_unlabeled_video(data, "session0", 120, 240, 320, n_blobs=KEYPOINTS, seed=SEED)
+        cfg = semisup_config(data, names)
+        cfg.model.model_name = "smokeyuv"
+        cfg.training.max_steps = cfg.training.min_steps = YUV_STEPS
+        cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [YUV_STEPS // 2]
+        cfg.training.video_transfer_format = "yuv420"
+        torch.cuda.synchronize()
+        yuv_kernel.launches = warp_kernel.launches = decode_kernel.grad_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(cfg, Path(tmp) / "model", skip_evaluation=True, device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"i420": yuv_kernel.launches, "warp": warp_kernel.launches,
+                    "decode_grad": decode_kernel.grad_launches}
+        losses = [h["train_unsupervised_loss"] for h in result.history if "train_unsupervised_loss" in h]
+        log(f"phase 19c semi-supervised train() on an I420 stream: {YUV_STEPS} steps of {TRAIN_BATCH} labeled + "
+            f"{WINDOW} unlabeled frames (ResNet-50, {IMAGE} px, bf16) in {elapsed:.1f} s with set-up; launches "
+            f"{launches}; unsupervised loss {losses[0]:.4f} -> {losses[-1]:.4f} {card}")
+        check(launches == {"i420": YUV_STEPS, "warp": 2 * YUV_STEPS, "decode_grad": YUV_STEPS},
+              f"yuv420 train() launches {launches}")
+        check(len(losses) == YUV_STEPS and all(np.isfinite(losses)), "yuv420 train(): losses missing or not finite")
+
+
+def group_phase(card: str) -> None:
+    """Phase 19d: train() as rank 0 of an NCCL group of one (the
+    ``LP_TPU_*`` variables), and with ``training.num_gpus: 2`` (as many
+    ranks as visible GPUs), against the same run without either, twice;
+    ``Model.from_dir(..., data_parallel=True)`` and ``litpose-torch predict
+    --data_parallel`` on the visible card(s) against the plain route."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.cli.main import main as cli
+    from lightning_pose_tpu_torch.parallel import mesh
+    from lightning_pose_tpu_torch.train import trainer
+    from lightning_pose_tpu_torch.utils.synthetic import write_labeled_dataset, write_unlabeled_video
+
+    names = [f"kp{i}" for i in range(KEYPOINTS)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_labeled_dataset(Path(tmp) / "data", TRAIN_FRAMES, IMAGE, IMAGE, names, seed=SEED)
+        video = write_unlabeled_video(Path(tmp), "blobs", 300, 240, 320, n_blobs=KEYPOINTS, seed=SEED)
+        states, seconds = {}, {}
+        for run in ("plain", "plain again", "num_gpus 2", "group of one"):
+            cfg = train_config(data, names)
+            cfg.model.model_name = "smokegroup"
+            cfg.training.max_steps = cfg.training.min_steps = GROUP_STEPS
+            cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [GROUP_STEPS // 2]
+            if run == "num_gpus 2":
+                cfg.training.num_gpus = 2
+            if run == "group of one":
+                os.environ.update(LP_TPU_COORDINATOR=f"127.0.0.1:{trainer._free_port()}",
+                                  LP_TPU_NUM_PROCESSES="1", LP_TPU_PROCESS_ID="0")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = trainer.train(cfg, Path(tmp) / run.replace(" ", "_"), skip_evaluation=True, device="cuda")
+            torch.cuda.synchronize()
+            seconds[run] = time.perf_counter() - t0
+            states[run] = {k: v.detach().clone() for k, v in result.model.state_dict().items()}
+        backend, world = dist.get_backend(), dist.get_world_size()
+        dist.destroy_process_group()
+        for name in ("LP_TPU_COORDINATOR", "LP_TPU_NUM_PROCESSES", "LP_TPU_PROCESS_ID"):
+            os.environ.pop(name)
+
+        def diff(a: dict, b: dict) -> float:
+            return max(float((a[k].double() - b[k].double()).abs().max()) for k in a if a[k].numel())
+
+        spread, group_diff = diff(states["plain"], states["plain again"]), diff(states["plain"], states["group of one"])
+        ranks_diff = diff(states["plain"], states["num_gpus 2"])
+        log(f"phase 19d train() of {GROUP_STEPS} steps (ResNet-50, {IMAGE} px, bf16, dlc, cuDNN deterministic) as "
+            f"rank 0 of a {backend} group of {world} from LP_TPU_COORDINATOR/NUM_PROCESSES/PROCESS_ID, against "
+            f"the same run without a group: parameters and statistics {group_diff:.3e} apart, two runs without a "
+            f"group {spread:.3e}; training.num_gpus 2 on {min(2, torch.cuda.device_count())} visible GPU(s) "
+            f"{ranks_diff:.3e} from it; train() with set-up {seconds['plain']:.1f}, {seconds['plain again']:.1f} s "
+            f"without, {seconds['group of one']:.1f} s in the group, {seconds['num_gpus 2']:.1f} s with num_gpus 2; "
+            f"visible devices {torch.cuda.device_count()} {card}")
+        check(backend == "nccl" and world == 1, f"the group is {backend} of {world}")
+        check(group_diff <= 2 * spread, "the group of one trains otherwise than the run without a group")
+        if torch.cuda.device_count() == 1:
+            check(ranks_diff <= 2 * spread, "num_gpus 2 on one GPU trains otherwise than the plain run")
+        model_dir = Path(tmp) / "group_of_one"
+        plain = Model.from_dir(model_dir).predict_on_video_file(video, compute_metrics=False,
+                                                                output_dir=Path(tmp) / "plain_preds").predictions
+        parallel = Model.from_dir(model_dir, data_parallel=True)
+        split = parallel.predict_on_video_file(video, compute_metrics=False,
+                                               output_dir=Path(tmp) / "dp_preds").predictions
+        check(cli(["predict", str(model_dir), str(video), "--data_parallel", "--skip_viz",
+                   "--output_dir", str(Path(tmp) / "cli_dp")]) == 0, "litpose-torch predict --data_parallel failed")
+        import pandas as pd
+
+        cli_split, plain_csv = (pd.read_csv(Path(tmp) / d / f"{video.stem}.csv", header=[0, 1, 2], index_col=0)
+                                for d in ("cli_dp", "plain_preds"))
+        cli_same = bool(np.array_equal(cli_split.to_numpy(float), plain_csv.to_numpy(float)))
+        replicas = len(mesh.devices())
+        log(f"phase 19d Model.from_dir(data_parallel=True) on {replicas} visible device(s): "
+            f"{'one replica, the plain step' if replicas == 1 else f'{replicas} replicas'}; its CSV of a 300-frame "
+            f"mp4 bitwise the plain route's: {plain.equals(split)}; litpose-torch predict --data_parallel's CSV "
+            f"bitwise the plain route's: {cli_same}")
+        if replicas == 1:
+            check(plain.equals(split) and cli_same, "data-parallel prediction differs from the plain route")
+    torch.backends.cudnn.deterministic = deterministic
+
+
+def yuv_parallel_phase(rng, card: str, errors: dict) -> tuple[dict[str, int], tuple]:
+    """Phase 19: the I420 kernel, the yuv420 predict and train paths, and
+    the process-group paths. Returns 19b's launches and 19a's times."""
+    t0 = time.perf_counter()
+    try:
+        times = i420_phase(rng, card, errors)
+        launches = yuv_predict_phase(rng, card)
+        yuv_train_phase(card)
+        group_phase(card)
+    finally:
+        shutil.rmtree(TRAINED["dir"].parent, ignore_errors=True)
+    log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def pd_read(path: Path):
     import pandas as pd
 
@@ -4289,7 +4618,14 @@ def main() -> int:
 
     from lightning_pose_tpu_torch.api.model import Model, PredictStep
     from lightning_pose_tpu_torch.models.factory import build_model
-    from lightning_pose_tpu_torch.ops import clahe_kernel, cuda_build, decode_kernel, normalize_kernel, warp_kernel
+    from lightning_pose_tpu_torch.ops import (
+        clahe_kernel,
+        cuda_build,
+        decode_kernel,
+        normalize_kernel,
+        warp_kernel,
+        yuv_kernel,
+    )
     from lightning_pose_tpu_torch.ops.augment import AugmentationEngine
     from lightning_pose_tpu_torch.train.checkpoints import (
         load_flax_variables,
@@ -4308,6 +4644,8 @@ def main() -> int:
     triton_s = {
         "normalize": timed(lambda: normalize_kernel.normalize(
             torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device=dev))),
+        "i420": timed(lambda: yuv_kernel.i420_to_normalized(
+            torch.zeros((1, 6, 4), dtype=torch.uint8, device=dev), torch.bfloat16)),
     }
     log(f"phase 2 build: nvcc started together, {', '.join(f'{k} done after {v:.1f} s' for k, v in nvcc_s.items())}; "
         f"Triton first calls {', '.join(f'{k} {v:.1f} s' for k, v in triton_s.items())}; "
@@ -4654,6 +4992,7 @@ def main() -> int:
     calibrated_phase(rng, card, errors)
     split_launches, split_times = split_phase(rng, card, errors)
     cli_launches = cli_phase(rng, card)
+    yuv_launches, i420_times = yuv_parallel_phase(rng, card, errors)
     # the kernels line holds each kernel's launches on this slice's path, the
     # command line of phase 18 (each earlier path checked its own above),
     # beside its times at that path's shapes, which phase 7 took: normalize
@@ -4668,13 +5007,16 @@ def main() -> int:
     }
     times = {name: (*times[name], bounds[name], shapes7[name]) for name in shapes7}
     times["decode_grad"] = split_times["decode_grad"]
-    launches = {**cli_launches, "decode_grad": split_launches["decode_grad"]}
+    times["i420"] = i420_times
+    launches = {**cli_launches, "decode_grad": split_launches["decode_grad"], "i420": yuv_launches["i420"]}
     paths = {
         "normalize": f"18b litpose-torch predict (eager, bf16) of a {CLI_VIDEO_FRAMES}-frame mp4: 1 a batch of {BATCH}",
         "decode": f"18b litpose-torch predict (eager, bf16) of a {CLI_VIDEO_FRAMES}-frame mp4: 1 a batch of {BATCH}",
         "warp": f"18a litpose-torch train of the default model: 1 a step over {TRAIN_BATCH} images",
         "clahe": "18a litpose-torch train of the default model: 1 a step whose seeded draws fire it",
         "decode_grad": "17a the split config's heatmap train(): 1 a step (pca_multiview on the window)",
+        "i420": f"19b predict_on_video_file with eval.video_transfer_format yuv420 (bf16) of a "
+                f"{YUV_VIDEO_FRAMES}-frame mp4: 1 a batch of {BATCH}, normalize none",
     }
     blocked = ("jax", "jaxlib", "flax", "optax", "transformers", "lightning_pose_tpu")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in blocked)

@@ -21,16 +21,18 @@ temporal-context ``heatmap_mhcrnn`` model, the multiview transformer
 (``heatmap_multiview``) and the heatmap models on multiview data, with
 every backbone the JAX package takes, the soft-argmax decode or
 ``eval.decode_method: dark`` (none for regression, whose confidences are
-1.0) and RGB transfer. ``compile`` runs the predictions through
-``torch.compile``; ``export`` saves the prediction program with
-``torch.export`` (``exports_torch/predict.pt2``), and
-``use_exported_runtime`` runs the predictions through such a file. The
-other options (data-parallel prediction, yuv420 transfer) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+1.0), and RGB or (``eval.video_transfer_format: yuv420``) I420 transfer of
+video frames. ``compile`` runs the predictions through ``torch.compile``;
+``export`` saves the prediction program with ``torch.export``
+(``exports_torch/predict.pt2``), and ``use_exported_runtime`` runs the
+predictions through such a file. ``from_dir(..., data_parallel=True)``
+splits each prediction batch over every visible GPU, one replica of the
+predict step a device.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from pathlib import Path
@@ -50,10 +52,11 @@ from lightning_pose_tpu_torch.models.heatmap_tracker_multiview import HeatmapTra
 from lightning_pose_tpu_torch.models.regression_tracker import RegressionTracker
 from lightning_pose_tpu_torch.ops.dark import run_dark_decode
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images_fused
+from lightning_pose_tpu_torch.ops.yuv_kernel import i420_to_normalized
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["DECODE_METHODS", "Model", "PredictStep", "decode_method_of", "resolve_device"]
+__all__ = ["DECODE_METHODS", "DataParallelPredict", "Model", "PredictStep", "decode_method_of", "resolve_device"]
 
 DECODE_METHODS = ("softargmax", "dark")
 
@@ -94,6 +97,9 @@ class PredictStep(nn.Module):
 
     normalize kernel -> tracker in ``compute_dtype`` (bf16 by autocast, with
     fp32 parameters and BatchNorm statistics) -> decode kernel -> bbox remap.
+    Planar I420 frames (``(T, h*3/2, w)``, multiview ``(T, V, h*3/2, w)``,
+    the yuv420 transfer) go through the I420 kernel instead of normalize,
+    one launch over all frames and views.
     With ``decode_method="dark"`` the maps are decoded by
     :func:`~lightning_pose_tpu_torch.ops.dark.run_dark_decode` (plain
     PyTorch) instead, on every heatmap path; the decode kernel does not run.
@@ -143,18 +149,40 @@ class PredictStep(nn.Module):
         with torch.inference_mode():
             return super().__call__(images_uint8, bbox)
 
+    def is_i420(self, images_uint8: torch.Tensor) -> bool:
+        """Whether ``images_uint8`` is a planar I420 sequence, ``(T, h*3/2,
+        w)`` (multiview ``(T, V, h*3/2, w)``)."""
+        return images_uint8.ndim == 3 + int(self.num_views > 1)
+
+    def is_sequence(self, images_uint8: torch.Tensor) -> bool:
+        """Whether a context model takes ``images_uint8`` as a sequence of
+        frames (``T - 4`` windows out), not as stacks."""
+        return self.is_context and images_uint8.ndim <= 4 + int(self.num_views > 1)
+
+    def _normalized(self, images_uint8: torch.Tensor) -> torch.Tensor:
+        """uint8 frames -> normalized ``(..., 3, h, w)`` in the compute dtype:
+        the normalize kernel, or the I420 kernel for I420 frames."""
+        if not self.is_i420(images_uint8):
+            return normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
+        if self.num_views > 1:
+            t, v = images_uint8.shape[:2]
+            flat = i420_to_normalized(images_uint8.reshape(t * v, *images_uint8.shape[2:]), self.compute_dtype)
+            return flat.reshape(t, v, *flat.shape[1:])
+        return i420_to_normalized(images_uint8, self.compute_dtype)
+
     def forward(
         self, images_uint8: torch.Tensor, bbox: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(B, h, w, 3)`` uint8 (context stacks ``(B, 5, h, w, 3)``,
         multiview ``(B, V, h, w, 3)``, multiview context stacks ``(B, V, 5,
-        h, w, 3)``) and ``(B, 4)`` [x, y, h, w] bboxes (``(B, 4V)``
-        multiview) -> ``(B', 2K)`` keypoints and ``(B', K)`` confidences,
-        float32 (``K`` over all views); ``B' = B - 4`` for a context model's
-        sequence, whose bboxes are trimmed to the window centers."""
+        h, w, 3)``; I420 sequences as :meth:`is_i420`) and ``(B, 4)`` [x, y,
+        h, w] bboxes (``(B, 4V)`` multiview) -> ``(B', 2K)`` keypoints and
+        ``(B', K)`` confidences, float32 (``K`` over all views); ``B' = B -
+        4`` for a context model's sequence, whose bboxes are trimmed to the
+        window centers."""
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(images_uint8.device.type, dtype=torch.bfloat16, enabled=bf16):
-            images = normalize_images_fused(images_uint8, out_dtype=self.compute_dtype)
+            images = self._normalized(images_uint8)
             if self.is_context:
                 repeat = self.model.context_repeat
                 # a sequence: (T, [V,] 3, h, w); stacks: (B, [V,] 5, 3, h, w)
@@ -184,6 +212,43 @@ class PredictStep(nn.Module):
         return keypoints, confidences
 
 
+class DataParallelPredict:
+    """Prediction split over devices (the JAX package's GSPMD-sharded
+    predict, api/model.py:305-360): one replica of the predict step a
+    device; each batch is split by frames, padded with its last frame to a
+    multiple of the replica count and trimmed after. A context model's
+    sequence is split by window, each shard with the 4 frames of halo its
+    last windows need, so that the concatenated windows are the
+    single-device ones. Every shard is launched before the first result is
+    copied back; the results gather on the first replica's device.
+
+    ``fns[i](images, bbox)`` runs replica ``i`` (the eager step or its
+    compiled forward) on ``devices[i]``."""
+
+    def __init__(self, steps: list[PredictStep], devices: list[torch.device]):
+        self.steps = steps
+        self.devices = devices
+        self.fns = list(steps)
+
+    def __call__(self, images_uint8: torch.Tensor, bbox: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        n = len(self.fns)
+        halo = 4 if self.steps[0].is_sequence(images_uint8) else 0
+        rows = images_uint8.shape[0] - halo
+        pad = (-rows) % n
+        if pad:
+            images_uint8 = torch.cat([images_uint8, images_uint8[-1:].expand(pad, *images_uint8.shape[1:])])
+            bbox = torch.cat([bbox, bbox[-1:].expand(pad, *bbox.shape[1:])])
+        per = (rows + pad) // n
+        outputs = [
+            fn(images_uint8[i * per:(i + 1) * per + halo].to(dev, non_blocking=True),
+               bbox[i * per:(i + 1) * per + halo].to(dev, non_blocking=True))
+            for i, (fn, dev) in enumerate(zip(self.fns, self.devices))
+        ]
+        kp = torch.cat([k.to(self.devices[0]) for k, _ in outputs])
+        conf = torch.cat([c.to(self.devices[0]) for _, c in outputs])
+        return kp[:rows], conf[:rows]
+
+
 class Model:
     """Lazy-loading interface to a trained model directory."""
 
@@ -193,13 +258,16 @@ class Model:
         config,
         precision: str | None = None,
         device: str | torch.device = "cuda",
+        data_parallel: bool = False,
     ) -> None:
         self.model_dir = Path(model_dir)
         self.config = config
         self.cfg = config.cfg
         self.precision = precision
         self.device = resolve_device(device)
+        self.data_parallel = data_parallel
         self._predict_step: PredictStep | None = None
+        self._data_parallel: DataParallelPredict | None = None
         # the call that runs the predictions: the eager step, its compiled
         # forward, or the exported program of use_exported_runtime
         self._predict_fn = None
@@ -214,11 +282,9 @@ class Model:
         data_parallel: bool = False,
     ) -> "Model":
         """Load from a model directory holding ``config.yaml``.
-        ``precision``: fp32 or bf16 (default bf16; fp16 maps to bf16)."""
-        if data_parallel:
-            raise NotImplementedError(
-                "data-parallel prediction is not ported yet (ROADMAP queue 1, item 8: multi-GPU)"
-            )
+        ``precision``: fp32 or bf16 (default bf16; fp16 maps to bf16).
+        ``data_parallel``: split prediction batches over every visible GPU
+        (:class:`DataParallelPredict`); with one, predict as without it."""
         from lightning_pose_tpu_torch.api.model_config import ModelConfig
         from lightning_pose_tpu_torch.config import Config
 
@@ -226,7 +292,7 @@ class Model:
         if not config_path.exists():
             raise FileNotFoundError(f"no config.yaml in {model_dir}")
         cfg = Config.from_yaml(str(config_path))
-        return cls(model_dir, ModelConfig(cfg), precision=precision, device=device)
+        return cls(model_dir, ModelConfig(cfg), precision=precision, device=device, data_parallel=data_parallel)
 
     @classmethod
     def from_dir2(
@@ -304,6 +370,36 @@ class Model:
             num_views=model_meta(cfg)["num_views"],
         )
         self._predict_fn = self._predict_step
+        if self.data_parallel:
+            self._enable_data_parallel()
+
+    def _enable_data_parallel(self) -> None:
+        """One replica of the predict step on each device of
+        ``parallel.mesh.devices()`` (the live step on the first when that is
+        this model's device), the predictions through
+        :class:`DataParallelPredict`. With one device it logs and predicts
+        as without (JAX api/model.py:324-326)."""
+        from lightning_pose_tpu_torch.parallel import mesh
+
+        devices = mesh.devices()
+        if len(devices) < 2:
+            logger.info("data_parallel requested but only one device attached")
+            return
+        step = self._predict_step
+        home = self.device
+        if home.type == "cuda" and home.index is None:
+            home = torch.device("cuda", torch.cuda.current_device())
+        steps = []
+        for i, device in enumerate(devices):
+            if i == 0 and device == home:
+                steps.append(step)
+                continue
+            model = copy.deepcopy(step.model).to(device, memory_format=torch.channels_last)
+            steps.append(PredictStep(model, step.height, step.width, step.compute_dtype, step.decode_method,
+                                     step.num_views))
+        self._data_parallel = DataParallelPredict(steps, devices)
+        self._predict_fn = self._data_parallel
+        logger.info(f"prediction batches split across {len(devices)} devices")
 
     # -- prediction entry points ------------------------------------------------
 
@@ -406,7 +502,7 @@ class Model:
         Returns a ``PredictionResult``."""
         if self.config.is_multi_view():
             raise ValueError("this is a multiview model; use predict_on_video_file_multiview")
-        self._video_transfer_format()
+        transfer_format = self._video_transfer_format()
         self._load()
         from lightning_pose_tpu_torch.utils.video_predictions import predict_video
 
@@ -430,6 +526,7 @@ class Model:
             compute_metrics=compute_metrics,
             bbox_df=bbox_df,
             progress_file=progress_file,
+            transfer_format=transfer_format,
         )
 
     def predict_on_video_file_multiview(
@@ -450,7 +547,7 @@ class Model:
         view_names = list(self.cfg.data.view_names)
         if len(video_file_per_view) != len(view_names):
             raise ValueError(f"got {len(video_file_per_view)} videos for {len(view_names)} views")
-        self._video_transfer_format()
+        transfer_format = self._video_transfer_format()
         self._load()
         from lightning_pose_tpu_torch.utils.video_predictions import predict_video_multiview
 
@@ -465,6 +562,7 @@ class Model:
             compute_metrics=compute_metrics,
             output_dir=str(output_dir) if output_dir else None,
             progress_file=progress_file,
+            transfer_format=transfer_format,
         )
 
     def predict_on_label_csv_multiview(
@@ -532,21 +630,18 @@ class Model:
         return MultiviewPredictionResult(predictions=out, metrics=out_metrics or None)
 
     def _video_transfer_format(self) -> str:
-        """Resolve ``cfg.eval.video_transfer_format``: ``auto`` is ``rgb`` off
-        the TPU, and so is the exported runtime's (its input shapes are
+        """Resolve ``cfg.eval.video_transfer_format``: ``yuv420`` when asked;
+        ``auto`` is ``rgb``, as in the JAX package off the TPU; the exported
+        runtime's is ``rgb`` whatever the setting (its input shapes are
         RGB)."""
         if self._exported_runtime_active:
             return "rgb"
         fmt = str(self.cfg.eval.get("video_transfer_format", "auto")).lower()
-        if fmt == "yuv420":
-            raise NotImplementedError(
-                "yuv420 video transfer is not ported yet (ROADMAP queue 1, item 5: yuv420 transfer)"
-            )
-        if fmt not in ("rgb", "auto"):
+        if fmt not in ("rgb", "yuv420", "auto"):
             raise ValueError(
                 f"cfg.eval.video_transfer_format must be rgb|yuv420|auto, got {fmt!r}"
             )
-        return "rgb"
+        return "rgb" if fmt == "auto" else fmt
 
     def predict_frame(
         self,
@@ -674,7 +769,11 @@ class Model:
         self._load()
         t0 = time.perf_counter()
         images, bbox = self._canonical_inputs()
-        if not self._exported_runtime_active:
+        if not self._exported_runtime_active and self._data_parallel is not None:
+            # every replica's forward compiled, the batches split as before
+            self._data_parallel.fns = [self._runner(torch.compile(s.forward, dynamic=False))
+                                       for s in self._data_parallel.steps]
+        elif not self._exported_runtime_active:
             self._predict_fn = self._runner(torch.compile(self._predict_step.forward, dynamic=False))
         self._predict_fn(images, bbox)
         what = "ran the exported program once" if self._exported_runtime_active else "compiled the prediction program"
@@ -687,7 +786,8 @@ class Model:
         package's ``jax.export`` (reference model.py:615-704). The autocast
         region and the bbox remap are inside the program; normalize and
         decode are its ops ``lightning_pose_tpu_torch::normalize`` and
-        ``::decode``. Returns the path."""
+        ``::decode``. Under ``data_parallel`` it exports the single-device
+        step. Returns the path."""
         self._load()
         t0 = time.perf_counter()
         images, bbox = self._canonical_inputs()
@@ -731,6 +831,6 @@ class Model:
         reference model.py:469-594) as a module ``(images_uint8, bbox) ->
         (keypoints, confidences)`` on the device it was exported on. The
         port's ops are registered first."""
-        from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel  # noqa: F401
+        from lightning_pose_tpu_torch.ops import decode_kernel, normalize_kernel, yuv_kernel  # noqa: F401
 
         return torch.export.load(str(path)).module()

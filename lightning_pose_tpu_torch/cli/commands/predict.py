@@ -65,8 +65,8 @@ def register_parser(subparsers: Any) -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--data_parallel", action="store_true",
-        help="shard inference batches across all attached devices; not "
-        "ported yet (ROADMAP queue 1, item 8: multi-GPU), it raises",
+        help="split inference batches across all visible GPUs, one replica "
+        "of the model each (eager runtime only)",
     )
     # app support: JSON progress file updated per batch (reference
     # --progress_file, cli/commands/predict.py:160-167)

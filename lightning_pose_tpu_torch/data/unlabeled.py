@@ -7,10 +7,21 @@ labeled batch and one unlabeled video window. Here the labeled batches come
 from the data module's index batches, as in supervised training, and the
 train loop takes one window a step from :attr:`unlabeled_loader`; the
 window's augmentation and normalization run on the device in the train
-step. One process: the stream is shard 0 of 1. A multiview config (more
-than one name in ``data.view_names``, whatever the model) reads
-frame-synchronized sessions, one video a view, found by their view names in
-the video directory.
+step. A multiview config (more than one name in ``data.view_names``,
+whatever the model) reads frame-synchronized sessions, one video a view,
+found by their view names in the video directory.
+
+``training.video_transfer_format``: ``auto`` is ``rgb``, as in the JAX
+package off the TPU; ``yuv420`` makes the single-view stream's windows
+planar I420, which the train step converts with the I420 kernel (the JAX
+multiview stream has no transfer format).
+
+Across ranks (``parallel/mesh.py``): when every rank runs on this host, each
+reads the same stream (shard 0 of 1) and the train step keeps its frames of
+the window; a rank of a group it joined decodes its own shard, seeded by
+its rank, with ``ceil(sequence_length / ranks)`` frames, so that the global
+window keeps its configured size (the JAX package's per-host shards,
+reference data/factory.py:252-291, dali.py:580-592).
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from __future__ import annotations
 import logging
 
 from lightning_pose_tpu_torch.data.datamodules import BaseDataModule
+from lightning_pose_tpu_torch.parallel.mesh import stream_shard
 from lightning_pose_tpu_torch.data.video import MultiviewUnlabeledVideoLoader, UnlabeledVideoLoader
 from lightning_pose_tpu_torch.utils.io import check_video_paths, find_video_files_for_views
 
@@ -40,10 +52,14 @@ class UnlabeledDataModule(BaseDataModule):
         seq_len = int(cfg.dali.base.train.sequence_length)
         seed = int(cfg.training.get("rng_seed_data_pt", 0)) + 123456
         height, width = int(cfg.data.image_resize_dims.height), int(cfg.data.image_resize_dims.width)
+        shard_id, num_shards = stream_shard()
+        if num_shards > 1:
+            seq_len = max(1, -(-seq_len // num_shards))
         if multiview:
             sessions = find_video_files_for_views(video_dir, list(view_names))
             self.unlabeled_loader = MultiviewUnlabeledVideoLoader(
                 sessions=sessions, sequence_length=seq_len, resize_height=height, resize_width=width, seed=seed,
+                shard_id=shard_id,
             )
             logger.info(f"multiview unlabeled stream: {len(sessions)} session(s), sequence_length={seq_len}")
             return
@@ -58,7 +74,7 @@ class UnlabeledDataModule(BaseDataModule):
             resize_height=height,
             resize_width=width,
             seed=seed,
-            shard_id=0,
+            shard_id=shard_id,
             transfer_format=fmt,
         )
         logger.info(f"unlabeled stream: {len(video_files)} video(s), sequence_length={seq_len}")

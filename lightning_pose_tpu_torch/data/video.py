@@ -20,8 +20,13 @@ With a per-frame bbox table the predict loader crops each native-resolution
 frame to its box before the resize (reference dali.py:332-396). The
 multiview loaders read one video a view, frame-synchronized: ``(T, V, h, w,
 3)`` batches for prediction, and for training random windows whose sessions
-and starts come from the JAX package's own generator sequence. The yuv420
-transfer is not ported yet.
+and starts come from the JAX package's own generator sequence.
+
+With ``transfer_format="yuv420"`` the predict loaders and the single-view
+unlabeled loader emit planar I420 batches instead, ``(T, h*3/2, w)`` uint8
+(``(T, V, h*3/2, w)`` multiview), converted from the RGB batch on the host
+by ``native.batch_rgb_to_i420``: half the bytes to copy to the device, where
+the I420 kernel (``ops/yuv_kernel.py``) converts them back to RGB.
 """
 
 from __future__ import annotations
@@ -64,6 +69,15 @@ def default_decode_threads() -> int:
                 "(expected an integer)", env,
             )
     return max(1, min(4, (os.cpu_count() or 1) - 1))
+
+
+def _check_transfer_format(transfer_format: str, height: int, width: int) -> str:
+    """``rgb`` or ``yuv420`` (even dims only), as the JAX loaders check."""
+    if transfer_format not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown transfer_format {transfer_format!r}")
+    if transfer_format == "yuv420" and (height % 2 or width % 2):
+        raise ValueError("yuv420 transfer requires even resize dims")
+    return transfer_format
 
 
 def count_frames(video_file: str) -> int:
@@ -141,18 +155,22 @@ class PredictVideoLoader:
         decode_threads: int | None = None,
         bbox_df=None,
         do_context: bool = False,
+        transfer_format: str = "rgb",
     ):
         """``decode_threads``: worker decoders sharding the video by window
         (default :func:`default_decode_threads`). ``bbox_df``: optional
         per-frame ``[x, y, h, w]`` DataFrame; each frame is cropped to its
         box (zero outside the frame) before the resize, and the caller maps
         keypoints back through the same boxes. ``do_context``: overlapping
-        windows for a context model (``sequence_length`` at least 5)."""
+        windows for a context model (``sequence_length`` at least 5).
+        ``transfer_format``: ``rgb`` emits ``(T, h, w, 3)`` uint8 batches,
+        ``yuv420`` planar I420 ``(T, h*3/2, w)`` uint8 (even dims only)."""
         self.video_file = str(video_file)
         self.seq_len = int(sequence_length)
         self.h = int(resize_height)
         self.w = int(resize_width)
         self.do_context = do_context
+        self.transfer_format = _check_transfer_format(transfer_format, self.h, self.w)
         if do_context and self.seq_len < 5:
             raise ValueError(f"context windows need a sequence_length of at least 5, got {self.seq_len}")
         # context windows step by seq_len - 4 (reference dali.py:636-651)
@@ -183,13 +201,16 @@ class PredictVideoLoader:
         """Raw BGR native-resolution frames from frame ``start_idx`` on -> a
         (T, h, w, 3) RGB uint8 batch (the fused native BGR->RGB + resize,
         parallel across frames; with ``bbox_df``, each frame's crop first;
-        the FILL frames past the end take the last box)."""
+        the FILL frames past the end take the last box), as I420 under
+        ``yuv420``."""
         stacked = np.stack(raw_frames)
         if self.bbox_df is None:
-            return native.batch_resize_rgb(stacked, self.h, self.w, swap_rb=True)
-        idx = np.minimum(np.arange(start_idx, start_idx + len(stacked)), len(self.bbox_df) - 1)
-        boxes = self.bbox_df[["x", "y", "h", "w"]].to_numpy()[idx]
-        return native.batch_crop_resize_rgb(stacked, boxes, self.h, self.w)
+            rgb = native.batch_resize_rgb(stacked, self.h, self.w, swap_rb=True)
+        else:
+            idx = np.minimum(np.arange(start_idx, start_idx + len(stacked)), len(self.bbox_df) - 1)
+            boxes = self.bbox_df[["x", "y", "h", "w"]].to_numpy()[idx]
+            rgb = native.batch_crop_resize_rgb(stacked, boxes, self.h, self.w)
+        return native.batch_rgb_to_i420(rgb) if self.transfer_format == "yuv420" else rgb
 
     def _produce(self, q: queue.Queue) -> None:
         decoder = VideoFrameDecoder(self.video_file)
@@ -329,12 +350,14 @@ class MultiviewPredictVideoLoader:
     """Frame-synchronized ``(T, V, h, w, 3)`` batches over one video a view
     (reference dali.py:483-506): one :class:`PredictVideoLoader` a view,
     zipped. The views must have the same frame count. ``do_context``: the
-    batches overlap by 4 frames, for a context model."""
+    batches overlap by 4 frames, for a context model. ``transfer_format``
+    ``yuv420``: ``(T, V, h*3/2, w)`` I420 batches."""
 
     def __init__(self, video_files: list[str], sequence_length: int, resize_height: int, resize_width: int,
-                 do_context: bool = False):
+                 do_context: bool = False, transfer_format: str = "rgb"):
         self.video_files = [str(v) for v in video_files]
-        self.loaders = [PredictVideoLoader(v, sequence_length, resize_height, resize_width, do_context=do_context)
+        self.loaders = [PredictVideoLoader(v, sequence_length, resize_height, resize_width, do_context=do_context,
+                                           transfer_format=transfer_format)
                         for v in self.video_files]
         counts = [ld.frame_count for ld in self.loaders]
         if len(set(counts)) != 1:
@@ -466,7 +489,9 @@ class UnlabeledVideoLoader:
     (T, 4) float32}``: a contiguous ``sequence_length``-frame window from a
     random start in a random video (the seeded DALI random reader, reference
     dali.py:148-152,580-592), padded by repeating its last frame, with the
-    full-frame bbox ``[0, 0, orig_height, orig_width]``. Window ``k`` comes
+    full-frame bbox ``[0, 0, orig_height, orig_width]``. With
+    ``transfer_format="yuv420"`` the frames are planar I420, ``(T, h*3/2,
+    w)`` uint8. Window ``k`` comes
     from ``np.random.default_rng([seed, shard_id, k])``, so the stream is the
     same for any number of decode threads. Call :meth:`close` to stop the
     worker threads.
@@ -485,16 +510,11 @@ class UnlabeledVideoLoader:
         transfer_format: str = "rgb",
     ):
         assert len(video_files) > 0, "no unlabeled videos found"
-        if transfer_format == "yuv420":
-            raise NotImplementedError(
-                "the yuv420 transfer of unlabeled frames is not ported yet (ROADMAP queue 1, item 5: yuv420 transfer)"
-            )
-        if transfer_format != "rgb":
-            raise ValueError(f"unknown transfer_format {transfer_format!r}")
         self.video_files = [str(v) for v in video_files]
         self.seq_len = int(sequence_length)
         self.h = int(resize_height)
         self.w = int(resize_width)
+        self.transfer_format = _check_transfer_format(transfer_format, self.h, self.w)
         self.seed = int(seed)
         self.shard_id = int(shard_id)
         # fail fast on bad paths (the reference's DALI filename validation,
@@ -545,7 +565,10 @@ class UnlabeledVideoLoader:
             np.array([0.0, 0.0, decoder.orig_height, decoder.orig_width], dtype=np.float32),
             (self.seq_len, 1),
         )
-        return {"frames": np.stack(frames), "bbox": bbox}
+        stacked = np.stack(frames)
+        if self.transfer_format == "yuv420":
+            stacked = native.batch_rgb_to_i420(stacked)
+        return {"frames": stacked, "bbox": bbox}
 
     def _produce(self, wid: int) -> None:
         decoders: dict[int, VideoFrameDecoder] = {}

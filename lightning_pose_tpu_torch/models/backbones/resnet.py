@@ -46,11 +46,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     and ``lerp(k*old, rv, (n-1)/n)`` is ``k*old + m*var``, where ``n`` is
     the number of values per channel. Two small ops per layer: the multiply
     and the lerp.
+
+    In training under a process group of more than one rank, the statistics
+    are the global batch's, as GSPMD gives them to the JAX package: each
+    rank's per-channel count, mean and sum of squared deviations are merged
+    over the ranks (Chan's parallel form of Welford's update: one all-reduce
+    for the mean, one for the squared deviations about it), through the
+    autograd-aware ``torch.distributed.nn.functional.all_reduce``, so that
+    the backward reaches every rank's rows. ``nn.SyncBatchNorm`` is not used:
+    it refuses CPU tensors and keeps torch's unbiased running variance.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            return self._cross_replica(x)
         keep = self.running_var * (1.0 - self.momentum)
         y = super().forward(x)
         n = x.numel() // x.shape[1]
@@ -58,6 +70,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var = torch.lerp(keep, self.running_var, (n - 1) / n)
         return y
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        """The train-mode forward over every rank's batch: normalized by the
+        global mean and biased variance, which also update the running
+        statistics."""
+        from torch.distributed.nn.functional import all_reduce
+
+        # the statistics in fp32 at least (float64 stays float64)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32, device=x.device)
+        local_mean = xf.mean(dims)
+        total = all_reduce(torch.cat([count, count * local_mean]))
+        n, mean = total[0], total[1:] / total[0]
+        local_m2 = (xf - local_mean[None, :, None, None]).square().sum(dims)
+        m2 = all_reduce(local_m2 + count * (local_mean - mean).square())
+        var = m2 / n
+        y = (xf - mean[None, :, None, None]) * torch.rsqrt(var + self.eps)[None, :, None, None]
+        if self.affine:
+            y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var = torch.lerp(self.running_var, var.detach(), self.momentum)
+        return y.to(x.dtype)
 
 
 def _bn(features: int) -> BatchNorm2d:

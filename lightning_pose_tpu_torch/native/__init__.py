@@ -2,12 +2,13 @@
 it uses of ``lightning_pose_tpu/native/``).
 
 ``frame_ops.cpp`` fuses BGR->RGB conversion with bilinear resize, and a
-per-frame bbox crop before it, over a batch of frames, on a worker pool. It is compiled with g++ at first use into
+per-frame bbox crop before it, over a batch of frames, and converts RGB
+batches to planar I420 for the yuv420 transfer, on a worker pool. It is compiled with g++ at first use into
 ``build/native/libframeops-<hash>.so`` at the root of the checkout (the hash
 covers the source and the flags, so an edited source is rebuilt). Where g++
-is missing or the build fails, :func:`batch_resize_rgb` and
-:func:`batch_crop_resize_rgb` run the same operations with OpenCV, one frame
-at a time.
+is missing or the build fails, :func:`batch_resize_rgb`,
+:func:`batch_crop_resize_rgb` and :func:`batch_rgb_to_i420` run the same
+operations with OpenCV, one frame at a time.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["available", "batch_crop_resize_rgb", "batch_resize_rgb", "get_lib", "num_worker_threads"]
+__all__ = [
+    "available", "batch_crop_resize_rgb", "batch_resize_rgb", "batch_rgb_to_i420", "get_lib", "num_worker_threads",
+]
 
 _SRC = Path(__file__).resolve().parent / "frame_ops.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -85,6 +88,11 @@ def get_lib() -> ctypes.CDLL | None:
             ctypes.c_int, ctypes.c_int,
         ]
         lib.batch_crop_resize_rgb.restype = None
+        lib.batch_rgb_to_i420.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+        ]
+        lib.batch_rgb_to_i420.restype = None
         _lib = lib
         return lib
 
@@ -167,4 +175,22 @@ def batch_crop_resize_rgb(
         frames.ctypes.data, n, src_h, src_w, boxes.ctypes.data,
         out.ctypes.data, dst_h, dst_w, 1, num_threads or num_worker_threads(),
     )
+    return out
+
+
+def batch_rgb_to_i420(frames: np.ndarray, num_threads: int | None = None) -> np.ndarray:
+    """RGB ``(N, H, W, 3)`` uint8 -> planar I420 ``(N, H*3/2, W)`` uint8,
+    BT.601 video range with cv2's top-left-of-2x2 chroma subsampling
+    (``cv2.COLOR_RGB2YUV_I420``). ``H`` and ``W`` must be even."""
+    frames = np.ascontiguousarray(frames, dtype=np.uint8)
+    n, h, w, _ = frames.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"I420 needs even dims, got {h}x{w}")
+    lib = get_lib()
+    if lib is None:
+        import cv2
+
+        return np.stack([cv2.cvtColor(f, cv2.COLOR_RGB2YUV_I420) for f in frames]).reshape(n, h * 3 // 2, w)
+    out = np.empty((n, h * 3 // 2, w), dtype=np.uint8)
+    lib.batch_rgb_to_i420(frames.ctypes.data, n, h, w, out.ctypes.data, num_threads or num_worker_threads())
     return out

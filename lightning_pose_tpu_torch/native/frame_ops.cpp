@@ -124,4 +124,46 @@ void batch_crop_resize_rgb(const uint8_t* src, int n, int src_h, int src_w,
     });
 }
 
+// Batched RGB -> planar I420 (YUV 4:2:0) conversion, BT.601 video range.
+// Matches cv2.COLOR_RGB2YUV_I420 semantics: per-pixel Y, chroma taken
+// from the top-left pixel of each 2x2 block. src: (n, h, w, 3) uint8,
+// h and w even; dst: (n, h*3/2, w) uint8 planar (Y plane, then the
+// (h/2, w/2) U plane packed into h/4 rows of width w, then V likewise).
+void batch_rgb_to_i420(const uint8_t* src, int n, int h, int w,
+                       uint8_t* dst, int num_threads) {
+    const size_t src_stride = static_cast<size_t>(h) * w * 3;
+    const size_t dst_stride = static_cast<size_t>(h) * w * 3 / 2;
+    parallel_for(n, num_threads, [&](int i) {
+        const uint8_t* im = src + i * src_stride;
+        uint8_t* y_plane = dst + i * dst_stride;
+        uint8_t* u_plane = y_plane + static_cast<size_t>(h) * w;
+        uint8_t* v_plane = u_plane + static_cast<size_t>(h) * w / 4;
+        for (int y = 0; y < h; ++y) {
+            const uint8_t* row = im + static_cast<size_t>(y) * w * 3;
+            uint8_t* yrow = y_plane + static_cast<size_t>(y) * w;
+            for (int x = 0; x < w; ++x) {
+                const float r = row[x * 3 + 0];
+                const float g = row[x * 3 + 1];
+                const float b = row[x * 3 + 2];
+                const float yy = 0.256788f * r + 0.504129f * g +
+                                 0.097906f * b + 16.0f;
+                yrow[x] = static_cast<uint8_t>(
+                    std::max(0.0f, std::min(255.0f, yy + 0.5f)));
+                if ((y & 1) == 0 && (x & 1) == 0) {
+                    const float uu = -0.148223f * r - 0.290993f * g +
+                                     0.439216f * b + 128.0f;
+                    const float vv = 0.439216f * r - 0.367788f * g -
+                                     0.071427f * b + 128.0f;
+                    const size_t ci =
+                        static_cast<size_t>(y / 2) * (w / 2) + (x / 2);
+                    u_plane[ci] = static_cast<uint8_t>(
+                        std::max(0.0f, std::min(255.0f, uu + 0.5f)));
+                    v_plane[ci] = static_cast<uint8_t>(
+                        std::max(0.0f, std::min(255.0f, vv + 0.5f)));
+                }
+            }
+        }
+    });
+}
+
 }  // extern "C"

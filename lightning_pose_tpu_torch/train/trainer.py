@@ -2,14 +2,25 @@
 regression models, of the temporal-context model and of the multiview
 transformer (counterpart of ``lightning_pose_tpu/train/trainer.py``).
 
-One process, one device. Each step gathers its batch from a device-resident
-copy of the labeled set, augments it on the device (``ops/augment.py``, with
+Each step gathers its batch from a device-resident copy of the labeled set, augments it on the device (``ops/augment.py``, with
 the warp and CLAHE kernels), builds the target heatmaps, runs the model in
 bf16 by autocast with fp32 parameters and BatchNorm statistics, and takes an
 Adam step on two parameter groups (backbone and head), each with its
 schedule read at the step count (``train/schedules.py``). Targets and losses
 are fp32; the logged pixel RMSE decodes the predicted maps with the decode
 kernel on the card (the plain decode on the CPU).
+
+Across GPUs (``training.num_gpus`` above 1, or a process group that
+``training.num_nodes`` or the ``LP_TPU_*`` variables name), each rank is
+one process with one device and takes its rows of the global batch, which
+every rank builds alike from the same seeds, with the global batch's
+augmentation draws; ``parallel/mesh.py`` says how the group comes up. The
+model's outputs, and the labels, are gathered from every rank before the
+losses, so that each rank computes the single-device loss on the whole
+batch; the gradients are averaged over the ranks after the backward, and
+BatchNorm takes the global batch's statistics. Only rank 0 writes the model
+directory and evaluates; the validation sums are all-reduced. ``n`` ranks
+take the steps one device takes, to fp32 rounding.
 
 With unsupervised losses (``model.losses_to_use``), each step also takes one
 unlabeled video window from the data module's loader, copied to the device
@@ -18,7 +29,9 @@ through pinned memory. The window is augmented on the device
 forward (after the labeled one, so the BatchNorm statistics chain as in the
 JAX package), decoded with gradient (the decode and its backward kernel on
 the card), mapped back through the augmentation and to frame pixels, and
-given to the unsupervised losses at the epoch's anneal weight.
+given to the unsupervised losses at the epoch's anneal weight. A window of
+planar I420 frames (``training.video_transfer_format: yuv420``) is converted
+to RGB by the I420 kernel before its augmentation.
 
 The context model (``heatmap_mhcrnn``) trains on 5-frame stacks: one
 augmentation draw per stack, applied to its 5 frames, and the single-frame
@@ -99,10 +112,13 @@ its multi-frame maps come out twice the size of its single-frame maps.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
 import shutil
+import socket
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -126,6 +142,8 @@ from lightning_pose_tpu_torch.ops import augment3d
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, Draws
 from lightning_pose_tpu_torch.ops.preprocess import normalize_images
 from lightning_pose_tpu_torch.ops.video_augment import VideoDraws, augment_video_sequence, sample_video_draws
+from lightning_pose_tpu_torch.ops.yuv_kernel import i420_to_rgb
+from lightning_pose_tpu_torch.parallel import mesh
 from lightning_pose_tpu_torch.train import checkpoints as ckpt_utils
 from lightning_pose_tpu_torch.train.schedules import anneal_weight, backbone_lr, multistep_lr
 
@@ -329,7 +347,13 @@ def unsupervised_loss(
     view's frame. The context model's windows are ``(T-4, V, 5, 3, H, W)``.
 
     The regression model's outputs are the keypoints, with confidences of
-    ones and no maps."""
+    ones and no maps.
+
+    Under a process group of more than one rank, ``images`` are this rank's
+    frames (a context model's: its windows' frames, with their 4 frames of
+    halo) and the outputs of every rank are gathered before the losses, so
+    that the temporal term takes its differences across the split; every
+    rank returns the loss of the whole window."""
     height, width = image_hw
     is_context = isinstance(model, HeatmapTrackerMHCRNN)
     if is_context:
@@ -346,6 +370,9 @@ def unsupervised_loss(
         preds, confidences, heatmaps = heatmaps, RegressionTracker.confidences(heatmaps), None
     else:
         preds, confidences = model.decode(heatmaps)
+    if mesh.world_size() > 1:
+        preds, confidences, transforms, bbox = (mesh.gather_rows(t) for t in (preds, confidences, transforms, bbox))
+        heatmaps = None if heatmaps is None else mesh.gather_rows(heatmaps)
     preds = undo_affine_transform_batch(preds, transforms)
     preds = model_to_frame_batch(preds, bbox, width, height, num_views=num_views)
     return factory(
@@ -464,11 +491,20 @@ def make_step_fns(
         return supervised_3d_inputs(preds, keypoints, bbox, calibration, (height, width),
                                     "supervised_reprojection_heatmap_mse" in supervised_3d)
 
-    def supervised_loss(model, images, keypoints, visibility, bbox, stage, calibration=None):
+    def supervised_loss(model, images, keypoints, visibility, bbox, stage, calibration=None, gather=False):
+        """The supervised loss, its logs, and the decoded keypoints in frame
+        pixels. ``gather``: the outputs and labels of every rank, so that
+        the loss is the whole batch's."""
         with torch.autocast(
             images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16
         ):
             outputs = model(images)
+        if gather and mesh.world_size() > 1:
+            outputs = (tuple(mesh.gather_rows(o) for o in outputs) if isinstance(outputs, tuple)
+                       else mesh.gather_rows(outputs))
+            keypoints, visibility, bbox = (mesh.gather_rows(t) for t in (keypoints, visibility, bbox))
+            if calibration is not None:
+                calibration = tuple(mesh.gather_rows(t) for t in calibration)
         if is_regression:
             # the outputs are the keypoints: the coordinate MSE against the
             # augmented labels, confidences of ones
@@ -582,7 +618,8 @@ def make_step_fns(
         visibility = _effective_visibility(keypoints, vis)
         state.model.train()
         total, logs, _, _ = supervised_loss(
-            state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train", calibration_of(batch)
+            state.model, _to_nchw(images), keypoints, visibility, batch["bbox"], "train", calibration_of(batch),
+            gather=True,
         )
         if has_unsup and "unlabeled" in batch:
             if video_draws is None:
@@ -596,9 +633,10 @@ def make_step_fns(
                 )
                 frames, transforms = frames.reshape(t, num_views, *frames.shape[1:]), transforms[:t]
             else:
-                frames, transforms = augment_video_sequence(
-                    ul["frames"], video_draws, apply_geometric=augmenter.is_dlc
-                )
+                frames = ul["frames"]
+                if frames.ndim == 3:  # planar I420: to RGB in [0, 255] before the augmentation
+                    frames = i420_to_rgb(frames)
+                frames, transforms = augment_video_sequence(frames, video_draws, apply_geometric=augmenter.is_dlc)
             loss_unsup, logs_unsup = unsupervised_loss(
                 state.model, _to_nchw(frames), transforms, ul["bbox"], unsup, aw, (height, width), compute_dtype,
                 num_views,
@@ -608,7 +646,11 @@ def make_step_fns(
             logs["train_unsupervised_loss"] = loss_unsup.detach()
         set_learning_rates(state.optimizer, state.step, head_sched, bb_sched)
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        world = mesh.world_size()
+        # each rank's backward gives its rows' share of the whole batch's
+        # gradient; the all-reduce averages, hence the factor
+        (total * world if world > 1 else total).backward()
+        mesh.all_reduce_gradients(state.model.parameters())
         state.optimizer.step()
         logs["total_loss"] = total.detach()
         logs["total_unsupervised_importance"] = torch.tensor(aw)
@@ -660,23 +702,68 @@ class TrainedModel:
     predict_fn: PredictStep
 
 
-def run_validation_epoch(batches, eval_logs_fn) -> dict[str, float]:
+def run_validation_epoch(batches, eval_logs_fn, device: torch.device | None = None) -> dict[str, float]:
     """Validation logs averaged over samples: each batch's logs weigh by its
-    count of real (not padding) samples."""
+    count of real (not padding) samples. Under a process group of more than
+    one rank, rank ``r`` evaluates batches ``r, r + n, ...`` and the sums
+    and counts are all-reduced (on ``device``), so that every rank gets the
+    single-device averages."""
+    world, rank = mesh.world_size(), mesh.rank()
     sums: dict[str, float] = {}
     n_total = 0
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        if i % world != rank:
+            continue
         n_real = int(np.sum(batch["valid"])) if "valid" in batch else len(batch["images"])
         for k, v in eval_logs_fn(batch).items():
             sums[k] = sums.get(k, 0.0) + float(v) * n_real
         n_total += n_real
+    if world > 1:
+        import torch.distributed as dist
+
+        key_lists: list = [None] * world
+        dist.all_gather_object(key_lists, sorted(sums))
+        keys = sorted({k for ks in key_lists for k in ks})
+        totals = torch.tensor([float(n_total)] + [sums.get(k, 0.0) for k in keys], dtype=torch.float64,
+                              device=device)
+        dist.all_reduce(totals)
+        n_total, sums = int(totals[0]), dict(zip(keys, totals[1:].tolist()))
     return {k: v / max(n_total, 1) for k, v in sums.items()}
+
+
+def _shard_draws(draws, rank: int, world: int):
+    """This rank's rows of the global batch's draws (``Draws``, one a
+    sample or view image; ``Draws3D``, one a sample); None stays None."""
+    if draws is None or world == 1:
+        return draws
+
+    def rows(name: str, value):
+        if value is None:
+            return None
+        if name == "dropout_low_rgb":  # (3, B, ...)
+            return mesh.shard_rows(value.transpose(0, 1), rank, world).transpose(0, 1)
+        return mesh.shard_rows(value, rank, world)
+
+    return type(draws)(**{f.name: rows(f.name, getattr(draws, f.name)) for f in dataclasses.fields(draws)})
+
+
+def _window_frames(t: int, context: bool, rank: int, world: int) -> tuple[int, int]:
+    """``[start, stop)``, this rank's frames of a ``t``-frame window split
+    over ``world`` ranks: equal runs of frames, or, for a context model, of
+    its ``t - 4`` windows, each run with the 4 frames of halo its windows
+    need. Raises when the frames (windows) do not divide."""
+    n = t - 4 if context else t
+    if n % world:
+        raise ValueError(
+            f"an unlabeled window of {t} frames ({n} {'context windows' if context else 'frames'}) does not divide "
+            f"over {world} ranks"
+        )
+    per = n // world
+    return rank * per, (rank + 1) * per + (4 if context else 0)
 
 
 def _check_ported(cfg) -> None:
     """Raise, before anything is trained, on options not ported yet."""
-    if int(cfg.training.get("num_nodes", 1) or 1) > 1 or int(cfg.training.get("num_gpus", 1) or 1) > 1:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP queue 1, item 8: multi-GPU)")
     backend = str(cfg.training.get("checkpoint_backend", "msgpack"))
     if backend != "msgpack":
         raise NotImplementedError(
@@ -720,6 +807,16 @@ def _window_on_device(window: dict, device: torch.device) -> dict[str, torch.Ten
     return out
 
 
+def _joins_group(cfg) -> bool:
+    """Whether this process is one rank of a group it is given:
+    ``training.num_nodes`` above 1, ``LP_TPU_COORDINATOR``, torchrun's
+    ``WORLD_SIZE`` above 1, or a group the caller brought up."""
+    import torch.distributed as dist
+
+    return (int(cfg.training.get("num_nodes", 1) or 1) > 1 or bool(os.environ.get("LP_TPU_COORDINATOR"))
+            or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1 or dist.is_initialized())
+
+
 def train(
     cfg,
     model_dir: str | Path | None = None,
@@ -728,7 +825,115 @@ def train(
 ) -> TrainedModel:
     """Train the configured model on ``device``, write the model directory
     and, unless ``skip_evaluation``, evaluate the best checkpoint into it.
-    There is no fallback to the CPU: a CUDA device without CUDA raises."""
+    There is no fallback to the CPU: a CUDA device without CUDA raises.
+
+    Data parallel (reference train.py:411-428, JAX trainer.py:774-899):
+    with ``training.num_nodes`` above 1 or ``LP_TPU_COORDINATOR`` (or under
+    torchrun), this process joins the group and trains as one rank on its
+    local GPU. Otherwise ``training.num_gpus`` above 1 starts one process a
+    device, ``min(num_gpus, visible GPUs)`` on CUDA, or ``num_gpus`` CPU
+    ranks over gloo with ``device="cpu"``; the processes are started with
+    ``spawn`` and meet over a loopback store, a failing one makes this call
+    raise with its traceback, and the returned model is rank 0's best
+    checkpoint loaded on ``device``."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    if _joins_group(cfg):
+        num_nodes = int(cfg.training.get("num_nodes", 1) or 1)
+        mesh.initialize_distributed(backend="nccl" if device.type == "cuda" else "gloo")
+        if num_nodes > 1 and mesh.world_size() < num_nodes:
+            # without this, each process would train a copy of its own and
+            # race the others for the model directory
+            raise RuntimeError(
+                f"cfg.training.num_nodes={num_nodes} but the process group has {mesh.world_size()} rank(s): check "
+                "the coordinator address and the LP_TPU_* variables"
+            )
+        device = mesh.local_device(device.type)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        return _train(cfg, model_dir, skip_evaluation, device)
+    ranks = int(cfg.training.get("num_gpus", 1) or 1)
+    if device.type == "cuda":
+        ranks = min(ranks, torch.cuda.device_count())
+    if ranks > 1:
+        return _spawn(cfg, Path(model_dir or os.getcwd()), skip_evaluation, device, ranks)
+    return _train(cfg, model_dir, skip_evaluation, device)
+
+
+def _free_port() -> int:
+    """A TCP port of the loopback interface that the OS reports free."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(cfg, model_dir: Path, skip_evaluation: bool, device: torch.device, ranks: int) -> TrainedModel:
+    """Train on ``ranks`` spawned processes (one a GPU, or CPU ranks); then
+    the :class:`TrainedModel` of rank 0's best checkpoint on ``device``."""
+    import torch.multiprocessing as mp
+
+    from lightning_pose_tpu_torch.api.model import Model
+    from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
+    from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
+
+    model_dir.mkdir(parents=True, exist_ok=True)
+    logger.info(f"training on {ranks} ranks ({device.type}), one process each")
+    with tempfile.TemporaryDirectory() as tmp:
+        history_file = Path(tmp) / "history.pt"
+        # what the workers need goes as arguments: a spawned process imports
+        # this module afresh (the compute dtype, the torch threads a rank)
+        mp.start_processes(
+            _train_worker,
+            args=(ranks, _free_port(), cfg.to_dict(), str(model_dir), skip_evaluation, device.type, COMPUTE_DTYPE,
+                  max(1, torch.get_num_threads() // ranks), str(history_file)),
+            nprocs=ranks, join=True, start_method="spawn",
+        )
+        history = torch.load(history_file, weights_only=False)
+    # the names rank 0 filled in from the dataset, as a one-process run
+    # fills them into the caller's config
+    written = type(cfg).from_yaml(str(model_dir / "config.yaml"))
+    for key in ("keypoint_names", "num_keypoints"):
+        cfg.data[key] = written.data.get(key)
+    loaded = Model.from_dir(model_dir, precision="fp32" if COMPUTE_DTYPE == torch.float32 else "bf16",
+                            device=device)
+    loaded._load()
+    data_dir, video_dir = return_absolute_data_paths(cfg.data)
+    data_module = get_data_module(cfg, get_dataset(cfg, data_dir), video_dir)
+    close = getattr(data_module, "close", None)
+    if close is not None:
+        close()
+    step = loaded._predict_step
+    return TrainedModel(cfg=cfg, model_dir=model_dir, model=step.model, data_module=data_module, history=history,
+                        device=device, predict_fn=step)
+
+
+def _train_worker(rank: int, world: int, port: int, cfg_dict: dict, model_dir: str, skip_evaluation: bool,
+                  device_type: str, compute_dtype: torch.dtype, threads: int, history_file: str) -> None:
+    """One spawned rank: join the group over the loopback store, train, and
+    (rank 0) leave the history for the launcher."""
+    global COMPUTE_DTYPE
+    import torch.distributed as dist
+
+    from lightning_pose_tpu_torch.config import Config
+
+    COMPUTE_DTYPE = compute_dtype
+    torch.set_num_threads(threads)
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh.initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank,
+                                backend="nccl" if device.type == "cuda" else "gloo", one_host=True)
+    try:
+        trained = _train(Config(cfg_dict), model_dir, skip_evaluation, device)
+        if rank == 0:
+            torch.save(trained.history, history_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(cfg, model_dir: str | Path | None, skip_evaluation: bool, device: torch.device) -> TrainedModel:
+    """:func:`train` on ``device``, as one rank of the process group when
+    there is one."""
     from lightning_pose_tpu_torch.api.model_config import ModelConfig
     from lightning_pose_tpu_torch.callbacks import JSONTrainingProgressTracker, write_status
     from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
@@ -736,12 +941,13 @@ def train(
     from lightning_pose_tpu_torch.models.factory import get_model, model_meta
     from lightning_pose_tpu_torch.utils.io import return_absolute_data_paths
 
-    _check_ported(cfg)
     # the evaluation decodes as Model.from_dir(model_dir) will
     decode_method = decode_method_of(cfg)
-    device = resolve_device(device)
+    rank, world = mesh.rank(), mesh.world_size()
+    is_main = rank == 0
     model_dir = Path(model_dir or os.getcwd())
-    model_dir.mkdir(parents=True, exist_ok=True)
+    if is_main:
+        model_dir.mkdir(parents=True, exist_ok=True)
     status_file = model_dir / "train_status.json"
     t_start = time.time()
 
@@ -786,6 +992,7 @@ def train(
                     "warm-started the backbone only"
                 )
         model = model.to(device, memory_format=torch.channels_last)
+        mesh.replicate(model)
         optimizer, head_sched, bb_sched = make_optimizer(cfg, steps_per_epoch, model)
         state = TrainState(model=model, optimizer=optimizer)
         augmenter = AugmentationEngine(
@@ -806,32 +1013,35 @@ def train(
         cache = _device_cache(dataset, device)
         logger.info(f"cached {len(dataset)} labeled samples on {device}")
 
-        # -- model directory
-        cfg.save(str(model_dir / "config.yaml"))
-        csv_files = cfg.data.csv_file
-        for csv_file in [csv_files] if isinstance(csv_files, str) else csv_files:
-            src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
-            if src.exists():
-                shutil.copy(src, model_dir / src.name)
+        # -- model directory (rank 0 writes it; every rank reads the resume
+        # checkpoint before anything is written)
         resume_path = None
         if cfg.training.get("resume", False):
             resume_path = ckpt_utils.find_resume_checkpoint(str(model_dir), cfg.model.model_name)
             if resume_path is None:
                 logger.info("training.resume is set but no *-last.ckpt was found; starting afresh")
-        if resume_path is not None:
-            version_dir = str(Path(resume_path).parent.parent)
-        else:
-            version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
-        os.makedirs(version_dir, exist_ok=True)
-        ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
-        writer = None
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError:
-            logger.info("tensorboardX is not installed; no event files are written")
-        else:
-            writer = SummaryWriter(version_dir)
-            writer.add_text("config", "```\n" + cfg.to_yaml() + "\n```")
+        mesh.sync_collectives()
+        writer = version_dir = ckpt_dir = None
+        if is_main:
+            cfg.save(str(model_dir / "config.yaml"))
+            csv_files = cfg.data.csv_file
+            for csv_file in [csv_files] if isinstance(csv_files, str) else csv_files:
+                src = Path(csv_file) if Path(csv_file).is_absolute() else Path(data_dir) / csv_file
+                if src.exists():
+                    shutil.copy(src, model_dir / src.name)
+            if resume_path is not None:
+                version_dir = str(Path(resume_path).parent.parent)
+            else:
+                version_dir = ckpt_utils.next_version_dir(str(model_dir), cfg.model.model_name)
+            os.makedirs(version_dir, exist_ok=True)
+            ckpt_dir = ckpt_utils.checkpoint_dir(version_dir)
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                logger.info("tensorboardX is not installed; no event files are written")
+            else:
+                writer = SummaryWriter(version_dir)
+                writer.add_text("config", "```\n" + cfg.to_yaml() + "\n```")
 
         sched = _resolve_schedule_cfg(cfg, steps_per_epoch)
         max_epochs, max_steps = sched["max_epochs"], int(sched["max_steps"])
@@ -842,18 +1052,23 @@ def train(
         early_stopping = bool(cfg.training.get("early_stopping", False))
         patience = int(cfg.training.get("early_stop_patience", 3) or 3)
 
-        write_status(status_file, "TRAINING")
-        progress = JSONTrainingProgressTracker(status_file, total_epochs=max_epochs)
+        if is_main:
+            write_status(status_file, "TRAINING")
+            progress = JSONTrainingProgressTracker(status_file, total_epochs=max_epochs)
         # per-image and per-window draws on the host, fields on the device,
-        # both seeded
+        # both seeded; every rank draws the global batch's and keeps its rows
         data_seed = int(cfg.training.get("rng_seed_data_pt", 0))
         unlabeled_loader = getattr(data_module, "unlabeled_loader", None)
         draw_gen = torch.Generator().manual_seed(data_seed)
         field_gen = torch.Generator(device).manual_seed(data_seed)
         logger.info(
             f"training {meta['model_type']}/{cfg.model.backbone} for {max_epochs} epochs x "
-            f"{steps_per_epoch} steps on {device}"
+            f"{steps_per_epoch} steps on {device}" + (f", rank {rank} of {world}" if world > 1 else "")
         )
+        # this rank's unlabeled frames: its run of one stream's window (every
+        # rank on this host), or the whole of its own shard's window
+        _, num_shards = mesh.stream_shard()
+        context = meta["model_type"] == "heatmap_mhcrnn"
 
         history: list[dict] = []
         best_val = float("inf")
@@ -864,7 +1079,7 @@ def train(
                 resume_path, state, draw_gen, field_gen, data_seed
             )
             last_ckpt_path = resume_path
-        profiler = _start_profiler(device) if cfg.training.get("profiler", False) else None
+        profiler = _start_profiler(device) if cfg.training.get("profiler", False) and is_main else None
         for epoch in range(start_epoch, max_epochs):
             steps_this_epoch = min(steps_per_epoch, max_steps - state.step)
             if steps_this_epoch <= 0:
@@ -874,13 +1089,26 @@ def train(
                 draws = None if augmenter.identity else augmenter.sample(draw_gen, n_images, field_gen)
                 draws_3d = augment3d.sample(draw_gen, len(idxs)) if draws_3d_on else None
                 mask_scores = sample_mask_scores(field_gen, n_images, (height, width)) if masking else None
+                if world > 1:
+                    idxs, valid = mesh.shard_rows(idxs, rank, world), mesh.shard_rows(valid, rank, world)
+                    draws, draws_3d = _shard_draws(draws, rank, world), _shard_draws(draws_3d, rank, world)
+                    mask_scores = None if mask_scores is None else mesh.shard_rows(mask_scores, rank, world)
                 unlabeled = video_draws = None
                 if unlabeled_loader is not None:
-                    unlabeled = _window_on_device(next(unlabeled_loader), device)
-                    frames = unlabeled["frames"]
-                    video_draws = sample_video_draws(
-                        draw_gen, math.prod(frames.shape[:-3]), *frames.shape[-3:-1], field_gen
-                    )
+                    window = next(unlabeled_loader)
+                    t = window["frames"].shape[0]
+                    # the global window's draws: one noise field a frame and view
+                    video_draws = sample_video_draws(draw_gen, t * num_shards * num_views, height, width, field_gen)
+                    if world > 1:
+                        if num_shards > 1:
+                            start, stop = rank * t, (rank + 1) * t
+                        else:
+                            start, stop = _window_frames(t, context, rank, world)
+                            window = {k: v[start:stop] for k, v in window.items()}
+                        video_draws = dataclasses.replace(
+                            video_draws, noise=video_draws.noise[start * num_views:stop * num_views]
+                        )
+                    unlabeled = _window_on_device(window, device)
                 logs = train_step_cached(
                     state,
                     cache,
@@ -892,7 +1120,7 @@ def train(
                     mask_scores,
                     draws_3d,
                 )
-                if state.step % log_every == 0:
+                if state.step % log_every == 0 and is_main:
                     record = {
                         **{k: float(v) for k, v in logs.items()},
                         "lr-head": head_sched(state.step),
@@ -904,13 +1132,15 @@ def train(
                             writer.add_scalar(k, v, state.step)
                         writer.add_scalar("epoch", epoch, state.step)
 
-            progress.update(epoch)
+            if is_main:
+                progress.update(epoch)
             run_val = (epoch + 1) % check_val_every == 0 or epoch == max_epochs - 1
             if not (run_val and len(data_module.val_dataset) > 0):
                 continue
             val_logs = run_validation_epoch(
                 data_module.val_batches(),
                 lambda b: eval_step(state, _on_device(b, device), stage="val")[0],
+                device,
             )
             history.append({"step": state.step, "epoch": epoch, **val_logs})
             if writer is not None:
@@ -919,34 +1149,44 @@ def train(
             val_loss = val_logs.get("val_supervised_loss", float("inf"))
             if val_loss < best_val:
                 best_val, bad_val_checks = val_loss, 0
-                if best_ckpt_path:
-                    ckpt_utils.remove_checkpoint(best_ckpt_path)
-                best_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-best.ckpt")
-                ckpt_utils.save_module(best_ckpt_path, model, state.step, epoch)
+                if is_main:
+                    if best_ckpt_path:
+                        ckpt_utils.remove_checkpoint(best_ckpt_path)
+                    best_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-best.ckpt")
+                    ckpt_utils.save_module(best_ckpt_path, model, state.step, epoch)
             else:
                 bad_val_checks += 1
-            if ckpt_every and (epoch + 1) % int(ckpt_every) == 0:
+            if is_main:
+                if ckpt_every and (epoch + 1) % int(ckpt_every) == 0:
+                    ckpt_utils.save_module(
+                        os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
+                    )
+                # the full training state, for training.resume: one a run,
+                # refreshed at every validation
+                prev_last = last_ckpt_path
+                last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
                 ckpt_utils.save_module(
-                    os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}.ckpt"), model, state.step, epoch
+                    last_ckpt_path, model, state.step, epoch,
+                    extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
+                           "best_ckpt_path": best_ckpt_path or "",
+                           "draw_generator": draw_gen.get_state().numpy(),
+                           "field_generator": field_gen.get_state().cpu().numpy()},
+                    optimizer=optimizer,
                 )
-            # the full training state, for training.resume: one a run,
-            # refreshed at every validation
-            prev_last = last_ckpt_path
-            last_ckpt_path = os.path.join(ckpt_dir, f"epoch={epoch}-step={state.step}-last.ckpt")
-            ckpt_utils.save_module(
-                last_ckpt_path, model, state.step, epoch,
-                extra={"best_val": float(best_val), "bad_val_checks": int(bad_val_checks),
-                       "best_ckpt_path": best_ckpt_path or "",
-                       "draw_generator": draw_gen.get_state().numpy(),
-                       "field_generator": field_gen.get_state().cpu().numpy()},
-                optimizer=optimizer,
-            )
-            if prev_last and prev_last != last_ckpt_path:
-                ckpt_utils.remove_checkpoint(prev_last)
+                if prev_last and prev_last != last_ckpt_path:
+                    ckpt_utils.remove_checkpoint(prev_last)
             if early_stopping and bad_val_checks >= patience and epoch + 1 >= min_epochs:
                 logger.info(f"early stopping at epoch {epoch}")
                 break
 
+        if not is_main:
+            # rank 0 writes the last checkpoint and evaluates (reference
+            # train.py:435-436)
+            logger.info(f"training finished in {time.time() - t_start:.1f}s")
+            return TrainedModel(
+                cfg=cfg, model_dir=model_dir, model=model, data_module=data_module, history=history,
+                device=device, predict_fn=PredictStep(model, height, width, COMPUTE_DTYPE, decode_method, num_views),
+            )
         if best_ckpt_path is None:  # always leave a checkpoint
             best_ckpt_path = os.path.join(
                 ckpt_dir, f"epoch={max_epochs - 1}-step={state.step}-best.ckpt"

@@ -8,7 +8,10 @@ to the device through pinned buffers on a side stream, and predicted without
 a host sync per batch; the results are fetched once at the end and written
 by ``utils/predictions.PredictionHandler``. The labeled video is drawn with
 OpenCV. A multiview model predicts a session's views together, from
-frame-synchronized ``(T, V, h, w, 3)`` batches, into one CSV a view.
+frame-synchronized ``(T, V, h, w, 3)`` batches, into one CSV a view. With
+``transfer_format="yuv420"`` the batches cross to the device as planar I420
+(``(T, h*3/2, w)``, multiview ``(T, V, h*3/2, w)``), half the bytes, and the
+predict step converts them with the I420 kernel.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ def predict_video(
     compute_metrics: bool = True,
     bbox_df=None,
     progress_file=None,
+    transfer_format: str = "rgb",
 ):
     """Predict one video; write ``video_preds/<stem>.csv`` (or ``preds_file``),
     its metric side CSVs and, with ``generate_labeled_video``, a labeled mp4
@@ -88,9 +92,10 @@ def predict_video(
     optional per-frame [x, y, h, w] DataFrame: each frame is cropped to its
     box and the keypoints are mapped back through it (reference
     dali.py:332-396). ``progress_file``: JSON progress that steps as each
-    batch's result is fetched. A failure of the metrics or of the labeled
-    video is logged and leaves the predictions written, as in the JAX
-    package."""
+    batch's result is fetched. ``transfer_format``: ``rgb`` or ``yuv420``,
+    the layout of the batches ``predict_fn`` takes (3-d I420 under
+    ``yuv420``). A failure of the metrics or of the labeled video is logged
+    and leaves the predictions written, as in the JAX package."""
     import cv2
 
     from lightning_pose_tpu_torch.data.datatypes import PredictionResult
@@ -106,6 +111,7 @@ def predict_video(
         resize_width=int(cfg.data.image_resize_dims.width),
         bbox_df=bbox_df,
         do_context=do_context,
+        transfer_format=transfer_format,
     )
     # keypoints go back to the original resolution through a full-frame
     # bbox, or through the per-frame crop bboxes
@@ -198,6 +204,7 @@ def predict_video_multiview(
     compute_metrics: bool = True,
     output_dir: str | None = None,
     progress_file=None,
+    transfer_format: str = "rgb",
 ):
     """Predict one session, one video a view, frame-synchronized; write
     ``video_preds/<stem>.csv`` for each view's video (or into
@@ -208,8 +215,9 @@ def predict_video_multiview(
     ``predict_fn(images_uint8, bbox)`` takes a ``(T, V, h, w, 3)`` batch and
     its ``(T, 4V)`` full-frame bboxes on ``device``; for a context model,
     ``T`` is ``dali.context.predict.sequence_length``, batches overlap by 4
-    frames, and ``predict_fn`` gives one row per window. A failure of the
-    metrics or of a labeled video is logged, as in the JAX package."""
+    frames, and ``predict_fn`` gives one row per window. ``transfer_format``
+    ``yuv420``: ``(T, V, h*3/2, w)`` I420 batches. A failure of the metrics
+    or of a labeled video is logged, as in the JAX package."""
     from lightning_pose_tpu_torch.data.datatypes import MultiviewPredictionResult
     from lightning_pose_tpu_torch.data.video import MultiviewPredictVideoLoader
     from lightning_pose_tpu_torch.utils.predictions import PredictionHandler
@@ -222,6 +230,7 @@ def predict_video_multiview(
         resize_height=int(cfg.data.image_resize_dims.height),
         resize_width=int(cfg.data.image_resize_dims.width),
         do_context=do_context,
+        transfer_format=transfer_format,
     )
     bbox = torch.tensor(
         [[c for v in video_file_per_view for c in (0.0, 0.0, *_frame_size(v))]] * seq_len,

@@ -225,14 +225,28 @@ def test_export_then_exported_runtime_predicts_as_eager(cli_model_dir, tmp_path)
 
 
 @pytest.mark.parametrize(
-    "extra, match",
-    [(["--data_parallel"], "item 8"), (["--overrides", "eval.video_transfer_format=yuv420"], "item 5")],
+    "extra, max_px",
+    [(["--data_parallel"], 1e-3), (["--overrides", "eval.video_transfer_format=yuv420"], 3.0)],
+    ids=["data_parallel", "yuv420"],
 )
-def test_predict_unported_options_raise(cli_model_dir, tmp_path, extra, match):
+def test_predict_unported_options_raise(cli_model_dir, tmp_path, monkeypatch, extra, max_px):
+    """The options that raised until they were ported now run:
+    ``--data_parallel`` (two patched CPU replicas) gives the plain CSV, and
+    the yuv420 transfer stays within a few pixels of the rgb one (the
+    chroma of 2x2 blocks is shared)."""
+    import torch
+
+    from lightning_pose_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "devices", lambda num_devices=None: [torch.device("cpu")] * 2)
     video = Path(_read_config(cli_model_dir)["data_dir"]) / "videos" / "session0.mp4"
-    with pytest.raises(NotImplementedError, match=match):
-        main(["predict", str(cli_model_dir), str(video), "--skip_viz", "--device", "cpu",
-              "--output_dir", str(tmp_path), *extra])
+    for name, flags in (("plain", []), ("option", extra)):
+        assert main(["predict", str(cli_model_dir), str(video), "--skip_viz", "--device", "cpu",
+                     "--output_dir", str(tmp_path / name), *flags]) == 0
+    plain, option = _read(tmp_path / "plain" / "session0.csv"), _read(tmp_path / "option" / "session0.csv")
+    assert option.shape == plain.shape == (12, 3 * len(NAMES))
+    xy = np.isin(plain.columns.get_level_values("coords"), ["x", "y"])
+    assert np.abs(option.loc[:, xy].to_numpy() - plain.loc[:, xy].to_numpy()).max() <= max_px
 
 
 def test_predict_runs_on_the_card_unless_asked(cli_model_dir, tmp_path):

@@ -16,7 +16,7 @@ import torch
 
 from lightning_pose_tpu_torch.api.model import PredictStep
 from lightning_pose_tpu_torch.models.factory import build_model
-from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel
+from lightning_pose_tpu_torch.ops import clahe_kernel, decode_kernel, normalize_kernel, warp_kernel, yuv, yuv_kernel
 from lightning_pose_tpu_torch.ops.augment import AugmentationEngine, _clahe_lut_grid
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +93,34 @@ def test_normalize_kernel_matches_plain(cuda_device, shape):
     assert _bf16_ulps(out, ref) <= 1
     out32 = normalize_kernel.normalize(x, torch.float32)
     torch.testing.assert_close(out32, normalize_kernel.normalize_plain(x, torch.float32), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(96, 256, 256), (3, 12, 34)])
+def test_i420_kernel_matches_plain(cuda_device, shape):
+    """The I420 kernel's epilogues against the plain versions: normalized
+    bf16 within 1 ulp of the plain value, or 2e-6 where that value is within
+    2e-6 of 0 (there the fp32 values the two round differ by that much:
+    one FMA against a subtraction and a division, on RGB values that are
+    not integers); normalized fp32 and RGB fp32 within 1e-4 gray (the
+    normalized error times 255 std); one launch a call; the ragged shape
+    exercises the mask of the last block."""
+    n, h, w = shape
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8)).to(cuda_device)
+    before = yuv_kernel.launches
+    out = yuv_kernel.i420_to_normalized(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert yuv_kernel.launches == before + 1
+    assert out.shape == (n, 3, h, w) and out.is_contiguous(memory_format=torch.channels_last)
+    ref = yuv.i420_to_normalized_rgb(x, torch.bfloat16).float()
+    _, exponent = torch.frexp(ref)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), exponent - 8))
+    assert bool(((out.movedim(1, -1).float() - ref).abs() <= ulp.clamp(min=2e-6)).all())
+    std = torch.tensor(yuv.IMAGENET_STD, device=cuda_device)
+    err = (yuv_kernel.i420_to_normalized(x, torch.float32).movedim(1, -1) - yuv.i420_to_normalized_rgb(x)).abs()
+    assert float((err * 255 * std).max()) <= 1e-4
+    rgb = yuv_kernel.i420_to_rgb(x)
+    assert rgb.dtype == torch.float32 and rgb.shape == (n, h, w, 3)
+    torch.testing.assert_close(rgb, yuv.i420_to_rgb(x), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize(

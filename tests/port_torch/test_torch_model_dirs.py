@@ -38,8 +38,8 @@ def test_from_dir2_applies_overrides(model_dir):
     assert out.cfg.to_dict() == ref.cfg.to_dict()
     plain = Model.from_dir2(model_dir, device="cpu")
     assert plain.cfg.to_dict() == Model.from_dir(model_dir, device="cpu").cfg.to_dict()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Model.from_dir2(model_dir, device="cpu", data_parallel=True)
+    parallel = Model.from_dir2(model_dir, hydra_overrides=overrides, device="cpu", data_parallel=True)
+    assert parallel.data_parallel and parallel.cfg.to_dict() == out.cfg.to_dict()
 
 
 def test_output_dir_conventions(model_dir):

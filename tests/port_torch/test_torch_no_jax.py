@@ -112,30 +112,42 @@ new = {"backbones.vit", "heatmap_tracker_multiview", "datasets_multiview", "ops.
        "data.anipose", "data.cameras", "ops.augment3d",
        "cli.main", "cli.friendly", "cli.types", "cli.commands.train", "cli.commands.predict", "cli.commands.export",
        "cli.commands.create_bbox", "cli.commands.smooth_bbox", "cli.commands.crop", "cli.commands.remap",
-       "cli.commands.run_app", "migrations.migrations", "utils.cropzoom", "data.extractor"}
+       "cli.commands.run_app", "migrations.migrations", "utils.cropzoom", "data.extractor",
+       "ops.yuv", "ops.yuv_kernel", "torch.parallel", "parallel.mesh"}
 print(len(names), len(blocked), sum(any(name.endswith(n) for name in names) for n in new))
 """)
     count, n_blocked, n_new = out.split()
-    assert int(count) >= 30 and n_blocked == "0" and n_new == "29"
+    assert int(count) >= 30 and n_blocked == "0" and n_new == "33"
 
 
 def test_predict_path_runs_without_jax(slice_model_dir, slice_video, tmp_path):
+    """Video and frame prediction; the yuv420 transfer, and data-parallel
+    prediction over two (patched) CPU replicas."""
     out = _run(f"""
 import json, sys
 import numpy as np
+import torch
 from lightning_pose_tpu_torch.api.model import Model
+from lightning_pose_tpu_torch.parallel import mesh
 model = Model.from_dir({str(slice_model_dir)!r}, precision="fp32", device="cpu")
 result = model.predict_on_video_file({str(slice_video)!r}, output_dir={str(tmp_path)!r})
 frame = model.predict_frame(np.zeros((60, 80, 3), dtype=np.uint8))
+model.cfg.eval.video_transfer_format = "yuv420"
+yuv = model.predict_on_video_file({str(slice_video)!r}, compute_metrics=False, output_dir={str(tmp_path / "yuv")!r})
+mesh.devices = lambda num_devices=None: [torch.device("cpu")] * 2
+parallel = Model.from_dir({str(slice_model_dir)!r}, precision="fp32", device="cpu", data_parallel=True)
+split = parallel.predict_frame(np.zeros((60, 80, 3), dtype=np.uint8))
 print(json.dumps({{
     "shape": list(result.predictions.shape),
     "finite": bool(np.isfinite(result.predictions.to_numpy()).all()),
     "frame": list(frame["keypoints"].shape),
+    "yuv": list(yuv.predictions.shape),
+    "split": bool(np.abs(split["keypoints"] - frame["keypoints"]).max() < 1e-3),
     "jax": [m for m in sys.modules if m.split(".")[0] in BLOCKED],
 }}))
 """)
     report = json.loads(out.strip().splitlines()[-1])
-    assert report == {"shape": [20, 12], "finite": True, "frame": [4, 2], "jax": []}
+    assert report == {"shape": [20, 12], "finite": True, "frame": [4, 2], "yuv": [20, 12], "split": True, "jax": []}
     assert (tmp_path / "blobs.csv").is_file()
 
 
@@ -207,7 +219,8 @@ print(json.dumps({{
 
 def test_semisupervised_training_path_runs_without_jax(tmp_path):
     """train() with pca_singleview + temporal on a synthetic labeled set and
-    two synthetic mp4s, then prediction from the directory it wrote."""
+    two synthetic mp4s streamed as I420 (yuv420), then prediction from the
+    directory it wrote."""
     out = _run(f"""
 import json, sys
 import numpy as np
@@ -237,6 +250,7 @@ cfg.training.unfreezing_step = 1
 cfg.training.log_every_n_steps = 1
 cfg.training.lr_scheduler_params.multisteplr.milestones = None
 cfg.training.lr_scheduler_params.multisteplr.milestone_steps = [1]
+cfg.training.video_transfer_format = "yuv420"
 result = train(cfg, {str(tmp_path / "model")!r}, skip_evaluation=True, device="cpu")
 frame = Model.from_dir({str(tmp_path / "model")!r}, precision="fp32", device="cpu").predict_frame(
     np.zeros((130, 140, 3), dtype=np.uint8))

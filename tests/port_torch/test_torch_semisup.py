@@ -77,8 +77,8 @@ def test_unlabeled_loader_matches_jax(two_videos):
 
 
 def test_unlabeled_loader_pads_and_refuses(two_videos, tmp_path):
-    """A window past a short video's end repeats its last frame; yuv420 and
-    missing files raise."""
+    """A window past a short video's end repeats its last frame; a yuv420
+    window is planar I420 (even dims only); missing files raise."""
     from lightning_pose_tpu_torch.data.video import UnlabeledVideoLoader, VideoFrameDecoder
 
     loader = UnlabeledVideoLoader([two_videos[1]], 16, 24, 32, decode_threads=1)
@@ -87,8 +87,13 @@ def test_unlabeled_loader_pads_and_refuses(two_videos, tmp_path):
         np.testing.assert_array_equal(window["frames"][13:], np.repeat(window["frames"][12:13], 3, axis=0))
     finally:
         loader.close()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        UnlabeledVideoLoader(two_videos, 8, 32, 32, transfer_format="yuv420")
+    loader = UnlabeledVideoLoader(two_videos, 8, 32, 32, transfer_format="yuv420")
+    try:
+        assert next(loader)["frames"].shape == (8, 48, 32)
+    finally:
+        loader.close()
+    with pytest.raises(ValueError, match="even"):
+        UnlabeledVideoLoader(two_videos, 8, 31, 32, transfer_format="yuv420")
     with pytest.raises(FileNotFoundError):
         UnlabeledVideoLoader([str(tmp_path / "none.mp4")], 8, 32, 32)
     with pytest.raises(ValueError):
@@ -475,14 +480,15 @@ def test_factories_build_the_semisupervised_module(semisup_data):
     [
         ({"losses_to_use": ["pca_singleview"], "view_names": ["top", "bot"]}, NotImplementedError,
          "not implemented for multiview data"),
-        ({"video_transfer_format": "yuv420"}, NotImplementedError, "item 5"),
+        ({"losses_to_use": ["unimodal_mse"], "model_type": "regression"}, NotImplementedError,
+         "only be used with heatmap models"),
         ({"view_names": ["top", "bot"], "model_type": "regression"}, NotImplementedError, "heatmap-based models"),
     ],
 )
 def test_factories_refuse_what_is_not_ported(semisup_data, change, error, match):
     """What the port refuses, as the JAX package does (pca_singleview on
-    multiview data, a regression model on multiview data) or until its
-    ROADMAP item (yuv420)."""
+    multiview data, a unimodal loss on the regression model, a regression
+    model on multiview data)."""
     from lightning_pose_tpu.data.factory import get_dataset as jax_get_dataset
     from lightning_pose_tpu.losses.factory import get_loss_factories as jax_factories
     from lightning_pose_tpu_torch.data.factory import get_data_module
@@ -493,22 +499,41 @@ def test_factories_refuse_what_is_not_ported(semisup_data, change, error, match)
     cfg = _semisup_cfg(semisup_data)
     if "view_names" in change:
         cfg.data.view_names = change["view_names"]
+    if "model_type" in change:
+        cfg.model.model_type = change["model_type"]
     with pytest.raises(error, match=match):
         if "losses_to_use" in change:
             cfg.model.losses_to_use = change["losses_to_use"]
             get_loss_factories(cfg)
-        elif "model_type" in change:
-            cfg.model.model_type = change["model_type"]
-            get_dataset(cfg, str(semisup_data))
         else:
-            cfg.training.video_transfer_format = change["video_transfer_format"]
-            get_data_module(cfg, get_dataset(cfg, str(semisup_data)), str(semisup_data / "videos"))
-    if "view_names" in change:  # the JAX package's own refusals
-        with pytest.raises(error, match=match):
-            if "losses_to_use" in change:
-                jax_factories(cfg)
-            else:
-                jax_get_dataset(cfg, str(semisup_data))
+            get_dataset(cfg, str(semisup_data))
+    with pytest.raises(error, match=match):  # the JAX package's own refusals
+        if "losses_to_use" in change:
+            jax_factories(cfg)
+        else:
+            jax_get_dataset(cfg, str(semisup_data))
+
+
+def test_data_module_streams_yuv420_as_the_jax_package(semisup_data):
+    """``training.video_transfer_format: yuv420`` makes the single-view
+    stream's windows planar I420, the JAX data module's windows bitwise."""
+    from lightning_pose_tpu.data.factory import get_data_module as jax_get_data_module
+    from lightning_pose_tpu_torch.data.factory import get_data_module, get_dataset
+
+    cfg = _semisup_cfg(semisup_data)
+    cfg.training.video_transfer_format = "yuv420"
+    dataset = get_dataset(cfg, str(semisup_data))
+    dm = get_data_module(cfg, dataset, str(semisup_data / "videos"))
+    ref = jax_get_data_module(cfg, dataset, str(semisup_data / "videos"))
+    try:
+        for _ in range(2):
+            window, expected = next(dm.unlabeled_loader), next(ref.unlabeled_loader)
+            assert window["frames"].shape == (6, 192, 128) and window["frames"].dtype == np.uint8
+            np.testing.assert_array_equal(window["frames"], expected["frames"])
+            np.testing.assert_array_equal(window["bbox"], expected["bbox"])
+    finally:
+        dm.close()
+        ref.close()
 
 
 def test_empty_loss_factory_total_lies_on_the_inputs_device():

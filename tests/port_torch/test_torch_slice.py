@@ -119,17 +119,23 @@ def _variant(model_dir: Path, tmp_path: Path, override: str) -> Path:
     ],
 )
 def test_unported_options_raise(slice_model_dir, slice_video, tmp_path, override, call):
+    """The options that raised until they were ported: the yuv420 transfer
+    now predicts every frame of the video, through the I420 route."""
     model = Model.from_dir(_variant(slice_model_dir, tmp_path, override), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "video":
-            model.predict_on_video_file(slice_video)
-        else:
-            model.predict_frame(np.zeros((64, 64, 3), dtype=np.uint8))
+    assert model._video_transfer_format() == "yuv420"
+    df = model.predict_on_video_file(slice_video, compute_metrics=False, output_dir=tmp_path / "out").predictions
+    assert df.shape == (20, 12) and np.isfinite(df.to_numpy()).all()
 
 
 def test_unported_entry_points_raise(slice_model_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model.from_dir(slice_model_dir, device="cpu", data_parallel=True)
+    """``data_parallel=True`` is ported: with one device it predicts as the
+    plain route."""
+    frame = np.random.default_rng(0).integers(0, 255, (60, 80, 3), dtype=np.uint8)
+    plain = Model.from_dir(slice_model_dir, precision="fp32", device="cpu").predict_frame(frame)
+    parallel = Model.from_dir(slice_model_dir, precision="fp32", device="cpu", data_parallel=True)
+    assert parallel.data_parallel
+    out = parallel.predict_frame(frame)
+    np.testing.assert_array_equal(out["keypoints"], plain["keypoints"])
 
 
 @pytest.mark.parametrize("method", ["compile", "export", "compile_exported"])
