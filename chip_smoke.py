@@ -7,8 +7,8 @@ Phases, each fatal on failure:
   1. device: CUDA must be available (there is no CPU path); prints the
      ``nvidia-smi`` name and power limit.
   2. build: every kernel from the sources in the checkout, the CUDA sources
-     (decode, its backward, warp, CLAHE) by one nvcc each, started together,
-     then the Triton kernels (normalize, I420) by their first calls.
+     (decode, its backward, warp, CLAHE, I420) by one nvcc each, started
+     together, then the Triton kernel (normalize) by its first call.
   3. kernel vs plain PyTorch version on the card, at the product shapes;
      the decode's backward kernel against autograd of the plain decode (544
      maps, 64 -> 256; a rectangular shape; df 3), and the decode forward
@@ -267,18 +267,19 @@ Phases, each fatal on failure:
         predicting the cropped video), ``predict --bbox_dir`` and ``remap``
         of the cropped video's CSV: shapes, finite values, launches.
   19. the yuv420 transfer and multi-GPU:
-     a. the I420 kernel (Triton) against its plain version at the predict
-        batch (96, 384, 256) -> bf16 and fp32, the multiview batch (64, 2,
-        384, 256) -> bf16 and the unlabeled window (32, 384, 256) -> fp32
-        RGB (1 bf16 ulp, 1e-4 gray), each timed with the L2 flushed beside
-        its bound;
+     a. the I420 kernel (CUDA C++, csrc/i420.cu) against its plain version
+        at the predict batch (96, 384, 256) -> bf16 and fp32, the multiview
+        batch (64, 2, 384, 256) -> bf16 and the unlabeled window (32, 384,
+        256) -> fp32 RGB (1 bf16 ulp, 1e-4 gray), each timed with the L2
+        flushed beside its bound and, at the bf16 predict batch, beside the
+        first design's recorded time (I420_FIRST_DESIGN_MS);
      b. phase 8's trained directory predicts a 1000-frame mp4 through the
         yuv420 and the rgb transfer: frames/s of each over alternating runs
-        (bf16), launches (yuv420: the I420 kernel and decode 1 a batch,
-        normalize none), the yuv420 keypoints against the rgb ones at fp32
+        (bf16), launches (yuv420: the I420 CUDA kernel and decode 1 a
+        batch, normalize none), the yuv420 keypoints against the rgb ones at fp32
         (median under 1 px, 95th percentile under 3 px);
      c. a semi-supervised train() of 6 steps on an I420 unlabeled stream:
-        the I420 kernel 1 a step;
+        the I420 CUDA kernel 1 a step;
      d. train() as rank 0 of an NCCL group of one (``LP_TPU_COORDINATOR``,
         ``LP_TPU_NUM_PROCESSES=1``, ``LP_TPU_PROCESS_ID=0``), and with
         ``training.num_gpus: 2`` (one rank a visible GPU), against the same
@@ -362,6 +363,10 @@ DECODE_GRAD_REL_TOL = 1e-3
 # window's shape, as PERF.md records it (H100 80GB HBM3, 700 W); this run
 # does not time that design, it only prints the recorded time beside its own
 BACKWARD_FIRST_DESIGN_MS = 0.7364
+# the I420 kernel's first design (Triton, a program a block of 256 pixels of
+# a row) at the bf16 predict batch with the L2 flushed, as PERF.md records it
+# (H100 80GB HBM3, 700 W); printed beside this run's time, not timed here
+I420_FIRST_DESIGN_MS = 0.03307
 # the context model (heatmap_mhcrnn): train() steps of each configuration,
 # the unlabeled window's 5-frame windows, the frames of the synthetic video
 # (11 batches of 92 windows, not a multiple of 92: the first batch's
@@ -506,8 +511,8 @@ KERNELS = {
         "replaces": "none: the gradient of lightning_pose_tpu/ops/softargmax.py:123-147, XLA autodiff",
     },
     "i420": {
-        "route": "triton",
-        "source": "lightning_pose_tpu_torch/ops/yuv_kernel.py",
+        "route": "cuda",
+        "source": "lightning_pose_tpu_torch/csrc/i420.cu",
         "replaces": "none: lightning_pose_tpu/ops/yuv.py:27-62, plain XLA",
     },
 }
@@ -4394,6 +4399,9 @@ def i420_phase(rng, card: str, errors: dict) -> tuple:
         log(f"phase 19a I420 kernel {label} {tuple(x.shape)}, L2 flushed: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; "
             f"bound {bound_ms:.5f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), {bound_ms / ms:.1%} of it reached {card}")
         if out is None:
+            log(f"phase 19a I420 kernel {label}: the first design (Triton), not timed in this run, is recorded in "
+                f"PERF.md at {I420_FIRST_DESIGN_MS} ms ({bound_ms / I420_FIRST_DESIGN_MS:.1%} of the bound); this run "
+                f"{ms:.5f} ms, {I420_FIRST_DESIGN_MS / ms:.2f}x as fast")
             out = (ms, plain_ms, None, (bound_ms, bound_by),
                    f"{tuple(x.shape)} uint8 I420 -> bf16 normalized, 19b's predict batch")
     return out
@@ -4636,19 +4644,18 @@ def main() -> int:
     # -- 2. build: one nvcc per CUDA source, started together; then the
     # Triton kernel by its first call
     t0 = time.perf_counter()
-    nvcc_s = cuda_build.build("decode.cu", "decode_grad.cu", "warp.cu", "clahe.cu")
+    nvcc_s = cuda_build.build("decode.cu", "decode_grad.cu", "warp.cu", "clahe.cu", "i420.cu")
     decode_kernel._library()
     decode_kernel._grad_library()
     warp_kernel._library()
     clahe_kernel._library()
+    yuv_kernel._library()
     triton_s = {
         "normalize": timed(lambda: normalize_kernel.normalize(
             torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device=dev))),
-        "i420": timed(lambda: yuv_kernel.i420_to_normalized(
-            torch.zeros((1, 6, 4), dtype=torch.uint8, device=dev), torch.bfloat16)),
     }
     log(f"phase 2 build: nvcc started together, {', '.join(f'{k} done after {v:.1f} s' for k, v in nvcc_s.items())}; "
-        f"Triton first calls {', '.join(f'{k} {v:.1f} s' for k, v in triton_s.items())}; "
+        f"Triton first call {', '.join(f'{k} {v:.1f} s' for k, v in triton_s.items())}; "
         f"{time.perf_counter() - t0:.1f} s in all")
 
     # -- 3. kernel vs plain at product shapes ---------------------------------

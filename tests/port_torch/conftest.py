@@ -104,17 +104,26 @@ def load_flax_backbone():
     return _load_flax_backbone
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def few_torch_threads():
-    """Two torch threads for a module's tests: the suite runs several
-    workers on one machine, and a worker whose torch takes every core
-    slows the others most in the heavy training tests."""
+    """Two torch threads for every module's tests, and for the processes
+    they start (``OMP_NUM_THREADS``, which a fresh torch reads): the suite
+    runs several workers on one machine, and a worker whose torch takes
+    every core slows the others most in the heavy training tests (one
+    warm-started ``train()`` took 9x its time alone in a 6-worker run)."""
+    import os
+
     import torch
 
-    threads = torch.get_num_threads()
+    threads, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(2)
+    os.environ["OMP_NUM_THREADS"] = "2"
     yield
     torch.set_num_threads(threads)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 
 
 @pytest.fixture(scope="session")

@@ -26,7 +26,6 @@ import torch
 from lightning_pose_tpu.models.backbones import vit as jvit
 from lightning_pose_tpu_torch.models.backbones import vit as pvit
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 SMALL_VIT = (64, 2, 2, 16)
 # train() and the JAX package's resume of it: width 32, one block, 2 views

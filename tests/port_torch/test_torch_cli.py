@@ -178,7 +178,7 @@ def _assert_close(port: pd.DataFrame, ref: pd.DataFrame) -> None:
 
 
 @pytest.mark.parametrize("kind", ["video", "csv"])
-def test_predict_matches_litpose_predict(cli_model_dir, tmp_path, kind, few_torch_threads):
+def test_predict_matches_litpose_predict(cli_model_dir, tmp_path, kind):
     """``predict`` of a video and of a labeled CSV at fp32 writes the JAX
     ``litpose predict``'s files, with its numbers within slice 1's limits."""
     data = Path(_read_config(cli_model_dir)["data_dir"])

@@ -16,7 +16,6 @@ from lightning_pose_tpu_torch.models.backbones.efficientnet import EFFICIENTNET_
 from lightning_pose_tpu_torch.models.backbones.factory import build_backbone
 from lightning_pose_tpu_torch.train.checkpoints import load_flax_variables, state_dict_to_flax
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 64
 # fp32 on both sides, only the order of the sums differs: within this share

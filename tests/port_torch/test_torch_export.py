@@ -143,7 +143,7 @@ def test_exported_runtime_needs_exactly_one_export(slice_model_dir, tmp_path, ex
         Model.from_dir(directory, device="cpu").use_exported_runtime()
 
 
-def test_compile_predicts_a_video_as_eager(exported, slice_video, tmp_path, few_torch_threads):
+def test_compile_predicts_a_video_as_eager(exported, slice_video, tmp_path):
     """``compile()`` (torch.compile, static shapes) runs the canonical
     batch, twice as it may be called, then serves the video path."""
     eager, _ = exported

@@ -95,17 +95,31 @@ def test_normalize_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(out32, normalize_kernel.normalize_plain(x, torch.float32), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(96, 256, 256), (3, 12, 34)])
-def test_i420_kernel_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize(
+    "shape, offset",
+    [
+        ((96, 256, 256), 0),  # the vector path, a warp a row pair
+        ((5, 8, 264), 0),  # W a multiple of 8 but not of 256: a mostly idle last warp
+        ((3, 12, 34), 0),  # W not a multiple of 8: the scalar path, a 2-column last strip
+        ((2, 4, 8), 0),  # a single strip
+        ((5, 8, 264), 1),  # an input view at a 1-byte offset: the scalar path
+    ],
+)
+def test_i420_kernel_matches_plain(cuda_device, shape, offset):
     """The I420 kernel's epilogues against the plain versions: normalized
     bf16 within 1 ulp of the plain value, or 2e-6 where that value is within
     2e-6 of 0 (there the fp32 values the two round differ by that much:
     one FMA against a subtraction and a division, on RGB values that are
     not integers); normalized fp32 and RGB fp32 within 1e-4 gray (the
-    normalized error times 255 std); one launch a call; the ragged shape
-    exercises the mask of the last block."""
+    normalized error times 255 std); one launch a call. The shapes cover the
+    16-byte path, a partly filled warp, the scalar path of a width that is
+    not a multiple of 8 and a single strip; a misaligned input runs the
+    scalar path and matches as well."""
     n, h, w = shape
-    x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8)).to(cuda_device)
+    frames = np.random.default_rng(2).integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8)
+    x = torch.empty(frames.size + offset, dtype=torch.uint8, device=cuda_device)[offset:].view(frames.shape)
+    x.copy_(torch.from_numpy(frames))
+    assert x.data_ptr() % 16 == offset
     before = yuv_kernel.launches
     out = yuv_kernel.i420_to_normalized(x, torch.bfloat16)
     torch.cuda.synchronize()
@@ -116,9 +130,14 @@ def test_i420_kernel_matches_plain(cuda_device, shape):
     ulp = torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), exponent - 8))
     assert bool(((out.movedim(1, -1).float() - ref).abs() <= ulp.clamp(min=2e-6)).all())
     std = torch.tensor(yuv.IMAGENET_STD, device=cuda_device)
-    err = (yuv_kernel.i420_to_normalized(x, torch.float32).movedim(1, -1) - yuv.i420_to_normalized_rgb(x)).abs()
+    before = yuv_kernel.launches
+    out32 = yuv_kernel.i420_to_normalized(x, torch.float32)
+    assert yuv_kernel.launches == before + 1
+    err = (out32.movedim(1, -1) - yuv.i420_to_normalized_rgb(x)).abs()
     assert float((err * 255 * std).max()) <= 1e-4
+    before = yuv_kernel.launches
     rgb = yuv_kernel.i420_to_rgb(x)
+    assert yuv_kernel.launches == before + 1
     assert rgb.dtype == torch.float32 and rgb.shape == (n, h, w, 3)
     torch.testing.assert_close(rgb, yuv.i420_to_rgb(x), rtol=0, atol=1e-4)
 

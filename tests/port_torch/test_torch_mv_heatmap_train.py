@@ -42,8 +42,6 @@ F64_RTOL = 1e-6
 PX_TOL = 1e-3
 CONF_TOL = 1e-4
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
-
 
 def _flat(tree) -> np.ndarray:
     return np.concatenate([np.asarray(x).ravel() for x in jax.tree_util.tree_leaves(tree)])

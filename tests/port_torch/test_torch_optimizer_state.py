@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 64
 KEYPOINTS = 3

@@ -281,7 +281,7 @@ def _train_cfg(data: Path, semi: bool):
 
 
 @pytest.mark.parametrize("semi", [False, True], ids=["supervised", "pca_singleview+temporal"])
-def test_train_on_two_cpu_ranks_matches_one(tmp_path, monkeypatch, few_torch_threads, semi):
+def test_train_on_two_cpu_ranks_matches_one(tmp_path, monkeypatch, semi):
     """``training.num_gpus: 2`` with ``device="cpu"``: two spawned gloo ranks
     take the steps one process takes on the same global batch (fp32, the
     compute dtype reaching the workers as an argument); rank 0 writes the
@@ -328,7 +328,7 @@ def test_train_on_two_cpu_ranks_matches_one(tmp_path, monkeypatch, few_torch_thr
             np.testing.assert_allclose(b[k].numpy(), a[k].numpy(), rtol=TRAJ_STATS_RTOL, atol=TRAJ_STATS_RTOL)
 
 
-def test_a_failing_rank_makes_train_raise(tmp_path, few_torch_threads):
+def test_a_failing_rank_makes_train_raise(tmp_path):
     """A rank that raises makes ``train()`` raise with its traceback: here
     every rank, on a labeled set that is not there."""
     import torch.multiprocessing as mp

@@ -25,7 +25,6 @@ from lightning_pose_tpu_torch.utils.synthetic import (
     torchvision_resnet_state_dict,
 )
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 64
 # fp32 on both sides, only the order of the sums differs: within this share

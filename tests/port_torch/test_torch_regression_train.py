@@ -12,7 +12,6 @@ import numpy as np
 import pandas as pd
 import pytest
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 128
 NAMES = ["nose", "tail", "paw_left", "paw_right"]

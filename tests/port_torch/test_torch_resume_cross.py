@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 128
 NAMES = ["nose", "tail", "paw_left", "paw_right"]

@@ -25,7 +25,6 @@ import torch
 from lightning_pose_tpu.models.backbones import vit as jvit
 from lightning_pose_tpu_torch.models.backbones import vit as pvit
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 IMAGE = 128
 NAMES = ["nose", "tail", "paw_left", "paw_right"]

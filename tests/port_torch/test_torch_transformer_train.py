@@ -26,7 +26,6 @@ from lightning_pose_tpu_torch.models.backbones import factory as pfactory
 from lightning_pose_tpu_torch.models.backbones import hiera as phiera
 from lightning_pose_tpu_torch.models.backbones import vit as pvit
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 SMALL_VIT = (64, 2, 2, 16)
 HIERA_WIDTH = 16
