@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from lightning_pose_tpu_torch import native
+from lightning_pose_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -143,6 +144,8 @@ class PredictVideoLoader:
     end FILL-padded with the last frame. ``step`` is ``T``, or ``T - 4``
     with ``do_context``: a context model's windows overlap by 4 frames, so
     every frame but the first and last two is the center of one window.
+    Each window's seek, decode and convert is the span ``lp.loader.decode``
+    on the thread that decodes it.
     """
 
     def __init__(
@@ -217,31 +220,34 @@ class PredictVideoLoader:
         try:
             # decode raw BGR frames sequentially (the codec is serial), then
             # convert and resize a whole window in one native call; a
-            # rolling buffer carries the overlap of context windows over
+            # rolling buffer carries the overlap of context windows over.
+            # One span a window: its reads and its convert
             n_batches = len(self)
             buf: list[np.ndarray] = []
             start = emitted = 0
-            while True:
-                frame = decoder.read_raw()
-                if frame is None:
-                    break
-                buf.append(frame)
-                if len(buf) == self.seq_len:
-                    q.put(self._convert(buf, start))
-                    emitted += 1
-                    buf = buf[self.step:]
-                    start += self.step
-            # the tail: FILL policy, repeat the last decoded frame (reference
-            # dali.py:699-760); context windows pad until every center of
-            # the counted frames has had its window
-            tails = n_batches - emitted if self.do_context else int(bool(buf))
-            for _ in range(tails):
-                window = buf[: self.seq_len] or [
-                    np.zeros((decoder.orig_height, decoder.orig_width, 3), dtype=np.uint8)
-                ]
-                while len(window) < self.seq_len:
-                    window.append(window[-1])
-                q.put(self._convert(window, start))
+            ended = False
+            while emitted < n_batches:
+                with tracing.span("lp.loader.decode"):
+                    while not ended and len(buf) < self.seq_len:
+                        frame = decoder.read_raw()
+                        ended = frame is None
+                        if not ended:
+                            buf.append(frame)
+                    # past the end, the FILL policy repeats the last decoded
+                    # frame (reference dali.py:699-760): one padded window
+                    # of the tail, or, for context windows, as many as it
+                    # takes for every center of the counted frames to have
+                    # had its window
+                    if len(buf) < self.seq_len and not (buf or self.do_context):
+                        break
+                    window = buf[: self.seq_len] or [
+                        np.zeros((decoder.orig_height, decoder.orig_width, 3), dtype=np.uint8)
+                    ]
+                    while len(window) < self.seq_len:
+                        window.append(window[-1])
+                    batch = self._convert(window, start)
+                q.put(batch)
+                emitted += 1
                 buf = buf[self.step:]
                 start += self.step
         finally:
@@ -296,7 +302,8 @@ class PredictVideoLoader:
                             cond.wait()
                         if errors:
                             return
-                    batch = self._decode_window(decoder, k)
+                    with tracing.span("lp.loader.decode"):
+                        batch = self._decode_window(decoder, k)
                     with cond:
                         results[k] = batch
                         cond.notify_all()
